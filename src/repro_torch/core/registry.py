@@ -1,0 +1,461 @@
+"""Primitive registry: central backend dispatch with a per-primitive tuning
+table (counterpart of ``repro/core/registry.py``).
+
+Every AK primitive of the port is registered ONCE as a :class:`Primitive`
+record carrying its portable (``torch``) implementation, its CUDA-kernel
+implementation (``None`` where the portable one is already right for every
+device, as for ``bincount``) and its tunable defaults.
+``Primitive.__call__`` does the whole dispatch in one place:
+
+  1. resolve the backend policy through :mod:`repro_torch.core.dispatch`
+     (``auto`` reads the operand's device; scoped overrides respected);
+  2. demote cuda -> torch below the primitive's ``switch_below`` element
+     count (AK's host-finish trade-off, a table entry);
+  3. call the implementation inside the tuning scope its knobs select and
+     under a launch-attribution label, so the launch counter breaks its
+     total down per primitive;
+  4. count calls and hits, where a hit is a call that found its kernels
+     already built and loaded.
+
+PyTorch runs eagerly, so the port's one cache of compiled code is the
+kernel library cache of :mod:`repro_torch.kernels._build`; the
+reference's jit cache and its ``traces``/``uncached`` counters have no
+counterpart.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+import types
+from typing import Callable
+
+import torch
+
+from repro_torch.core import dispatch
+from repro_torch.kernels import _build
+from repro_torch.kernels import common as KC
+from repro_torch.kernels import hist_kernel, merge_kernel, ref as kref
+from repro_torch.kernels import search_kernel, sort_kernel
+from repro_torch.runtime import telemetry
+
+
+# --------------------------------------------------------------------------
+# Tuning table
+# --------------------------------------------------------------------------
+
+#: Tunables of the port. ``switch_below``: element count under which a cuda
+#: request is demoted to the portable path (0 = never); every primitive
+#: with a kernel takes it. The bitonic network's family also takes
+#: ``block_rows``/``block_cols`` (its block of rows x cols keys, one CTA's
+#: shared-memory tile; None = 8 x 1024) and ``sort_hyper``, which exists
+#: only so that tuning tables read the same on both packages: the CUDA
+#: network runs the unfused layout, so only None or 0 are accepted.
+TUNABLE_KEYS = ("switch_below", "block_rows", "block_cols", "sort_hyper")
+
+_COMMON_DEFAULTS = {
+    "switch_below": 0,
+    "block_rows": None,
+    "block_cols": None,
+    "sort_hyper": None,
+}
+
+
+def _validate_tuning(name: str, kv: dict, allowed=TUNABLE_KEYS) -> None:
+    for k, v in kv.items():
+        if k not in TUNABLE_KEYS:
+            raise KeyError(
+                f"unknown tunable {k!r} for primitive {name!r}; "
+                f"valid keys: {TUNABLE_KEYS}"
+            )
+        if k not in allowed:
+            raise KeyError(
+                f"primitive {name!r} does not support tunable {k!r} "
+                f"(its kernels ignore it); supported: {tuple(allowed)}"
+            )
+        if k == "switch_below" and (not isinstance(v, int) or v < 0):
+            raise ValueError(
+                f"switch_below must be a non-negative int, got {v!r}"
+            )
+        if k == "block_rows" and v is not None and (
+            v <= 0 or v % KC.SUBLANES or v & (v - 1)
+        ):
+            raise ValueError(
+                f"block_rows must be a power-of-two multiple of "
+                f"{KC.SUBLANES} (bitonic network wiring), got {v!r}"
+            )
+        if k == "block_cols" and v is not None and (
+            v < KC.LANES or v & (v - 1) or v % KC.LANES
+        ):
+            raise ValueError(
+                f"block_cols must be a power-of-two multiple of {KC.LANES}"
+            )
+        if k == "sort_hyper" and v not in (None, 0):
+            raise ValueError(
+                f"sort_hyper must be None or 0: the CUDA network runs the "
+                f"unfused layout (the fused hyper-block window is not "
+                f"ported yet), got {v!r}"
+            )
+
+
+class TuningTable:
+    """Central per-primitive knobs. Precedence, weakest first: registered
+    defaults < active named presets (``preset()`` scopes) < global
+    ``set()`` < scoped ``overrides()`` (innermost wins). Scoped state is
+    thread-local; ``set()`` is a deliberate process-global install."""
+
+    def __init__(self):
+        self._defaults: dict[str, dict] = {}
+        self._allowed: dict[str, tuple] = {}
+        self._global: dict[str, dict] = {}
+        self._presets: dict[str, dict[str, dict]] = {}
+        self._tls = threading.local()
+
+    def _register(self, name: str, defaults: dict | None, allowed) -> None:
+        merged = dict(_COMMON_DEFAULTS)
+        if defaults:
+            _validate_tuning(name, defaults, allowed)
+            merged.update(defaults)
+        self._defaults[name] = merged
+        self._allowed[name] = tuple(allowed)
+
+    def _stack(self) -> list:
+        if not hasattr(self._tls, "stack"):
+            self._tls.stack = []
+        return self._tls.stack
+
+    def _preset_stack(self) -> list:
+        if not hasattr(self._tls, "presets"):
+            self._tls.presets = []
+        return self._tls.presets
+
+    def _check_name(self, name: str) -> None:
+        if name not in self._defaults:
+            raise KeyError(
+                f"unknown primitive {name!r}; registered: "
+                f"{sorted(self._defaults)}"
+            )
+
+    def lookup(self, name: str) -> dict:
+        """The knobs in force for ``name``."""
+        self._check_name(name)
+        out = dict(self._defaults[name])
+        for mapping in self._preset_stack():
+            out.update(mapping.get(name, {}))
+        out.update(self._global.get(name, {}))
+        for layer in self._stack():
+            out.update(layer.get(name, {}))
+        return out
+
+    def set(self, name: str, **kv) -> None:
+        """Globally override tunables for one primitive."""
+        self._check_name(name)
+        _validate_tuning(name, kv, self._allowed[name])
+        self._global.setdefault(name, {}).update(kv)
+
+    def reset(self, name: str | None = None) -> None:
+        if name is None:
+            self._global.clear()
+        else:
+            self._check_name(name)
+            self._global.pop(name, None)
+
+    def register_preset(self, preset: str, mapping: dict[str, dict]):
+        """Register a named knob profile ({primitive: {tunable: value}}),
+        validated now, applied by ``preset(name)`` scopes. Returns a
+        read-only view of the validated snapshot."""
+        checked = {}
+        for name, kv in mapping.items():
+            self._check_name(name)
+            _validate_tuning(name, kv, self._allowed[name])
+            checked[name] = dict(kv)
+        self._presets[preset] = checked
+        return types.MappingProxyType(
+            {k: types.MappingProxyType(v) for k, v in checked.items()}
+        )
+
+    @contextlib.contextmanager
+    def preset(self, preset: str):
+        """Scoped activation of a registered preset (the weakest layer
+        above the registered defaults)."""
+        mapping = self._presets.get(preset)
+        if mapping is None:
+            raise KeyError(
+                f"unknown preset {preset!r}; registered: "
+                f"{sorted(self._presets)}"
+            )
+        self._preset_stack().append(mapping)
+        try:
+            yield self
+        finally:
+            self._preset_stack().pop()
+
+    @contextlib.contextmanager
+    def overrides(self, mapping: dict[str, dict] | None = None, **per_prim):
+        """Scoped overrides: ``with tuning.overrides({"sort":
+        {"switch_below": 4096}}): ...`` (or primitive-name kwargs)."""
+        layer: dict[str, dict] = {}
+        for src in (mapping or {}), per_prim:
+            for name, kv in src.items():
+                self._check_name(name)
+                _validate_tuning(name, kv, self._allowed[name])
+                layer.setdefault(name, {}).update(kv)
+        self._stack().append(layer)
+        try:
+            yield self
+        finally:
+            self._stack().pop()
+
+
+tuning = TuningTable()
+
+
+# --------------------------------------------------------------------------
+# Primitive records
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PrimitiveStats:
+    """``calls``: every __call__; ``cache_hits``: calls during which no
+    kernel library had to be built or loaded."""
+
+    calls: int = 0
+    cache_hits: int = 0
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+class Primitive:
+    """One registered AK primitive: both impls + tunables."""
+
+    def __init__(
+        self,
+        name: str,
+        torch_impl: Callable,
+        cuda_impl: Callable | None = None,
+        *,
+        tunables: tuple = ("switch_below",),
+        tuning_defaults: dict | None = None,
+        doc: str = "",
+    ):
+        self.name = name
+        self.torch_impl = torch_impl
+        self.cuda_impl = cuda_impl
+        self.doc = doc
+        self.tunables = tuple(tunables) if cuda_impl is not None else ()
+        self.stats = PrimitiveStats()
+        self._backends: set[str] = set()
+        self._lock = threading.Lock()
+        if tuning_defaults:
+            _validate_tuning(name, tuning_defaults, self.tunables)
+        self._tuning_defaults = tuning_defaults
+
+    def _impl(self, backend: str) -> Callable:
+        if backend == "cuda" and self.cuda_impl is not None:
+            return self.cuda_impl
+        return self.torch_impl
+
+    def _select_backend(self, backend, operand, n: int,
+                        switch_below: int) -> str:
+        resolved = dispatch.resolve(backend, operand)
+        if resolved != "cuda" or self.cuda_impl is None:
+            return "torch"
+        if n == 0 or n < switch_below:
+            return "torch"
+        return "cuda"
+
+    def __call__(self, *operands, backend: str | None = None, **opts):
+        with self._lock:
+            self.stats.calls += 1
+        x = operands[0] if operands else None
+        n = x.numel() if isinstance(x, torch.Tensor) else 0
+        tune = tuning.lookup(self.name)
+        switch_below = opts.pop("switch_below", None)
+        if switch_below is None:
+            switch_below = tune["switch_below"]
+        resolved = self._select_backend(backend, x, n, switch_below)
+        with self._lock:
+            self._backends.add(resolved)
+
+        cm = (telemetry.span("ak." + self.name, cat="primitive",
+                             backend=resolved, n=int(n))
+              if telemetry.enabled() else telemetry.span(""))
+        scope = dict(block_rows=tune["block_rows"],
+                     block_cols=tune["block_cols"],
+                     sort_hyper=tune["sort_hyper"]) if resolved == "cuda" \
+            else {}
+        loads = _build.loads()
+        with cm, KC.launch_attribution(self.name), KC.tuning_scope(**scope):
+            out = self._impl(resolved)(*operands, **opts)
+        if _build.loads() == loads:
+            with self._lock:
+                self.stats.cache_hits += 1
+        return out
+
+    def cache_backends(self) -> tuple:
+        """Backends this primitive has dispatched to since ``clear()``."""
+        return tuple(sorted(self._backends))
+
+    def clear(self) -> None:
+        with self._lock:
+            self._backends.clear()
+
+    def reset_stats(self) -> None:
+        with self._lock:
+            self.stats = PrimitiveStats()
+
+
+# --------------------------------------------------------------------------
+# Registry surface
+# --------------------------------------------------------------------------
+
+_REGISTRY: dict[str, Primitive] = {}
+
+
+def register(prim: Primitive) -> Primitive:
+    if prim.name in _REGISTRY:
+        raise ValueError(f"primitive {prim.name!r} already registered")
+    _REGISTRY[prim.name] = prim
+    tuning._register(prim.name, prim._tuning_defaults, prim.tunables)
+    return prim
+
+
+def get(name: str) -> Primitive:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown primitive {name!r}; registered: {sorted(_REGISTRY)}"
+        ) from None
+
+
+def call(name: str, *operands, **kw):
+    return get(name)(*operands, **kw)
+
+
+def names() -> tuple:
+    return tuple(sorted(_REGISTRY))
+
+
+def stats(name: str | None = None) -> dict:
+    if name is not None:
+        return get(name).stats.as_dict()
+    return {n: p.stats.as_dict() for n, p in sorted(_REGISTRY.items())}
+
+
+def reset_stats() -> None:
+    for p in _REGISTRY.values():
+        p.reset_stats()
+
+
+def clear_caches() -> None:
+    for p in _REGISTRY.values():
+        p.clear()
+
+
+# --------------------------------------------------------------------------
+# Registrations: THE one place each primitive's two implementations live.
+# core/*.py delegate here.
+# --------------------------------------------------------------------------
+
+def _torch_merge(x, counts=None, *, nruns):
+    # oracle = (count-masked) full sort, which the cuda merge path beats
+    return torch.sort(merge_kernel.mask_run_tails(x, counts, nruns),
+                      stable=True).values
+
+
+def _cuda_merge(x, counts=None, *, nruns):
+    return merge_kernel.kway_merge(x, nruns, counts=counts)
+
+
+def _torch_merge_kv(k, v, counts=None, *, nruns, tie_break=False):
+    k = merge_kernel.mask_run_tails(k, counts, nruns)
+    v = merge_kernel.mask_run_tails(v, counts, nruns,
+                                    fill=KC.type_max(v.dtype))
+    return kref.sort_kv_ref(k, v, tie_break=tie_break)
+
+
+def _cuda_merge_kv(k, v, counts=None, *, nruns, tie_break=False):
+    return merge_kernel.kway_merge_kv(k, v, nruns, counts=counts,
+                                      tie_break=tie_break)
+
+
+def _torch_minmax_histogram(x, lo, hi, *, nbins):
+    return hist_kernel.minmax_histogram_plain(x, nbins, lo, hi)
+
+
+def _cuda_minmax_histogram(x, lo, hi, *, nbins):
+    return hist_kernel.minmax_histogram_blocks(x, nbins, lo, hi)
+
+
+def _bincount_impl(ids, *, nbins):
+    # scatter-add into a ghost bin for out-of-range ids, which are dropped
+    flat = ids.reshape(-1).to(torch.int64)
+    valid = (flat >= 0) & (flat < nbins)
+    seg = torch.where(valid, flat, torch.full_like(flat, nbins))
+    counts = torch.zeros(nbins + 1, dtype=torch.int32, device=ids.device)
+    counts.scatter_add_(0, seg, torch.ones_like(seg, dtype=torch.int32))
+    return counts[:nbins]
+
+
+_SORT_TUNABLES = TUNABLE_KEYS
+
+sort_p = register(Primitive(
+    "sort",
+    lambda x, *, descending=False: kref.sort_ref(x, descending=descending),
+    lambda x, *, descending=False: sort_kernel.bitonic_sort(
+        x, descending=descending
+    ),
+    tunables=_SORT_TUNABLES,
+    doc="1-D sort (AK merge_sort; bitonic network on the GPU)",
+))
+
+sort_kv_p = register(Primitive(
+    "sort_kv",
+    lambda k, v, *, tie_break=False: kref.sort_kv_ref(
+        k, v, tie_break=tie_break
+    ),
+    lambda k, v, *, tie_break=False: sort_kernel.bitonic_sort_kv(
+        k, v, tie_break=tie_break
+    ),
+    tunables=_SORT_TUNABLES,
+    doc="key/value pair sort (AK merge_sort_by_key)",
+))
+
+argsort_p = register(Primitive(
+    "argsort", kref.argsort_ref, sort_kernel.bitonic_argsort,
+    tunables=_SORT_TUNABLES,
+    doc="stable int32 index permutation (AK sortperm)",
+))
+
+merge_p = register(Primitive(
+    "merge", _torch_merge, _cuda_merge,
+    tunables=_SORT_TUNABLES,
+    doc="k-way merge of nruns pre-sorted runs (bitonic merge phases only)",
+))
+
+merge_kv_p = register(Primitive(
+    "merge_kv", _torch_merge_kv, _cuda_merge_kv,
+    tunables=_SORT_TUNABLES,
+    doc="key/value k-way merge of nruns pre-sorted runs",
+))
+
+searchsorted_p = register(Primitive(
+    "searchsorted",
+    lambda hay, q, *, side="left": kref.searchsorted_ref(hay, q, side=side),
+    lambda hay, q, *, side="left": search_kernel.searchsorted_blocks(
+        hay, q, side=side
+    ),
+    doc="0-based int32 insertion indices into a sorted haystack",
+))
+
+minmax_histogram_p = register(Primitive(
+    "minmax_histogram", _torch_minmax_histogram, _cuda_minmax_histogram,
+    doc="one-pass (histogram, min, max): SIHSort's sampling primitive",
+))
+
+bincount_p = register(Primitive(
+    "bincount", _bincount_impl, None,
+    doc="integer-id counts in [0, nbins) by scatter-add (both backends)",
+))

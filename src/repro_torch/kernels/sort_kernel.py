@@ -1,0 +1,297 @@
+"""Bitonic sorting network: the hand-written CUDA kernels and their plain
+PyTorch version (counterpart of ``repro/kernels/sort_kernel.py``).
+
+Replaces the TPU kernels ``_inblock_body`` (run by ``_run_inblock``) and
+``_hyper_body`` (run by ``_run_hyper``) of ``sort_kernel.py``, in their
+unfused ``sort_hyper=0`` layout:
+
+  * **in-block kernel** (``csrc/bitonic.cu`` ``inblock_kernel``): one CTA
+    per block of ``block_rows() * block_cols()`` keys (8192 by default)
+    held in dynamic shared memory; it runs every stage (k, j) with
+    j < block of the phases it is given.
+  * **cross-stage kernel** (``cross_kernel``): one launch per cross stage
+    j >= block, one thread per compare-exchange pair, in device memory.
+
+What bounds them on an H100 is device-memory bandwidth: every cross stage
+reads and writes the whole padded array once, and a sort of 2^m keys makes
+(m-13)(m-12)/2 of them. The design keeps every stage below the block size
+in shared memory (one read and one write per block per phase), which is
+what the TPU kernel did in VMEM; fusing several cross stages into one pass
+(the reference's hyper-block window) is the next step.
+
+Padding (type-max to ``max(next_pow2(n), block)``), the stage sequence and
+the direction rule ``((global low index) & k) == 0`` are the reference's,
+and the network is oblivious, so kernel, plain version and the JAX Pallas
+path agree bitwise on NaN-free keys without mixed signed zeros, including
+the pair order of equal keys when ``tie_break`` is off.
+
+A wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernels or raises. The CUDA kernels write in place
+into the padded copy the wrapper makes.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import common as C
+
+SORT_ROWS = 8
+SORT_COLS = 1024
+SORT_BLOCK = SORT_ROWS * SORT_COLS
+
+# Largest dynamic shared memory one CTA may take on Hopper (bytes).
+MAX_SMEM = 232448
+
+_SIGNATURES = {
+    "ak_bitonic_inblock": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_void_p,
+    ],
+    "ak_bitonic_cross": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p,
+    ],
+}
+
+
+def _lib():
+    return _build.library("bitonic", _SIGNATURES)
+
+
+def _geometry() -> tuple[int, int, int]:
+    rows, cols = C.block_rows(), C.block_cols()
+    block = rows * cols
+    if block & (block - 1):
+        raise ValueError(
+            f"bitonic sort needs a power-of-two block, got "
+            f"{rows}x{cols} = {block}"
+        )
+    return rows, cols, block
+
+
+def _stages_upto_block(k: int, block: int) -> list[tuple[int, int]]:
+    """All in-block j stages for a given k: j = min(k//2, block//2) .. 1."""
+    j = min(k // 2, block // 2)
+    out = []
+    while j >= 1:
+        out.append((k, j))
+        j //= 2
+    return out
+
+
+# --------------------------------------------------------------------------
+# Plain PyTorch version: the same (k, j) stages as whole-tensor passes.
+# --------------------------------------------------------------------------
+
+def _cx_plain(keys, vals, k: int, j: int, tie_break: bool):
+    """One compare-exchange stage at distance ``j`` over the whole array.
+    Pairs are (g·2j + t, g·2j + t + j); the direction depends only on g
+    because t < j <= k/2."""
+    total = keys.shape[0]
+    groups = total // (2 * j)
+    g = torch.arange(groups, dtype=torch.int64, device=keys.device)
+    asc = (((g * (2 * j)) & k) == 0).reshape(groups, 1)
+    yk = keys.reshape(groups, 2, j)
+    a, b = yk[:, 0], yk[:, 1]
+    if vals is None:
+        lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+        na, nb = torch.where(asc, lo, hi), torch.where(asc, hi, lo)
+        return torch.stack([na, nb], dim=1).reshape(total), None
+    yv = vals.reshape(groups, 2, j)
+    av, bv = yv[:, 0], yv[:, 1]
+    gt = a > b
+    if tie_break:
+        gt = gt | ((a == b) & (av > bv))
+    swap = torch.where(asc, gt, ~gt)
+    nk = torch.stack([torch.where(swap, b, a), torch.where(swap, a, b)], 1)
+    nv = torch.stack([torch.where(swap, bv, av), torch.where(swap, av, bv)],
+                     1)
+    return nk.reshape(total), nv.reshape(total)
+
+
+# --------------------------------------------------------------------------
+# The two kernels behind one network loop
+# --------------------------------------------------------------------------
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr()) if t is not None else None
+
+
+def _run_inblock(keys, vals, k_lo: int, k_hi: int, block: int,
+                 tie_break: bool, cuda: bool):
+    """Every in-block stage of phases k_lo, 2·k_lo, …, k_hi."""
+    if not cuda:
+        k = k_lo
+        while k <= k_hi:
+            for _, j in _stages_upto_block(k, block):
+                keys, vals = _cx_plain(keys, vals, k, j, tie_break)
+            k *= 2
+        return keys, vals
+    lib = _lib()
+    err = lib.ak_bitonic_inblock(
+        _ptr(keys), _ptr(vals), _build.dtype_code(keys.dtype, "sort"),
+        int(tie_break), keys.shape[0], block, k_lo, k_hi,
+        _build.stream_handle(keys.device),
+    )
+    _build.check(lib, err, "bitonic in-block kernel")
+    C.count_launch("bitonic_inblock")
+    return keys, vals
+
+
+def _run_cross(keys, vals, k: int, j: int, tie_break: bool, cuda: bool):
+    """One cross stage (k, j), j >= block."""
+    if not cuda:
+        return _cx_plain(keys, vals, k, j, tie_break)
+    lib = _lib()
+    err = lib.ak_bitonic_cross(
+        _ptr(keys), _ptr(vals), _build.dtype_code(keys.dtype, "sort"),
+        int(tie_break), keys.shape[0], k, j,
+        _build.stream_handle(keys.device),
+    )
+    _build.check(lib, err, "bitonic cross-stage kernel")
+    C.count_launch("bitonic_cross")
+    return keys, vals
+
+
+def _sort_network(keys, vals, total: int, tie_break: bool, *, block: int,
+                  cuda: bool, first_k: int = 2):
+    """Run bitonic phases k = first_k, 2·first_k, …, total over the padded
+    flat arrays (the reference's ``_sort_network`` with ``hyper=0``).
+    ``first_k = 2L`` resumes on data already L-run alternating-sorted: the
+    k-way merge of ``merge_kernel``."""
+    k = first_k
+    if k <= min(total, block):
+        k_hi = k
+        while k_hi * 2 <= min(total, block):
+            k_hi *= 2
+        keys, vals = _run_inblock(keys, vals, k, k_hi, block, tie_break,
+                                  cuda)
+        k = k_hi * 2
+    while k <= total:
+        j = k // 2
+        while j >= block:
+            keys, vals = _run_cross(keys, vals, k, j, tie_break, cuda)
+            j //= 2
+        keys, vals = _run_inblock(keys, vals, k, k, block, tie_break, cuda)
+        k *= 2
+    return keys, vals
+
+
+def _check_operands(keys, vals, tie_break: bool, cuda: bool, block: int):
+    if keys.dim() != 1:
+        raise ValueError(f"bitonic sort takes 1-D keys, got {keys.shape}")
+    if vals is not None:
+        if vals.shape != keys.shape:
+            raise ValueError(
+                f"keys {tuple(keys.shape)} and values {tuple(vals.shape)} "
+                f"differ in shape"
+            )
+        if tie_break and vals.dtype != torch.int32:
+            raise TypeError(
+                f"tie_break compares values as int32, got {vals.dtype}"
+            )
+    if not cuda:
+        return
+    _build.dtype_code(keys.dtype, "sort")
+    if vals is not None and vals.element_size() != 4:
+        raise TypeError(
+            f"the CUDA network carries a 4-byte payload, got {vals.dtype}"
+        )
+    smem = block * (keys.element_size() + (4 if vals is not None else 0))
+    if smem > MAX_SMEM:
+        raise ValueError(
+            f"block of {block} keys needs {smem} bytes of shared memory, "
+            f"more than one CTA's {MAX_SMEM}"
+        )
+
+
+def _padded(x, total: int, fill):
+    """A fresh contiguous buffer of ``total`` elements: ``x`` then
+    ``fill`` (the CUDA kernels write into it in place)."""
+    out = torch.empty(total, dtype=x.dtype, device=x.device)
+    out[: x.shape[0]] = x
+    out[x.shape[0]:] = fill
+    return out
+
+
+def _sort(keys, vals, tie_break: bool, cuda: bool):
+    n = keys.shape[0]
+    _, _, block = _geometry()
+    _check_operands(keys, vals, tie_break, cuda, block)
+    total = max(C.next_pow2(n), block)
+    kp = _padded(keys, total, C.type_max(keys.dtype))
+    vp = None if vals is None else _padded(vals, total,
+                                           C.type_max(vals.dtype))
+    kp, vp = _sort_network(kp, vp, total, tie_break, block=block,
+                           cuda=cuda)
+    return kp[:n], (None if vp is None else vp[:n])
+
+
+def _on_cuda(*tensors) -> bool:
+    return C.require_cuda_or_cpu(*[t for t in tensors if t is not None])
+
+
+def bitonic_sort(keys: torch.Tensor, *, descending: bool = False,
+                 plain: bool = False) -> torch.Tensor:
+    """Full ascending sort of 1-D ``keys`` (descending: the reverse).
+    ``plain=True`` runs the plain PyTorch version on any device."""
+    if keys.shape[0] == 0:
+        return keys
+    out, _ = _sort(keys, None, False, _on_cuda(keys) and not plain)
+    return torch.flip(out, (0,)) if descending else out
+
+
+def bitonic_sort_kv(keys, vals, *, tie_break: bool = False,
+                    plain: bool = False):
+    """Sort (keys, vals) pairs by key. ``tie_break=True`` orders equal
+    keys by ascending int32 value (a stable argsort with an iota
+    payload)."""
+    if keys.shape[0] == 0:
+        return keys, vals
+    return _sort(keys, vals, tie_break,
+                 _on_cuda(keys, vals) and not plain)
+
+
+def bitonic_argsort(keys: torch.Tensor, *, plain: bool = False):
+    """Stable argsort (int32): the kv network with an iota payload and the
+    index tie-break (the reference registry's ``_pallas_argsort``)."""
+    idx = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
+    _, perm = bitonic_sort_kv(keys, idx, tie_break=True, plain=plain)
+    return perm
+
+
+def network_launches(total: int, *, first_k: int = 2, hyper: int,
+                     block: int) -> int:
+    """Closed-form launch count of ``_sort_network(total, first_k=…)``,
+    the reference's formula: one in-block launch if any phase fits a
+    block, then per cross phase ``i + 1`` launches unfused (``⌈i/m⌉``
+    fused) for ``i = log₂(k/block)``."""
+    launches = 0
+    k = first_k
+    if k <= min(total, block):
+        launches += 1
+        while k <= min(total, block):
+            k *= 2
+    while k <= total:
+        i = (k // block).bit_length() - 1
+        if hyper <= 0:
+            launches += i + 1
+        else:
+            launches += -(-i // hyper)
+        k *= 2
+    return launches
+
+
+def cross_launches(n: int, *, hyper: int = 0, block: int | None = None
+                   ) -> int:
+    """Closed-form launch count of an n-element sort; the CUDA network
+    runs the unfused layout, ``hyper=0``."""
+    if block is None:
+        _, _, block = _geometry()
+    total = max(C.next_pow2(n), block)
+    return network_launches(total, first_k=2, hyper=hyper, block=block)
