@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """End-to-end check of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed S]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives the port's main path: the AK sort primitives at 2^28 float32 keys
+drives the port's main paths: the AK sort primitives at 2^28 float32 keys
 and SIHSort over 4 ranks on the one card (2^26 keys + int32 payload per
-rank). Phases:
+rank), then the streaming and segmented primitives. Phases:
 
   1. environment: card name and power limit, torch / CUDA / nvcc
      versions, kernel build time;
@@ -25,10 +25,25 @@ rank). Phases:
      those shapes beside its plain version, a PyTorch call that computes
      the same function, and its bound; and a sweep of the sort and merge
      primitives over 2^8..2^16 keys, kernels against the portable path,
-     which gives the size from which the kernels win (``switch_below``).
+     which gives the size from which the kernels win (``switch_below``);
+  6. the streaming and segmented path (paper Table II and the primitives
+     built on it), through the user entry points: RBF and LJG over 2^26
+     points (``ak.map_elements`` with the catalogue bodies), their total
+     energy (``mapreduce``), ``reduce`` add/max/min and ``accumulate``
+     (inclusive add and max in float32, exclusive add in int32) over
+     2^28 elements, ``segmented_reduce`` (add, max) and ``segmented_scan``
+     (add, inclusive and exclusive) over a CSR of 2^28 values in 2^20
+     geometric segments, and ``segmented_sort`` with and without a
+     payload over 2^26 values in 2^18 segments; then every new kernel
+     against its plain version on those inputs (bitwise where the
+     arithmetic is exact, within stated bounds against float64 numpy
+     where it is not, within the bodies' conditioning for RBF/LJG), the
+     launches against the closed forms, ``portable_calls == 0``, and
+     timings beside the plain versions, a PyTorch call where one computes
+     the same function, and the bounds.
 
-Launch counters are set to 0 just before phases 3 and 4 and read just
-after; the kernels' ``launches`` are those runs' counts. The last line of
+Launch counters are set to 0 just before phases 3, 4 and 6 and read just
+after; the kernels' ``launches`` are the sum of those runs' counts. The last line of
 standard output is ``{"ok": true, "device": {...}}``; it is printed only
 when every phase passed. Without a CUDA device, or without the repo's
 ``src/`` beside it, the script exits non-zero and prints no result.
@@ -36,6 +51,7 @@ Details too long for the console go to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -44,6 +60,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -58,6 +75,27 @@ RANK_N = 1 << 26
 SIZES = [1, 5, 8191, 8193, 3 * 8192 + 7, 1 << 20]
 DTYPES = (torch.float32, torch.int32, torch.bfloat16)
 
+
+
+def sum_rtol(n: int) -> tuple[float, int]:
+    """Float add against float64: ``|got - exact| <= rtol * sum |x|`` over
+    the same elements, for the kernel and its plain version alike; returns
+    (rtol, d). A float32 sum whose every term passes through at most d
+    roundings is off by at most d u sum |x| (u = 2^-24), and by about
+    sqrt(d) u sum |x| when the roundings do not all align (Higham,
+    Accuracy and Stability of Numerical Algorithms, 2nd ed., sec. 2.8 and
+    4.2): rtol is the latter. The longest chain is the reduce kernel's:
+    each thread folds n / (1024 CTAs x 256 threads) terms in sequence
+    (1024 at 2^28), then 8 tree levels in its CTA; the last CTA folds 4
+    partials per thread, 8 levels more, and init: d = 1045 and rtol =
+    1.93e-6 at 2^28. The scan kernel's chains are shorter (16 terms and 9
+    levels in each of its three passes, and the 4 carries of pass 2's walk
+    over 2^15 tile aggregates)."""
+    d = n // (1024 * 256) + 21
+    return math.sqrt(d) * 2.0 ** -24, d
+
+SORT_KERNELS = ("bitonic_inblock", "bitonic_cross", "minmax_histogram",
+                "searchsorted")
 REPLACES = {
     "bitonic_inblock": ("src/repro_torch/kernels/csrc/bitonic.cu",
                         "src/repro/kernels/sort_kernel.py:289"),
@@ -67,6 +105,14 @@ REPLACES = {
                          "src/repro/kernels/hist_kernel.py:84"),
     "searchsorted": ("src/repro_torch/kernels/csrc/search.cu",
                      "src/repro/kernels/search_kernel.py:81"),
+    "map": ("src/repro_torch/kernels/csrc/map.cu",
+            "src/repro/kernels/map_kernel.py:47"),
+    "reduce": ("src/repro_torch/kernels/csrc/reduce.cu",
+               "src/repro/kernels/reduce_kernel.py:73"),
+    "scan": ("src/repro_torch/kernels/csrc/scan.cu",
+             "src/repro/kernels/scan_kernel.py:84"),
+    "segmented_scan": ("src/repro_torch/kernels/csrc/scan.cu",
+                       "src/repro/kernels/segment_kernel.py:167"),
 }
 
 
@@ -116,6 +162,7 @@ class Errors:
     def __init__(self):
         self.err = {k: 0.0 for k in REPLACES}
         self.cases = {k: 0 for k in REPLACES}
+        self.float64 = {}  # check -> largest |err| / bound, kernel, plain
 
     def same(self, names, got, want, what):
         for g, w in zip(got, want):
@@ -132,6 +179,25 @@ class Errors:
                 self.cases[n] += 1
             check(e == 0.0, f"{what}: kernel and plain version differ "
                             f"(max abs err {e})")
+
+    def close(self, name, got, want, what, exact64, mass64, rtol):
+        """Float results that may differ in rounding: kernel and plain
+        version each within ``rtol * mass64`` of the float64 ``exact64``;
+        records their largest difference."""
+        for label, g in (("kernel", got), ("plain", want)):
+            err = (g.double() - exact64).abs()
+            lim = rtol * mass64 + 1e-30
+            check(bool((err <= lim).all()),
+                  f"{what}: {label} off the float64 result by up to "
+                  f"{float(err.max())} (bound {rtol} * sum |x|)")
+            self.float64.setdefault(what, {})[label] = {
+                "max_abs": float(err.max()),
+                "share_of_bound": float((err / lim).max())}
+        self.record(name, float((got.double() - want.double()).abs().max()))
+
+    def record(self, name, err):
+        self.err[name] = max(self.err[name], err)
+        self.cases[name] += 1
 
 
 def keys_on(gen, n, dtype, dist="normal"):
@@ -292,7 +358,298 @@ def phase_crossover(registry) -> dict:
     return out
 
 
+def seg_exact(vals64: "np.ndarray", off: "np.ndarray", exclusive=False):
+    """Float64 per-segment inclusive (or exclusive) prefix sums and their
+    sum |x| counterpart, through one global cumulative sum."""
+    cs = np.concatenate([[0.0], np.cumsum(vals64)])
+    lengths = np.diff(off.astype(np.int64))
+    head = np.repeat(cs[off[:-1]], lengths)
+    idx = np.arange(vals64.shape[0])
+    return cs[idx + (0 if exclusive else 1)] - head
+
+
+def phase_streaming(ak, registry, C, errs, seed: int) -> dict:
+    """Phase 6: the Table II map bodies, reduce, accumulate and the
+    segmented primitives at full size; returns counts, checks, timings."""
+    from benchmarks_torch import arithmetic as AR
+    from benchmarks_torch import streaming_inputs as SI
+    from repro_torch.kernels import map_kernel as MAPK
+    from repro_torch.kernels import ref as KREF
+    from repro_torch.kernels import reduce_kernel as RK
+    from repro_torch.kernels import scan_kernel as SCK
+    from repro_torch.kernels import segment_kernel as SGK
+    from repro_torch.kernels import sort_kernel as SK
+
+    out = {}
+    t0 = time.perf_counter()
+    inp = SI.stream_inputs(seed)
+    v, p2, x, xi, xe = inp.v, inp.p2, inp.x, inp.xi, inp.xe
+    off, off_np, soff, sv, spay = (inp.off, inp.off_np, inp.soff, inp.sv,
+                                   inp.spay)
+    del inp
+    MAP_N, STREAM_N, SORT_N = SI.MAP_N, SI.STREAM_N, SI.SORT_N
+    rtol, out["sum_depth"] = sum_rtol(STREAM_N)
+    out["sum_rtol"] = rtol
+    ljg = MAPK.ljg_body()
+    inf = math.inf
+    torch.cuda.synchronize()
+    out["inputs_s"] = time.perf_counter() - t0
+
+    # -- the path, counted: the user entry points only ----------------------
+    registry.reset_stats()
+    C.reset_launch_count()
+    t0 = time.perf_counter()
+    e_rbf = AR.rbf_kernel(v)
+    e_ljg = AR.ljg_kernel(v, p2)
+    energy = ak.mapreduce(MAPK.identity, torch.add, e_ljg, init=0.0)
+    r_add = ak.reduce(torch.add, x, init=0.0)
+    r_max = ak.reduce(torch.maximum, x, init=-inf)
+    r_min = ak.reduce(torch.minimum, x, init=inf)
+    a_add = ak.accumulate(torch.add, x, init=0.0)
+    a_max = ak.accumulate(torch.maximum, x, init=-inf)
+    a_int = ak.accumulate(torch.add, xi, init=0, inclusive=False)
+    s_add = ak.segmented_reduce(torch.add, x, off, init=0.0)
+    s_max = ak.segmented_reduce(torch.maximum, x, off, init=-inf)
+    c_inc = ak.segmented_scan(torch.add, x, off, init=0.0)
+    c_exc = ak.segmented_scan(torch.add, x, off, init=0.0, inclusive=False)
+    ss = ak.segmented_sort(sv, soff)
+    ss_v, ss_p = ak.segmented_sort(sv, soff, vals=spay)
+    torch.cuda.synchronize()
+    out["path_s"] = time.perf_counter() - t0
+    counts, kernels = C.launch_counts(), C.kernel_launches()
+    stats = registry.stats()
+    out["launches"], out["kernel_launches"] = counts, kernels
+    out["stats"] = {k: stats[k] for k in ("map", "mapreduce", "accumulate",
+                                          "segmented_reduce",
+                                          "segmented_scan",
+                                          "segmented_sort")}
+    for name, st in stats.items():
+        check(st["portable_calls"] == 0,
+              f"{name}: {st['portable_calls']} portable calls on the path")
+    scan3 = SCK.scan_launches(STREAM_N)
+    sort_l = (SGK.segmented_sort_launches(SORT_N)
+              + SGK.segmented_sort_launches(SORT_N, payload=True))
+    want = {"map": 2 * MAPK.map_launches(MAP_N),
+            "mapreduce": 4 * RK.reduce_launches(STREAM_N),
+            "accumulate": 3 * scan3, "segmented_reduce": 2 * scan3,
+            "segmented_scan": 2 * scan3, "segmented_sort": sort_l}
+    check(counts == want, f"streaming launches {counts} != closed forms "
+                          f"{want}")
+    check(kernels.get("segmented_scan") == 4 * scan3 == 12
+          and kernels.get("scan") == 3 * scan3 == 9
+          and kernels.get("reduce") == 4 and kernels.get("map") == 2,
+          f"per-kernel launches {kernels}")
+    log(f"streaming path: {out['path_s']:.2f} s, launches {counts} (closed "
+        f"forms), portable calls 0")
+
+    # -- results against their plain versions and float64 ------------------
+    t0 = time.perf_counter()
+    res = AR.rbf_check(e_rbf, KREF.map_ref(MAPK.rbf, *v), v)
+    check(res["bad"] == 0, f"rbf kernel vs plain: {res}")
+    out["rbf_check"] = res
+    plain_ljg = KREF.map_ref(ljg, *v, *p2)
+    res = AR.ljg_check(e_ljg, plain_ljg, v, p2)
+    check(res["bad"] == 0 and res["flips"] <= res["window"],
+          f"ljg kernel vs plain: {res}")
+    out["ljg_check"] = res
+    for g, w in ((e_rbf, KREF.map_ref(MAPK.rbf, *v)), (e_ljg, plain_ljg)):
+        fin = torch.isfinite(g) & torch.isfinite(w) & ((g == 0) == (w == 0))
+        errs.record("map", float((g[fin] - w[fin]).abs().max()))
+    vh, ph = v.cpu().numpy(), p2.cpu().numpy()
+    chk = AR.rbf_check(e_rbf, AR.rbf_numpy(vh), v)
+    check(chk["bad"] == 0, f"rbf kernel vs numpy oracle: {chk}")
+    chk = AR.ljg_check(e_ljg, AR.ljg_numpy(vh, ph), v, p2)
+    check(chk["bad"] == 0, f"ljg kernel vs numpy oracle: {chk}")
+    del vh, ph
+    e64 = e_ljg.double()
+    check(torch.isfinite(e64).all(), "ljg energies not finite")
+    plain_energy = KREF.reduce_ref(MAPK.identity, torch.add, e_ljg,
+                                   unit=0.0)
+    errs.close("reduce", energy.reshape(1), plain_energy.reshape(1),
+               "mapreduce(ljg energies)", e64.sum().reshape(1),
+               e64.abs().sum().reshape(1), rtol)
+    out["energy"] = float(energy)
+
+    x64 = x.cpu().numpy().astype(np.float64)
+    mass = float(np.abs(x64).sum())
+    errs.close("reduce", r_add.reshape(1),
+               KREF.reduce_ref(MAPK.identity, torch.add, x,
+                               unit=0.0).reshape(1),
+               "reduce add 2^28", torch.tensor([x64.sum()], device="cuda",
+                                               dtype=torch.float64),
+               torch.tensor([mass], device="cuda", dtype=torch.float64),
+               rtol)
+    for name, got, op, unit in (("max", r_max, torch.maximum, -inf),
+                                ("min", r_min, torch.minimum, inf)):
+        errs.same(["reduce"], [got],
+                  [KREF.reduce_ref(MAPK.identity, op, x, unit=unit)],
+                  f"reduce {name} 2^28")
+    errs.same(["reduce"], [RK.reduce_blocks(MAPK.identity, torch.add, xe,
+                                            unit=0.0)],
+              [KREF.reduce_ref(MAPK.identity, torch.add, xe, unit=0.0)],
+              "reduce add, exact input, 2^28")
+    cs64 = torch.from_numpy(np.cumsum(x64)).cuda()
+    cm64 = torch.from_numpy(np.cumsum(np.abs(x64))).cuda()
+    errs.close("scan", a_add, KREF.scan_ref(torch.add, x, unit=0.0),
+               "accumulate add 2^28", cs64, cm64, rtol)
+    del cs64, cm64
+    errs.same(["scan"], [a_max], [KREF.scan_ref(torch.maximum, x,
+                                                unit=-inf)],
+              "accumulate max 2^28")
+    errs.same(["scan"], [a_int], [KREF.scan_ref(torch.add, xi, unit=0,
+                                                exclusive=True)],
+              "accumulate exclusive add int32 2^28")
+    errs.same(["scan"], [SCK.scan_blocks(torch.add, xe, unit=0.0)],
+              [KREF.scan_ref(torch.add, xe, unit=0.0)],
+              "accumulate add, exact input, 2^28")
+    del a_add, a_max, a_int
+
+    lengths = np.diff(off_np.astype(np.int64))
+    seg_inc = torch.from_numpy(seg_exact(x64, off_np)).cuda()
+    seg_mass = torch.from_numpy(seg_exact(np.abs(x64), off_np)).cuda()
+    ends = np.maximum(off_np[1:].astype(np.int64) - 1, 0)
+    nonempty = torch.from_numpy(lengths > 0).cuda()
+    e_idx = torch.from_numpy(ends).cuda()
+    zero = torch.zeros((), dtype=torch.float64, device="cuda")
+    errs.close("segmented_scan", s_add,
+               SGK.segmented_reduce_ref(torch.add, x, off, init=0.0),
+               "segmented_reduce add", torch.where(
+                   nonempty, seg_inc[e_idx], zero),
+               torch.where(nonempty, seg_mass[e_idx], zero), rtol)
+    errs.close("segmented_scan", c_inc,
+               SGK.segmented_scan_ref(torch.add, x, off, unit=0.0),
+               "segmented_scan inclusive add", seg_inc, seg_mass, rtol)
+    del seg_inc, seg_mass
+    seg_exc = torch.from_numpy(seg_exact(x64, off_np, True)).cuda()
+    seg_mass = torch.from_numpy(seg_exact(np.abs(x64), off_np, True)).cuda()
+    errs.close("segmented_scan", c_exc,
+               SGK.segmented_scan_ref(torch.add, x, off, unit=0.0,
+                                      exclusive=True),
+               "segmented_scan exclusive add", seg_exc, seg_mass, rtol)
+    del seg_exc, seg_mass, x64, c_inc, c_exc
+    errs.same(["segmented_scan"], [s_max],
+              [SGK.segmented_reduce_ref(torch.maximum, x, off, init=-inf)],
+              "segmented_reduce max")
+    for exclusive in (False, True):
+        errs.same(["segmented_scan"],
+                  [SGK.segmented_scan_blocks(torch.add, xe, off, unit=0.0,
+                                             exclusive=exclusive)],
+                  [SGK.segmented_scan_ref(torch.add, xe, off, unit=0.0,
+                                          exclusive=exclusive)],
+                  f"segmented_scan exact input exclusive={exclusive}")
+    errs.same(["segmented_scan"],
+              [SGK.segmented_reduce_blocks(torch.add, xe, off, init=0.0)],
+              [SGK.segmented_reduce_ref(torch.add, xe, off, init=0.0)],
+              "segmented_reduce add, exact input")
+    # the segmented sort: the network against its plain version, and the
+    # result against the plain stable-sort formulation
+    ids = SGK.segment_ids(soff, SORT_N)
+    both = ("bitonic_inblock", "bitonic_cross")
+    errs.same(both, SK.bitonic_sort_kv(ids, sv, tie_break=True),
+              SK.bitonic_sort_kv(ids, sv, tie_break=True, plain=True),
+              "segmented sort network (ids, f32 values), 2^26")
+    wv, wp = SGK.segmented_sort_ref(sv, soff, spay)
+    check(torch.equal(ss, wv) and torch.equal(ss_v, wv)
+          and torch.equal(ss_p, wp), "segmented_sort != stable lexsort")
+    del ids, wv, wp, ss, ss_v, ss_p
+    torch.cuda.synchronize()
+    out["parity_s"] = time.perf_counter() - t0
+    log(f"streaming parity: kernels against plain versions and float64 "
+        f"({out['parity_s']:.1f} s); rbf {out['rbf_check']}, ljg "
+        f"{out['ljg_check']}")
+
+    # -- timings at the path's shapes ----------------------------------------
+    nb = STREAM_N * 4
+    S = SI.SEGS
+    off64 = off.long()
+    rows = {}
+
+    def row(name, fn, plain, lib, nbytes, ops, lib_note=None):
+        r = {"ms": cuda_ms(fn), "plain_ms": cuda_ms(plain, reps=3),
+             "library_ms": cuda_ms(lib) if lib else None,
+             "library": lib_note}
+        r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
+        rows[name] = r
+        log(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+            f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']})")
+
+    row("map_rbf", lambda: AR.rbf_kernel(v),
+        lambda: KREF.map_ref(MAPK.rbf, *v), None, 4 * MAP_N * 4,
+        10 * MAP_N, "no single PyTorch call computes the RBF body")
+    row("map_ljg", lambda: AR.ljg_kernel(v, p2),
+        lambda: KREF.map_ref(ljg, *v, *p2), None, 7 * MAP_N * 4,
+        25 * MAP_N, "no single PyTorch call computes the LJG body")
+    row("mapreduce_energy",
+        lambda: ak.mapreduce(MAPK.identity, torch.add, e_ljg, init=0.0),
+        lambda: KREF.reduce_ref(MAPK.identity, torch.add, e_ljg, unit=0.0),
+        lambda: torch.sum(e_ljg), MAP_N * 4, MAP_N, "torch.sum")
+    for name, op, unit, lib in (
+            ("reduce_add", torch.add, 0.0, torch.sum),
+            ("reduce_max", torch.maximum, -inf, torch.amax),
+            ("reduce_min", torch.minimum, inf, torch.amin)):
+        row(name, lambda op=op, unit=unit: ak.reduce(op, x, init=unit),
+            lambda op=op, unit=unit: KREF.reduce_ref(MAPK.identity, op, x,
+                                                     unit=unit),
+            lambda lib=lib: lib(x), nb, STREAM_N, lib.__name__)
+    row("accumulate_add", lambda: ak.accumulate(torch.add, x, init=0.0),
+        lambda: KREF.scan_ref(torch.add, x, unit=0.0),
+        lambda: torch.cumsum(x, 0), 2 * nb, STREAM_N, "torch.cumsum")
+    row("accumulate_max",
+        lambda: ak.accumulate(torch.maximum, x, init=-inf),
+        lambda: KREF.scan_ref(torch.maximum, x, unit=-inf),
+        lambda: torch.cummax(x, 0), 2 * nb, STREAM_N,
+        "torch.cummax (also writes int64 indices)")
+    row("accumulate_excl_int32",
+        lambda: ak.accumulate(torch.add, xi, init=0, inclusive=False),
+        lambda: KREF.scan_ref(torch.add, xi, unit=0, exclusive=True),
+        lambda: torch.cumsum(xi, 0, dtype=torch.int32), 2 * nb, STREAM_N,
+        "torch.cumsum (inclusive)")
+    seg_bytes = 2 * nb + 4 * (S + 1)
+    row("segmented_reduce_add",
+        lambda: ak.segmented_reduce(torch.add, x, off, init=0.0),
+        lambda: SGK.segmented_reduce_ref(torch.add, x, off, init=0.0),
+        lambda: torch.segment_reduce(x, "sum", offsets=off64),
+        nb + 4 * (S + 1) + 4 * S, STREAM_N,
+        "torch.segment_reduce(sum, offsets)")
+    row("segmented_reduce_max",
+        lambda: ak.segmented_reduce(torch.maximum, x, off, init=-inf),
+        lambda: SGK.segmented_reduce_ref(torch.maximum, x, off, init=-inf),
+        lambda: torch.segment_reduce(x, "max", offsets=off64,
+                                     initial=-inf),
+        nb + 4 * (S + 1) + 4 * S, STREAM_N,
+        "torch.segment_reduce(max, offsets)")
+    row("segmented_scan_incl",
+        lambda: ak.segmented_scan(torch.add, x, off, init=0.0),
+        lambda: SGK.segmented_scan_ref(torch.add, x, off, unit=0.0),
+        None, seg_bytes, STREAM_N,
+        "no single PyTorch call computes a segmented scan")
+    row("segmented_scan_excl",
+        lambda: ak.segmented_scan(torch.add, x, off, init=0.0,
+                                  inclusive=False),
+        lambda: SGK.segmented_scan_ref(torch.add, x, off, unit=0.0,
+                                       exclusive=True),
+        None, seg_bytes, STREAM_N,
+        "no single PyTorch call computes a segmented scan")
+    row("segmented_sort", lambda: ak.segmented_sort(sv, soff),
+        lambda: SGK.segmented_sort_ref(sv, soff), None,
+        SORT_N * 4 * 2 + 4 * (SI.SORT_SEGS + 1), 0,
+        "no single PyTorch call sorts segments; plain = two stable sorts")
+    row("segmented_sort_payload",
+        lambda: ak.segmented_sort(sv, soff, vals=spay),
+        lambda: SGK.segmented_sort_ref(sv, soff, spay), None,
+        SORT_N * 8 * 2 + 4 * (SI.SORT_SEGS + 1), 0,
+        "no single PyTorch call sorts segments; plain = two stable sorts")
+    out["rows"] = rows
+    return out
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description="End-to-end check of the "
+                                 "PyTorch port on one CUDA card")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the streaming phase's inputs")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
@@ -302,6 +659,7 @@ def main() -> int:
               f"checkout of the repo", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    sys.path.insert(0, ROOT)
     from repro_torch import core as ak
     from repro_torch.core import registry
     from repro_torch.core import distributed as D
@@ -399,9 +757,9 @@ def main() -> int:
     for name in REPLACES:
         main_kernels[name] = main_kernels.get(name, 0) + sum(
             st.kernel_launches.get(name, 0) for st in stats)
-    for name in REPLACES:
+    for name in SORT_KERNELS:
         check(main_kernels.get(name, 0) > 0,
-              f"kernel {name} never launched on the main path")
+              f"kernel {name} never launched on the sort path")
     sih_ms = statistics.median(
         [statistics.median(st.seconds[1:]) for st in stats]) * 1e3
     steps = {k: statistics.median([st.steps_ms.get(k, 0.0) for st in stats])
@@ -504,6 +862,36 @@ def main() -> int:
     log("smallest size from which the kernels are as fast as the portable "
         "path at every larger size of the sweep (null: none): " + json.dumps(
         {p: cross[p] for p in ("sort", "sort_kv", "merge", "merge_kv")}))
+
+    # -- 6. the streaming and segmented path --------------------------------
+    t0 = time.perf_counter()
+    stream = phase_streaming(ak, registry, C, errs, args.seed)
+    report["streaming"] = stream
+    for name, n in stream["kernel_launches"].items():
+        main_kernels[name] = main_kernels.get(name, 0) + n
+    for name in REPLACES:
+        check(main_kernels.get(name, 0) > 0,
+              f"kernel {name} never launched on a main path")
+    rows = stream["rows"]
+    for name, key in (("map", "map_ljg"), ("reduce", "reduce_add"),
+                      ("scan", "accumulate_add"),
+                      ("segmented_scan", "segmented_scan_incl")):
+        r = rows[key]
+        b, by = r["bound_ms"], r["bound_by"]
+        src, rep = REPLACES[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": main_kernels[name], "max_abs_err": errs.err[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b,
+            "bound_by": by, "library_ms": r["library_ms"],
+        })
+    for k in kernels:  # the sort kernels' launches now include phase 6
+        k["launches"] = main_kernels[k["name"]]
+    log(f"phase 6 done in {time.perf_counter() - t0:.1f} s; comparisons "
+        f"per kernel " + json.dumps(errs.cases))
+    report["float64"] = errs.float64
+    log(f"float add against float64, bound {stream['sum_rtol']:.4g} * "
+        f"sum |x| (depth {stream['sum_depth']}): " + json.dumps(errs.float64))
 
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)

@@ -11,6 +11,11 @@ device, as for ``bincount``) and its tunable defaults.
      (``auto`` reads the operand's device; scoped overrides respected);
   2. demote cuda -> torch below the primitive's ``switch_below`` element
      count (AK's host-finish trade-off, a table entry);
+  2a. the catalogue rule of the streaming primitives: a kernel cannot run
+     a Python closure, so an ``op`` or body outside the kernels' catalogue
+     (or a dtype their kernels lack) runs on the portable path under
+     ``auto``, counted in ``stats(name)["portable_calls"]``, and raises
+     ``TypeError`` under an explicit ``cuda``;
   3. call the implementation inside the tuning scope its knobs select and
      under a launch-attribution label, so the launch counter breaks its
      total down per primitive;
@@ -35,8 +40,9 @@ import torch
 from repro_torch.core import dispatch
 from repro_torch.kernels import _build
 from repro_torch.kernels import common as KC
-from repro_torch.kernels import hist_kernel, merge_kernel, ref as kref
-from repro_torch.kernels import search_kernel, sort_kernel
+from repro_torch.kernels import hist_kernel, map_kernel, merge_kernel
+from repro_torch.kernels import reduce_kernel, ref as kref, scan_kernel
+from repro_torch.kernels import search_kernel, segment_kernel, sort_kernel
 from repro_torch.runtime import telemetry
 
 
@@ -217,10 +223,14 @@ tuning = TuningTable()
 @dataclasses.dataclass
 class PrimitiveStats:
     """``calls``: every __call__; ``cache_hits``: calls during which no
-    kernel library had to be built or loaded."""
+    kernel library had to be built or loaded; ``portable_calls``: calls
+    that ``auto`` would have sent to the kernels but that ran on the
+    portable path because the kernels cannot take their op, body or
+    dtype."""
 
     calls: int = 0
     cache_hits: int = 0
+    portable_calls: int = 0
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -237,11 +247,13 @@ class Primitive:
         *,
         tunables: tuple = ("switch_below",),
         tuning_defaults: dict | None = None,
+        refusal: Callable | None = None,
         doc: str = "",
     ):
         self.name = name
         self.torch_impl = torch_impl
         self.cuda_impl = cuda_impl
+        self.refusal = refusal
         self.doc = doc
         self.tunables = tuple(tunables) if cuda_impl is not None else ()
         self.stats = PrimitiveStats()
@@ -275,6 +287,16 @@ class Primitive:
         if switch_below is None:
             switch_below = tune["switch_below"]
         resolved = self._select_backend(backend, x, n, switch_below)
+        if resolved == "cuda" and self.refusal is not None:
+            why = self.refusal(*operands, **opts)
+            if why is not None:
+                if (backend or dispatch.default_backend()) == "cuda":
+                    raise TypeError(
+                        f"{self.name}: the cuda backend cannot take this "
+                        f"call ({why}); use backend='torch' or 'auto'")
+                resolved = "torch"
+                with self._lock:
+                    self.stats.portable_calls += 1
         with self._lock:
             self._backends.add(resolved)
 
@@ -458,4 +480,114 @@ minmax_histogram_p = register(Primitive(
 bincount_p = register(Primitive(
     "bincount", _bincount_impl, None,
     doc="integer-id counts in [0, nbins) by scatter-add (both backends)",
+))
+
+
+# -- the streaming primitives: a body from map_kernel.BODIES and an op from
+# common's catalogue reach the kernels; anything else is refused there
+# (portable under auto, TypeError under an explicit cuda).
+
+def _torch_map(*arrays, f, out_dtype=None):
+    return kref.map_ref(f, *arrays, out_dtype=out_dtype)
+
+
+def _cuda_map(*arrays, f, out_dtype=None):
+    return map_kernel.map_blocks(f, *arrays, out_dtype=out_dtype)
+
+
+def _map_refusal(*arrays, f, out_dtype=None):
+    return map_kernel.refusal(f, arrays, out_dtype)
+
+
+def _torch_mapreduce(*arrays, f, op, init, out_dtype=None):
+    return kref.reduce_ref(f, op, *arrays, unit=init, out_dtype=out_dtype)
+
+
+def _cuda_mapreduce(*arrays, f, op, init, out_dtype=None):
+    return reduce_kernel.reduce_blocks(f, op, *arrays, unit=init,
+                                       out_dtype=out_dtype)
+
+
+def _mapreduce_refusal(*arrays, f, op, init, out_dtype=None):
+    return reduce_kernel.refusal(f, op, arrays, out_dtype)
+
+
+def _torch_accumulate(x, *, op, init, inclusive=True):
+    return kref.scan_ref(op, x, unit=init, exclusive=not inclusive)
+
+
+def _cuda_accumulate(x, *, op, init, inclusive=True):
+    return scan_kernel.scan_blocks(op, x, unit=init, exclusive=not inclusive)
+
+
+def _accumulate_refusal(x, *, op, init, inclusive=True):
+    return scan_kernel.refusal(op, x)
+
+
+map_p = register(Primitive(
+    "map", _torch_map, _cuda_map, refusal=_map_refusal,
+    doc="foreachindex/map_elements: a catalogue body over same-shape arrays",
+))
+
+mapreduce_p = register(Primitive(
+    "mapreduce", _torch_mapreduce, _cuda_mapreduce,
+    refusal=_mapreduce_refusal,
+    doc="mapreduce(f, op, arrays; init) -> 0-d, one launch",
+))
+
+accumulate_p = register(Primitive(
+    "accumulate", _torch_accumulate, _cuda_accumulate,
+    refusal=_accumulate_refusal,
+    doc="prefix scan (inclusive/exclusive), reduce-then-scan on the card",
+))
+
+
+# -- segmented primitives over CSR (offsets, values) pairs. The kernel is
+# 1-D: values with trailing feature axes are refused like an op outside the
+# catalogue (portable and counted under auto, TypeError under cuda).
+
+def _torch_segmented_reduce(values, offsets, *, op, init):
+    return segment_kernel.segmented_reduce_ref(op, values, offsets,
+                                               init=init)
+
+
+def _cuda_segmented_reduce(values, offsets, *, op, init):
+    return segment_kernel.segmented_reduce_blocks(op, values, offsets,
+                                                  init=init)
+
+
+def _torch_segmented_scan(values, offsets, *, op, init, inclusive=True):
+    return segment_kernel.segmented_scan_ref(
+        op, values, offsets, unit=init, exclusive=not inclusive)
+
+
+def _cuda_segmented_scan(values, offsets, *, op, init, inclusive=True):
+    return segment_kernel.segmented_scan_blocks(
+        op, values, offsets, unit=init, exclusive=not inclusive)
+
+
+def _segmented_refusal(values, offsets, *, op, **_):
+    return segment_kernel.refusal(op, values)
+
+
+segmented_reduce_p = register(Primitive(
+    "segmented_reduce", _torch_segmented_reduce, _cuda_segmented_reduce,
+    refusal=_segmented_refusal,
+    doc="per-CSR-segment reduce -> (S,): the flagged scan + segment ends",
+))
+
+segmented_scan_p = register(Primitive(
+    "segmented_scan", _torch_segmented_scan, _cuda_segmented_scan,
+    refusal=_segmented_refusal,
+    doc="per-CSR-segment prefix scan (inclusive/exclusive), flagged operator",
+))
+
+segmented_sort_p = register(Primitive(
+    "segmented_sort",
+    lambda values, offsets, payload=None: segment_kernel.segmented_sort_ref(
+        values, offsets, payload),
+    lambda values, offsets, payload=None:
+        segment_kernel.segmented_sort_blocks(values, offsets, payload),
+    tunables=_SORT_TUNABLES,
+    doc="per-CSR-segment sort (optional payload) on the bitonic kv network",
 ))

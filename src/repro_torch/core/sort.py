@@ -1,8 +1,8 @@
 """The AK.jl primitive suite, part 2: sorting (counterpart of
 ``repro/core/sort.py``).
 
-``merge_sort`` / ``merge_sort_by_key`` / ``sortperm`` and the k-way
-``merge`` / ``merge_kv`` of the paper's §II-B. The GPU specialisation is
+``merge_sort`` / ``merge_sort_by_key`` / ``sortperm``, the k-way
+``merge`` / ``merge_kv`` of the paper's §II-B, and ``segmented_sort``. The GPU specialisation is
 the bitonic network of ``kernels/sort_kernel.py``; the portable path is
 ``torch.sort``. Both sides are registered once in
 ``repro_torch.core.registry``; these wrappers adapt the public signatures.
@@ -16,6 +16,7 @@ _sort_kv = registry.get("sort_kv")
 _merge = registry.get("merge")
 _merge_kv = registry.get("merge_kv")
 _argsort = registry.get("argsort")
+_segmented_sort = registry.get("segmented_sort")
 
 
 def merge_sort(x, *, descending: bool = False, backend: str | None = None):
@@ -56,3 +57,15 @@ def merge_kv(keys, vals, nruns: int, *, counts=None,
                          backend=backend)
     return _merge_kv(keys, vals, counts, nruns=nruns, tie_break=tie_break,
                      backend=backend)
+
+
+def segmented_sort(values, offsets, *, vals=None,
+                   backend: str | None = None):
+    """Sort each CSR segment of 1-D ``values`` ascending (``offsets`` of
+    length S + 1, empty segments legal). With ``vals`` (a same-length
+    payload) returns ``(sorted_values, payload)``, equal values keeping
+    their original order; without, the sorted values. On the card: the
+    bitonic kv network with the segment ids as keys."""
+    if vals is None:
+        return _segmented_sort(values, offsets, backend=backend)
+    return _segmented_sort(values, offsets, vals, backend=backend)

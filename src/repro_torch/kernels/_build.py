@@ -7,7 +7,8 @@ library with a plain C interface and loaded with ``ctypes``:
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<stem>-<hash>.so
 
 No ``--use_fast_math``: the histogram's bins must come from IEEE division
-to match the reference. The file name carries a hash of the source and
+to match the reference, and the map bodies' ``expf``/``sqrtf`` must be
+the IEEE ones. The file name carries a hash of the source and
 the flags, so an edited source never loads a stale library. The build
 runs at first use, all sources at once (one ``nvcc`` each), under a file
 lock, and each library appears by an atomic rename, so several processes
@@ -33,7 +34,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("bitonic", "hist", "search")
+SOURCES = ("bitonic", "hist", "search", "map", "reduce", "scan")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -143,8 +144,10 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-#: dtype codes of csrc/ak_common.cuh (enum AkDtype)
+#: dtype codes of csrc/ak_common.cuh (enum AkDtype); bool only as the
+#: output of a logical reduction
 DTYPE_CODES = {torch.float32: 0, torch.int32: 1, torch.bfloat16: 2}
+BOOL_CODE = 3
 
 
 def dtype_code(dtype: torch.dtype, what: str) -> int:
@@ -153,8 +156,17 @@ def dtype_code(dtype: torch.dtype, what: str) -> int:
     except KeyError:
         raise TypeError(
             f"{what}: the CUDA kernel takes float32, int32 or bfloat16 "
-            f"keys, got {dtype}"
+            f"operands, got {dtype}"
         ) from None
+
+
+def as_double(value, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` and widened to a Python float (exact:
+    every float32, int32, bfloat16 and bool value is a double), the form
+    in which scalars such as identities and inits reach the kernels."""
+    if isinstance(value, torch.Tensor):
+        value = value.item()
+    return float(torch.tensor(value, dtype=dtype).to(torch.float64))
 
 
 def stream_handle(device) -> ctypes.c_void_p:

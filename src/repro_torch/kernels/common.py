@@ -9,6 +9,11 @@ only the unfused layout (one launch per cross stage, ``sort_hyper == 0``);
 the fused hyper-block window is later work, and the registry accepts no
 other value.
 
+The operator catalogue (:data:`OPS` by name, :func:`catalogued_op`) lists
+the combining operators the streaming kernels take, each with its code in
+``csrc/ak_stream.cuh`` and its identity per dtype; a kernel cannot run a
+Python closure, so any other ``op`` runs on the portable path.
+
 The launch counter counts CUDA launches only: every wrapper in this
 package calls :func:`count_launch` right where it launches a kernel and
 nowhere else, so a plain PyTorch version run on the CPU counts nothing.
@@ -19,7 +24,10 @@ span on the calling thread.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import operator
 import threading
+from typing import Callable
 
 import torch
 
@@ -133,6 +141,61 @@ def count_launch(kernel: str) -> None:
         _launch_by_label[label] = _launch_by_label.get(label, 0) + 1
         _launch_by_kernel[kernel] = _launch_by_kernel.get(kernel, 0) + 1
     telemetry.attribute(launches=1)
+
+
+# --------------------------------------------------------------------------
+# Operator catalogue of the streaming kernels
+# --------------------------------------------------------------------------
+
+#: dtypes of the kernels' operands: float32, int32 and bfloat16.
+KERNEL_DTYPES = (torch.float32, torch.int32, torch.bfloat16)
+
+
+@dataclasses.dataclass(frozen=True)
+class Op:
+    """A combining operator the kernels know: its code in
+    ``csrc/ak_stream.cuh`` (enum AkOp), its elementwise torch function and
+    its identity per dtype. ``logical`` ops fold to a bool."""
+
+    name: str
+    code: int
+    fn: Callable
+    logical: bool = False
+
+    def identity(self, dtype: torch.dtype):
+        """The neutral element of the operator in ``dtype``."""
+        if self.name == "add":
+            return False if dtype == torch.bool else 0
+        if self.name == "mul":
+            return True if dtype == torch.bool else 1
+        if self.name == "min":
+            return True if dtype == torch.bool else type_max(dtype)
+        if self.name == "max":
+            return False if dtype == torch.bool else type_min(dtype)
+        return self.name == "and"
+
+
+ADD = Op("add", 0, torch.add)
+MUL = Op("mul", 1, torch.mul)
+MIN = Op("min", 2, torch.minimum)
+MAX = Op("max", 3, torch.maximum)
+AND = Op("and", 4, torch.logical_and, logical=True)
+OR = Op("or", 5, torch.logical_or, logical=True)
+
+OPS = {op.name: op for op in (ADD, MUL, MIN, MAX, AND, OR)}
+_OPS = {
+    torch.add: ADD, operator.add: ADD, torch.mul: MUL, torch.minimum: MIN,
+    torch.maximum: MAX, torch.logical_and: AND, torch.logical_or: OR,
+}
+
+
+def catalogued_op(op) -> Op | None:
+    """The catalogue entry of ``op`` (a torch or ``operator`` function),
+    or None for any other callable: that one runs on the portable path."""
+    try:
+        return _OPS.get(op)
+    except TypeError:  # unhashable callable
+        return None
 
 
 # --------------------------------------------------------------------------

@@ -48,13 +48,13 @@ MAX_SMEM = 232448
 _SIGNATURES = {
     "ak_bitonic_inblock": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_void_p,
     ],
     "ak_bitonic_cross": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_void_p,
     ],
 }
 
@@ -122,6 +122,12 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr()) if t is not None else None
 
 
+def _codes(keys, vals) -> tuple[int, int]:
+    """dtype codes of the keys and of the payload (int32's when none)."""
+    vcode = 1 if vals is None else _build.dtype_code(vals.dtype, "sort")
+    return _build.dtype_code(keys.dtype, "sort"), vcode
+
+
 def _run_inblock(keys, vals, k_lo: int, k_hi: int, block: int,
                  tie_break: bool, cuda: bool):
     """Every in-block stage of phases k_lo, 2·k_lo, …, k_hi."""
@@ -134,7 +140,7 @@ def _run_inblock(keys, vals, k_lo: int, k_hi: int, block: int,
         return keys, vals
     lib = _lib()
     err = lib.ak_bitonic_inblock(
-        _ptr(keys), _ptr(vals), _build.dtype_code(keys.dtype, "sort"),
+        _ptr(keys), _ptr(vals), *_codes(keys, vals),
         int(tie_break), keys.shape[0], block, k_lo, k_hi,
         _build.stream_handle(keys.device),
     )
@@ -149,7 +155,7 @@ def _run_cross(keys, vals, k: int, j: int, tie_break: bool, cuda: bool):
         return _cx_plain(keys, vals, k, j, tie_break)
     lib = _lib()
     err = lib.ak_bitonic_cross(
-        _ptr(keys), _ptr(vals), _build.dtype_code(keys.dtype, "sort"),
+        _ptr(keys), _ptr(vals), *_codes(keys, vals),
         int(tie_break), keys.shape[0], k, j,
         _build.stream_handle(keys.device),
     )
@@ -191,18 +197,16 @@ def _check_operands(keys, vals, tie_break: bool, cuda: bool, block: int):
                 f"keys {tuple(keys.shape)} and values {tuple(vals.shape)} "
                 f"differ in shape"
             )
-        if tie_break and vals.dtype != torch.int32:
+        if tie_break and vals.dtype not in C.KERNEL_DTYPES:
             raise TypeError(
-                f"tie_break compares values as int32, got {vals.dtype}"
+                f"tie_break compares values as one of {C.KERNEL_DTYPES}, "
+                f"got {vals.dtype}"
             )
     if not cuda:
         return
-    _build.dtype_code(keys.dtype, "sort")
-    if vals is not None and vals.element_size() != 4:
-        raise TypeError(
-            f"the CUDA network carries a 4-byte payload, got {vals.dtype}"
-        )
-    smem = block * (keys.element_size() + (4 if vals is not None else 0))
+    _codes(keys, vals)
+    smem = block * (keys.element_size() +
+                    (vals.element_size() if vals is not None else 0))
     if smem > MAX_SMEM:
         raise ValueError(
             f"block of {block} keys needs {smem} bytes of shared memory, "
@@ -249,8 +253,9 @@ def bitonic_sort(keys: torch.Tensor, *, descending: bool = False,
 def bitonic_sort_kv(keys, vals, *, tie_break: bool = False,
                     plain: bool = False):
     """Sort (keys, vals) pairs by key. ``tie_break=True`` orders equal
-    keys by ascending int32 value (a stable argsort with an iota
-    payload)."""
+    keys by ascending value, compared in the values' dtype (int32,
+    float32 or bfloat16; -0.0 equals 0.0): a stable argsort with an iota
+    payload, or the segmented sort with segment ids as keys."""
     if keys.shape[0] == 0:
         return keys, vals
     return _sort(keys, vals, tie_break,

@@ -1,6 +1,6 @@
 """The port's primitive registry, dispatch and launch counter, and its
-import boundary: ``repro_torch`` and ``chip_smoke.py`` never import
-``jax`` or anything of ``repro``."""
+import boundary: ``repro_torch``, ``benchmarks_torch`` and
+``chip_smoke.py`` never import ``jax`` or anything of ``repro``."""
 import ast
 import os
 import subprocess
@@ -32,7 +32,8 @@ def _clean_registry():
 def test_slice_primitives_registered():
     assert set(registry.names()) == {
         "sort", "sort_kv", "argsort", "merge", "merge_kv", "searchsorted",
-        "minmax_histogram", "bincount",
+        "minmax_histogram", "bincount", "map", "mapreduce", "accumulate",
+        "segmented_reduce", "segmented_scan", "segmented_sort",
     }
     with pytest.raises(ValueError):
         registry.register(registry.Primitive("sort", lambda x: x))
@@ -81,7 +82,8 @@ def test_calls_and_hits_count():
     x = torch.randn(300)
     for _ in range(5):
         ak.merge_sort(x, backend="cuda")
-    assert registry.stats("sort") == {"calls": 5, "cache_hits": 5}
+    assert registry.stats("sort") == {"calls": 5, "cache_hits": 5,
+                                      "portable_calls": 0}
     prim = registry.get("sort")
     orig = prim.cuda_impl
 
@@ -94,9 +96,11 @@ def test_calls_and_hits_count():
         ak.merge_sort(x, backend="cuda", descending=True)
     finally:
         prim.cuda_impl = orig
-    assert registry.stats("sort") == {"calls": 6, "cache_hits": 5}
+    assert registry.stats("sort") == {"calls": 6, "cache_hits": 5,
+                                      "portable_calls": 0}
     registry.reset_stats()
-    assert registry.stats("sort") == {"calls": 0, "cache_hits": 0}
+    assert registry.stats("sort") == {"calls": 0, "cache_hits": 0,
+                                      "portable_calls": 0}
 
 
 def test_override_precedence():
@@ -128,6 +132,9 @@ def test_override_precedence():
     ("searchsorted", {"block_rows": 8}, KeyError),
     ("minmax_histogram", {"block_cols": 128}, KeyError),
     ("bincount", {"switch_below": 1}, KeyError),
+    ("mapreduce", {"block_rows": 8}, KeyError),
+    ("segmented_scan", {"sort_hyper": 0}, KeyError),
+    ("segmented_sort", {"sort_hyper": 3}, ValueError),
 ])
 def test_tuning_validation(name, knobs, exc):
     with pytest.raises(exc):
@@ -168,13 +175,17 @@ def test_import_pulls_in_no_jax_and_no_reference():
     code = textwrap.dedent("""
         import sys
         import repro_torch, repro_torch.core, repro_torch.convert
-        import repro_torch.kernels._build
+        import repro_torch.kernels._build, repro_torch.kernels.ops
+        import benchmarks_torch.arithmetic, benchmarks_torch.call_overhead
+        import benchmarks_torch.streaming_breakdown
+        import benchmarks_torch.streaming_inputs
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
         print("clean")
     """)
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(REPO, "src"), REPO]))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0 and "clean" in out.stdout, out.stderr
@@ -191,9 +202,13 @@ def _imported_roots(path):
 
 def test_no_port_file_imports_jax_or_reference():
     files = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, names in os.walk(os.path.join(REPO, "src", "repro_torch")):
-        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for top in (os.path.join(REPO, "src", "repro_torch"),
+                os.path.join(REPO, "benchmarks_torch")):
+        for root, _, names in os.walk(top):
+            files += [os.path.join(root, n) for n in names
+                      if n.endswith(".py")]
     assert len(files) > 10
+    assert any(f.endswith("benchmarks_torch/arithmetic.py") for f in files)
     for f in files:
         bad = {m for m in _imported_roots(f)} & {"jax", "jaxlib", "repro"}
         assert not bad, (f, bad)

@@ -1,0 +1,264 @@
+"""The port's segmented primitives (segmented reduce, scan and sort) against
+the JAX package.
+
+CSR layouts cover the extremes: a single segment, all segments empty,
+empty segments at both ends and in the middle, and a long segment that
+crosses the scan kernel's 8192-element tiles. On the CPU the port's
+``cuda`` backend runs the kernels' plain versions. The JAX side runs its
+``jnp`` backend, and ``pallas`` in interpret mode on a few small cases.
+Tolerances are the reference's (tests/test_segmented.py): bitwise on
+exact-arithmetic values (integers in [-3, 3], sparse for bfloat16: every
+partial sum is exact in any order), int, min/max and every sort; rtol 1e-4 / atol 1e-3 for
+float add on normal data. The sort's float tie-break case puts -0.0 and
+0.0 in one segment: the port's network must order them as the
+reference's Pallas network does.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import core as jak
+from repro.kernels import segment_kernel as JSG
+from repro_torch import core as ak
+from repro_torch.core import dispatch, registry
+from repro_torch.kernels import common as TC
+from repro_torch.kernels import segment_kernel as TSG
+
+from torch_parity import assert_bitwise, keys, t
+
+LAYOUTS = {
+    "one_segment": [20000],
+    "all_empty": [0, 0, 0],
+    "empty_both_ends": [0, 3, 0, 9000, 1, 0, 0],
+    "ragged": None,  # 300 random lengths, ~40k elements
+    "tile_crossing": [5, 8190, 3, 8193, 0, 16384 + 11],
+}
+
+
+def _lengths(name):
+    if LAYOUTS[name] is not None:
+        return LAYOUTS[name]
+    rng = np.random.default_rng(5)
+    return [int(v) for v in rng.integers(0, 270, size=300)]
+
+
+def _offsets(lengths):
+    return np.cumsum([0] + list(lengths)).astype(np.int32)
+
+
+def _data(name, dtype, exact, seed=0):
+    lengths = _lengths(name)
+    off = _offsets(lengths)
+    rng = np.random.default_rng(seed + len(lengths))
+    n = int(off[-1])
+    if exact:
+        raw = rng.integers(-3, 4, size=n).astype(np.float32)
+        if dtype == "bf16":  # keep every partial sum within bf16's 2^8
+            raw = np.where(rng.random(n) < 0.004, raw, np.float32(0))
+        ref_dtype = keys(rng, 1, dtype).dtype
+        vals = raw.astype(ref_dtype)
+    else:
+        vals = keys(rng, n, dtype)
+    return vals, off
+
+
+def _unit(name, dtype):
+    if name == "add":
+        return 0
+    if dtype == "i32":
+        info = np.iinfo(np.int32)
+        return int(info.max) if name == "min" else int(info.min)
+    return np.inf if name == "min" else -np.inf
+
+
+OPS = {"add": (torch.add, jnp.add), "min": (torch.minimum, jnp.minimum),
+       "max": (torch.maximum, jnp.maximum)}
+
+
+def test_csr_helpers_match_reference():
+    for name in LAYOUTS:
+        off = _offsets(_lengths(name))
+        n = int(off[-1])
+        for tfn, jfn in ((TSG.segment_ids, JSG.segment_ids),
+                         (TSG.head_flags, JSG.head_flags)):
+            got = tfn(t(off), n)
+            assert got.dtype == torch.int32
+            assert_bitwise(got, np.asarray(jfn(jnp.asarray(off), n)))
+
+
+@pytest.mark.parametrize("layout,dtype,name", [
+    ("one_segment", "f32", "add"), ("all_empty", "i32", "max"),
+    ("empty_both_ends", "bf16", "add"), ("ragged", "i32", "min"),
+    ("ragged", "bf16", "max"), ("tile_crossing", "f32", "add"),
+    ("tile_crossing", "i32", "max"), ("empty_both_ends", "f32", "min"),
+])
+def test_segmented_scan_and_reduce_exact_bitwise_vs_jnp(layout, dtype, name):
+    """Every layout, dtype and op occurs (one op per case: each op is a
+    compile of its own on the JAX side)."""
+    vals, off = _data(layout, dtype, exact=True)
+    top, jop = OPS[name]
+    unit = _unit(name, dtype)
+    want = np.asarray(jak.segmented_reduce(
+        jop, jnp.asarray(vals), jnp.asarray(off), init=unit, backend="jnp"))
+    for backend in ("cuda", "torch"):
+        got = ak.segmented_reduce(top, t(vals), t(off), init=unit,
+                                  backend=backend)
+        assert_bitwise(got, want)
+    for inclusive in (True, False):
+        want = np.asarray(jak.segmented_scan(
+            jop, jnp.asarray(vals), jnp.asarray(off), init=unit,
+            inclusive=inclusive, backend="jnp"))
+        for backend in ("cuda", "torch"):
+            got = ak.segmented_scan(top, t(vals), t(off), init=unit,
+                                    inclusive=inclusive, backend=backend)
+            assert_bitwise(got, want)
+
+
+def test_segmented_float_add_allclose_vs_jnp():
+    """Normal float data on the reference's own scale (values x 100,
+    segments of up to 270): its tolerance, rtol 1e-4 / atol 1e-3."""
+    vals, off = _data("ragged", "f32", exact=False, seed=1)
+    vals = vals * np.float32(100)
+    want = np.asarray(jak.segmented_reduce(
+        jnp.add, jnp.asarray(vals), jnp.asarray(off), init=0.0,
+        backend="jnp"))
+    got = ak.segmented_reduce(torch.add, t(vals), t(off), init=0.0,
+                              backend="cuda")
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-3)
+    want = np.asarray(jak.segmented_scan(
+        jnp.add, jnp.asarray(vals), jnp.asarray(off), init=0.0,
+        backend="jnp"))
+    got = ak.segmented_scan(torch.add, t(vals), t(off), init=0.0,
+                            backend="cuda")
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-3)
+
+
+def test_segmented_float_add_long_segments_within_sum_bound():
+    """Segments of up to 16k float32 values: two summation orders differ
+    by up to a few ulps of the running sum of |x|, so the bound is
+    1e-4 * sum |x| (per prefix) + 1e-3, not a fixed atol."""
+    vals, off = _data("tile_crossing", "f32", exact=False, seed=1)
+    vals = vals * np.float32(100)
+    want = np.asarray(jak.segmented_scan(
+        jnp.add, jnp.asarray(vals), jnp.asarray(off), init=0.0,
+        backend="jnp"))
+    got = ak.segmented_scan(torch.add, t(vals), t(off), init=0.0,
+                            backend="cuda").numpy()
+    mass = TSG.segmented_scan_ref(torch.add, t(np.abs(vals)).double(),
+                                  t(off), unit=0.0).numpy()
+    assert (np.abs(got.astype(np.float64) - want) <= 1e-4 * mass + 1e-3
+            ).all()
+
+
+@pytest.mark.parametrize("layout", ["empty_both_ends", "all_empty"])
+def test_segmented_vs_pallas_interpret(layout):
+    vals, off = _data(layout, "f32", exact=True)
+    v, o = jnp.asarray(vals), jnp.asarray(off)
+    for inclusive in (True, False):
+        want = jak.segmented_scan(jnp.add, v, o, init=0.0,
+                                  inclusive=inclusive, backend="pallas")
+        got = ak.segmented_scan(torch.add, t(vals), t(off), init=0.0,
+                                inclusive=inclusive, backend="cuda")
+        assert_bitwise(got, np.asarray(want))
+    want = jak.segmented_reduce(jnp.maximum, v, o, init=-np.inf,
+                                backend="pallas")
+    got = ak.segmented_reduce(torch.maximum, t(vals), t(off), init=-np.inf,
+                              backend="cuda")
+    assert_bitwise(got, np.asarray(want))
+
+
+def test_segmented_feature_axes_take_the_portable_path(monkeypatch):
+    vals, off = _data("ragged", "f32", exact=True)
+    v2 = np.stack([vals, -vals], axis=1)
+    want = jak.segmented_reduce(jnp.add, jnp.asarray(v2), jnp.asarray(off),
+                                init=0.0, backend="pallas")
+    got = ak.segmented_reduce(torch.add, t(v2), t(off), init=0.0,
+                              backend="torch")
+    assert tuple(got.shape) == (len(off) - 1, 2)
+    assert_bitwise(got, np.asarray(want))
+    # the kernel is 1-D: an explicit cuda request is refused ...
+    for prim in (ak.segmented_reduce, ak.segmented_scan):
+        with pytest.raises(TypeError):
+            prim(torch.add, t(v2), t(off), init=0.0, backend="cuda")
+    # ... and under auto a CUDA operand runs portable, counted (modelled
+    # here by resolving auto to cuda)
+    registry.reset_stats()
+    monkeypatch.setattr(dispatch, "resolve", lambda *a, **k: "cuda")
+    got = ak.segmented_reduce(torch.add, t(v2), t(off), init=0.0)
+    assert_bitwise(got, np.asarray(want))
+    scanned = ak.segmented_scan(torch.add, t(v2), t(off), init=0.0)
+    assert_bitwise(scanned, np.asarray(jak.segmented_scan(
+        jnp.add, jnp.asarray(v2), jnp.asarray(off), init=0.0,
+        backend="jnp")))
+    assert registry.stats("segmented_reduce")["portable_calls"] == 1
+    assert registry.stats("segmented_scan")["portable_calls"] == 1
+
+
+@pytest.mark.parametrize("layout", ["ragged", "empty_both_ends",
+                                    "one_segment"])
+@pytest.mark.parametrize("dtype", ["f32", "i32", "bf16"])
+def test_segmented_sort_bitwise_vs_jnp(layout, dtype):
+    vals, off = _data(layout, dtype, exact=False, seed=2)
+    pay = np.arange(vals.shape[0], dtype=np.int32)
+    want = jak.segmented_sort(jnp.asarray(vals), jnp.asarray(off),
+                              backend="jnp")
+    wv, wp = jak.segmented_sort(jnp.asarray(vals), jnp.asarray(off),
+                                vals=jnp.asarray(pay), backend="jnp")
+    for backend in ("cuda", "torch"):
+        assert_bitwise(ak.segmented_sort(t(vals), t(off), backend=backend),
+                       np.asarray(want))
+        gv, gp = ak.segmented_sort(t(vals), t(off), vals=t(pay),
+                                   backend=backend)
+        assert_bitwise(gv, np.asarray(wv))
+        assert_bitwise(gp, np.asarray(wp))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_segmented_sort_float_tie_break_bitwise_vs_pallas(dtype):
+    """Equal values, -0.0 and 0.0 among them, in segments crossing the
+    8192-key block: the kv network compares the payload (the values) in
+    its own dtype, so -0.0 == 0.0 keep the network's order, as the
+    reference's Pallas network keeps it."""
+    rng = np.random.default_rng(11)
+    lengths = [3000, 0, 5000, 1, 6000]
+    off = _offsets(lengths)
+    n = int(off[-1])
+    raw = rng.integers(-2, 3, size=n).astype(np.float32)
+    raw = np.where((raw == 0) & (rng.random(n) < 0.5), np.float32(-0.0), raw)
+    vals = raw.astype(keys(rng, 1, dtype).dtype)
+    want = jak.segmented_sort(jnp.asarray(vals), jnp.asarray(off),
+                              backend="pallas")
+    got = ak.segmented_sort(t(vals), t(off), backend="cuda")
+    assert_bitwise(got, np.asarray(want))
+    assert np.signbit(np.asarray(want, np.float32)[np.asarray(want) == 0]
+                      ).any()
+
+
+def test_segmented_sort_payload_vs_pallas():
+    lengths = [0, 3, 0, 900, 1, 0]  # one block: in-block stages only
+    off = _offsets(lengths)
+    vals = np.random.default_rng(3).integers(-3, 4, size=int(off[-1])
+                                             ).astype(np.int32)
+    pay = np.arange(vals.shape[0], dtype=np.int32)
+    wv, wp = jak.segmented_sort(jnp.asarray(vals), jnp.asarray(off),
+                                vals=jnp.asarray(pay), backend="pallas")
+    gv, gp = ak.segmented_sort(t(vals), t(off), vals=t(pay), backend="cuda")
+    assert_bitwise(gv, np.asarray(wv))
+    assert_bitwise(gp, np.asarray(wp))
+
+
+def test_segmented_launch_closed_forms():
+    from repro_torch.kernels import sort_kernel as TSK
+    assert TSG.segmented_scan_launches(0) == 0
+    assert TSG.segmented_scan_launches(8192) == 1
+    assert TSG.segmented_scan_launches(1 << 28) == 3
+    assert TSG.segmented_sort_launches(0) == 0
+    n = 1 << 26
+    assert TSG.segmented_sort_launches(n) == TSK.cross_launches(n)
+    assert TSG.segmented_sort_launches(n, payload=True) == \
+        2 * TSK.cross_launches(n)
+    TC.reset_launch_count()
+    ak.segmented_scan(torch.add, torch.ones(9000), torch.tensor([0, 9000]),
+                      init=0.0, backend="cuda")
+    assert TC.launch_count() == 0  # the plain version launches nothing

@@ -157,8 +157,16 @@ def test_cpu_path_counts_no_launches():
 
 
 def test_tie_break_needs_int32_payload_and_bad_dtype_raises():
-    k = torch.randn(100)
+    """The tie-break compares payloads of the kernels' dtypes (float32
+    too, since the segmented sort passes values as the payload); any other
+    payload dtype raises."""
+    k = torch.randint(0, 4, (100,), dtype=torch.int32)
+    v = torch.randn(100)
+    gk, gv = TSK.bitonic_sort_kv(k, v, tie_break=True)
+    order = np.lexsort((v.numpy(), k.numpy()))
+    assert torch.equal(gk, k[order]) and torch.equal(gv, v[order])
     with pytest.raises(TypeError):
-        TSK.bitonic_sort_kv(k, torch.arange(100.0), tie_break=True)
+        TSK.bitonic_sort_kv(k, torch.arange(100.0, dtype=torch.float64),
+                            tie_break=True)
     with pytest.raises(ValueError):
         TSK.bitonic_sort_kv(k, torch.arange(99, dtype=torch.int32))
