@@ -1,0 +1,308 @@
+"""The serving path at full width on the card: internlm2-1.8B (24 layers,
+d_model 2048, 16 heads, 8 KV heads, d_ff 8192, vocab 92544 padded to
+94208) with random bfloat16 weights from a seeded generator, paged KV
+cache, 8 slots, 16 requests of 256 random prompt tokens and 64 new tokens
+each (top-k 16, top-p 0.95).
+
+    PYTHONPATH=src:. python -m benchmarks_torch.serving [--seed S] [--out F]
+
+Prints the engine's tokens/s and TTFT, and where one decode step's time
+goes: device time by kernel class from ``torch.profiler`` (weight and
+attention products both land in "matmuls" there), and CUDA-event times of
+the step's parts run alone at its shapes (the weight products, the
+attention core, the page gathers, the sampler), and the host cost of one
+page-gather call split into its parts. ``chip_smoke.py`` phase 7
+drives the same workload from here. Needs a card.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import dataclasses
+import json
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from benchmarks_torch.call_overhead import per_call_us
+from repro_torch.configs import load_config
+from repro_torch.core import registry
+from repro_torch.kernels import _build
+from repro_torch.kernels import page_kernel as PK
+from repro_torch.launch import serve
+from repro_torch.launch.engine import Engine, Request
+from repro_torch.models import layers as L
+from repro_torch.models import model as M
+
+ARCH = "internlm2_1_8b"
+SLOTS, REQUESTS, PROMPT_LEN, MAX_NEW = 8, 16, 256, 64
+TOP_K, TOP_P = 16, 0.95
+
+
+@dataclasses.dataclass
+class Workload:
+    cfg: object
+    params: dict
+    prompts: np.ndarray       # (REQUESTS, PROMPT_LEN) int32
+    page_size: int
+    cache_len: int
+
+
+def workload(seed: int = 0, device="cuda") -> Workload:
+    """The full-width model (random weights from ``seed``) and prompts."""
+    cfg = load_config(ARCH)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = M.init_params(gen, cfg, device=device)
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab, size=(REQUESTS, PROMPT_LEN), dtype=np.int32)
+    ps = int(registry.tuning.lookup("page_gather")["page_size"])
+    cache_len = -(-(PROMPT_LEN + MAX_NEW) // ps) * ps
+    return Workload(cfg, params, prompts, ps, cache_len)
+
+
+def engine(w: Workload, *, paged=True, temperature=1.0, seed=0) -> Engine:
+    return Engine(w.params, w.cfg, slots=SLOTS, cache_len=w.cache_len,
+                  prompt_pad=PROMPT_LEN, temperature=temperature,
+                  top_k=TOP_K, top_p=TOP_P, seed=seed, paged=paged,
+                  page_size=w.page_size)
+
+
+def requests(w: Workload) -> list:
+    return [Request(rid=i, prompt=w.prompts[i], max_new=MAX_NEW)
+            for i in range(REQUESTS)]
+
+
+def run(w: Workload, **kw):
+    """One engine run; returns (tokens {rid: list}, EngineStats)."""
+    res, stats = engine(w, **kw).run(requests(w))
+    return {r: v.tokens for r, v in res.items()}, stats
+
+
+# ---------------------------------------------------------------------------
+# where one decode step's device time goes
+# ---------------------------------------------------------------------------
+
+CATEGORIES = (
+    ("page gathers", ("page_gather",)),
+    ("sampler sort network", ("inblock_kernel", "cross_kernel")),
+    ("sampler mask", ("nucleus_kernel",)),
+    ("matmuls", ("gemm", "gemv", "nvjet", "cutlass", "sm90_", "xmma",
+                 "splitk", "cublas")),
+)
+
+
+def _category(name: str) -> str:
+    low = name.lower()
+    for cat, keys in CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    if "softmax" in low:
+        return "attention softmax"
+    return "other (elementwise, index, reductions)"
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def decode_step_inputs(w: Workload, seed: int = 0):
+    """A steady-state decode step of the paged path: every slot live at
+    position PROMPT_LEN + MAX_NEW // 2, tables over a full pool of random
+    K/V pages (a scattered permutation of page ids)."""
+    cfg, dev = w.cfg, w.params["embed"]["embed"].device
+    T = w.cache_len // w.page_size
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    caches = M.zero_paged_caches(cfg, num_pages=SLOTS * T,
+                                 page_size=w.page_size, device=dev)
+    for c in caches["kv"].values():
+        c.normal_(generator=gen)
+    table = torch.randperm(SLOTS * T, generator=gen, device=dev).to(
+        torch.int32).view(SLOTS, T)
+    tok = torch.randint(0, cfg.vocab, (SLOTS, 1), generator=gen,
+                        device=dev, dtype=torch.int32)
+    pos = torch.full((SLOTS,), PROMPT_LEN + MAX_NEW // 2, device=dev)
+    keys = serve.request_keys(seed, list(range(SLOTS)), [0] * SLOTS, dev)
+    return caches, table, tok, pos, keys
+
+
+def decode_step(w: Workload, inputs):
+    """One engine decode step: the model through the page table, then the
+    sampler under the engine's "sampler" preset."""
+    caches, table, tok, pos, keys = inputs
+    logits, _ = M.decode_step(w.params, w.cfg, tok, caches, pos,
+                              block_tables=table, page_size=w.page_size)
+    with registry.tuning.preset("sampler"):
+        return serve.sample_logits(keys, logits[:, 0], top_k=TOP_K,
+                                   top_p=TOP_P, vocab=w.cfg.vocab)
+
+
+def _event_ms(fn, reps: int = 5) -> float:
+    """Mean CUDA-event time of ``fn`` over ``reps`` warm calls."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def parts(w: Workload, inputs) -> dict:
+    """CUDA-event ms of one decode step and of its parts alone, at the
+    step's shapes: every weight product of the layers and the head, the
+    attention core of every layer, the 2 x n_layers page gathers, the
+    sampler."""
+    cfg, p = w.cfg, w.params
+    caches, table, tok, pos, keys = inputs
+    dev = tok.device
+    H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    x = torch.randn(SLOTS, 1, d, device=dev).to(cfg.dtype)
+    f = torch.randn(SLOTS, 1, cfg.d_ff, device=dev).to(cfg.dtype)
+
+    def matmuls():
+        for lp in p["layers"]:
+            a, m = lp["attn"], lp["mlp"]
+            for wt in (a["wq"], a["wk"], a["wv"], a["wo"], m["w_gate"],
+                       m["w_up"]):
+                x @ wt
+            f @ m["w_down"]
+        x @ p["head"]["unembed"]
+
+    q = torch.randn(SLOTS, 1, H, hd, device=dev).to(cfg.dtype)
+    k = caches["kv"]["k"][0][table.long()].reshape(SLOTS, -1, KV, hd)
+    v = caches["kv"]["v"][0][table.long()].reshape(SLOTS, -1, KV, hd)
+
+    def attention():
+        for _ in range(cfg.n_layers):
+            L.blockwise_attention(q, k, v, causal=True, q_offset=pos)
+
+    def gathers():
+        for i in range(cfg.n_layers):
+            for c in caches["kv"].values():
+                registry.call("page_gather", c[i], table)
+
+    logits = torch.randn(SLOTS, cfg.padded_vocab(16), device=dev)
+
+    def sampler():
+        with registry.tuning.preset("sampler"):
+            serve.sample_logits(keys, logits, top_k=TOP_K, top_p=TOP_P,
+                                vocab=cfg.vocab)
+
+    out = {"step": _event_ms(lambda: decode_step(w, inputs)),
+           "weight matmuls": _event_ms(matmuls),
+           "attention core": _event_ms(attention),
+           "page gathers": _event_ms(gathers),
+           "sampler": _event_ms(sampler)}
+    out["rest of the step"] = out["step"] - sum(
+        v for n, v in out.items() if n != "step")
+    return out
+
+
+def gather_host_us(w: Workload, inputs, calls: int = 2000) -> dict:
+    """Host-clock microseconds per page-gather call on one layer's pool
+    and the decode step's table, split into its parts (median of 5 runs of
+    ``calls`` back-to-back calls, one synchronise each): the registry call
+    the model makes, the wrapper alone, the bare ctypes launch on a
+    preallocated output, the output's ``torch.empty``, the library lookup
+    and stream handle the wrapper takes each call, and ``pool[table]``.
+    The card's work is ~5 us a call, so a part that costs less on the
+    host reads as the device time."""
+    caches, table = inputs[0], inputs[1]
+    pool = caches["kv"]["k"][0]
+    tl = table.long()
+    B, T = table.shape
+    shape = (B, T * pool.shape[1], *pool.shape[2:])
+    out = torch.empty(shape, dtype=pool.dtype, device=pool.device)
+    lib = _build.library("page", PK._SIGNATURES)
+    stream = _build.stream_handle(pool.device)
+    args = (ctypes.c_void_p(pool.data_ptr()),
+            ctypes.c_void_p(table.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), pool.shape[0], B * T,
+            pool[0].numel() * pool.element_size(), stream)
+    parts = {
+        "registry_call": lambda: registry.call("page_gather", pool, table),
+        "wrapper": lambda: PK.page_gather_blocks(pool, table),
+        "ctypes_launch": lambda: lib.ak_page_gather(*args),
+        "torch_empty": lambda: torch.empty(shape, dtype=pool.dtype,
+                                           device=pool.device),
+        "library_lookup": lambda: _build.library("page", PK._SIGNATURES),
+        "stream_handle": lambda: _build.stream_handle(pool.device),
+        "pool[table]": lambda: pool[tl],
+    }
+    return {k: per_call_us(fn, calls) for k, fn in parts.items()}
+
+
+def breakdown(w: Workload, reps: int = 3, seed: int = 0) -> dict:
+    """Device time of one decode step by category (``torch.profiler``),
+    the step's host-clock time and the device's idle share."""
+    inputs = decode_step_inputs(w, seed)
+    decode_step(w, inputs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            decode_step(w, inputs)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    cats: dict[str, float] = {}
+    kernels: dict[str, float] = {}
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            ms = us / 1e3 / reps
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + ms
+            cat = _category(evt.key)
+            cats[cat] = cats.get(cat, 0.0) + ms
+    device = sum(cats.values())
+    return {
+        "wall_ms": wall, "device_ms": device,
+        "parts_ms": parts(w, inputs),
+        "page_gather_host_us": gather_host_us(w, inputs),
+        "idle_share": max(0.0, 1.0 - device / wall) if wall else None,
+        "categories_ms": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
+        "top_kernels_ms": dict(sorted(kernels.items(),
+                                      key=lambda kv: -kv[1])[:12]),
+    }
+
+
+def summary(stats) -> dict:
+    tt = stats.ttft_s
+    return {"tokens": stats.tokens, "steps": stats.steps,
+            "decode_s": stats.decode_s, "tokens_per_s": stats.tokens_per_s,
+            "prefill_s": stats.prefill_s,
+            "first_prefill_s": stats.compile_prefill_s,
+            "first_decode_s": stats.compile_decode_s,
+            "ttft_p50_ms": tt.get("p50", 0.0) * 1e3,
+            "ttft_p99_ms": tt.get("p99", 0.0) * 1e3,
+            "mean_slot_util": stats.mean_slot_util}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("serving measures the card; no CUDA device found")
+    w = workload(args.seed)
+    _, stats = run(w, seed=args.seed)
+    out = {"device": torch.cuda.get_device_name(0),
+           "engine": summary(stats), "decode_step": breakdown(w)}
+    print(json.dumps(out, indent=1))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port's main paths: the AK sort primitives at 2^28 float32 keys
 and SIHSort over 4 ranks on the one card (2^26 keys + int32 payload per
-rank), then the streaming and segmented primitives. Phases:
+rank), then the streaming and segmented primitives, then the serving path
+on full-width internlm2-1.8B. Phases:
 
   1. environment: card name and power limit, torch / CUDA / nvcc
      versions, kernel build time;
@@ -40,10 +41,23 @@ rank), then the streaming and segmented primitives. Phases:
      where it is not, within the bodies' conditioning for RBF/LJG), the
      launches against the closed forms, ``portable_calls == 0``, and
      timings beside the plain versions, a PyTorch call where one computes
-     the same function, and the bounds.
+     the same function, and the bounds;
+  7. the serving path (``benchmarks_torch/serving.py``): internlm2-1.8B at
+     full width (random bf16 weights from the seed), ``Engine(paged=True)``
+     with 8 slots serving 16 requests of 256 prompt tokens and 64 new
+     tokens (top-k 16, top-p 0.95) through the user entry points; launches
+     of the page gather, the nucleus mask and the batched network against
+     their closed forms per decode step and sampler call,
+     ``portable_calls == 0`` on the sampler and ``page_gather``; greedy
+     paged and contiguous runs of the same requests emit the same tokens;
+     the kernels against their plain versions on the inputs that run gave
+     them (the page gather bitwise, the nucleus mask equal except at ranks
+     whose cumulative mass lies within 1e-5 of top_p, counted); the serve
+     CLI once on the smoke config; tokens/s, TTFT, kernel timings and where
+     one decode step's device time goes.
 
-Launch counters are set to 0 just before phases 3, 4 and 6 and read just
-after; the kernels' ``launches`` are the sum of those runs' counts. The last line of
+Launch counters are set to 0 just before phases 3, 4, 6 and 7 and read
+just after; the kernels' ``launches`` are the sum of those runs' counts. The last line of
 standard output is ``{"ok": true, "device": {...}}``; it is printed only
 when every phase passed. Without a CUDA device, or without the repo's
 ``src/`` beside it, the script exits non-zero and prints no result.
@@ -96,6 +110,7 @@ def sum_rtol(n: int) -> tuple[float, int]:
 
 SORT_KERNELS = ("bitonic_inblock", "bitonic_cross", "minmax_histogram",
                 "searchsorted")
+SERVE_KERNELS = ("nucleus_mask", "page_gather")
 REPLACES = {
     "bitonic_inblock": ("src/repro_torch/kernels/csrc/bitonic.cu",
                         "src/repro/kernels/sort_kernel.py:289"),
@@ -113,6 +128,10 @@ REPLACES = {
              "src/repro/kernels/scan_kernel.py:84"),
     "segmented_scan": ("src/repro_torch/kernels/csrc/scan.cu",
                        "src/repro/kernels/segment_kernel.py:167"),
+    "nucleus_mask": ("src/repro_torch/kernels/csrc/nucleus.cu",
+                     "src/repro/kernels/nucleus_kernel.py:127"),
+    "page_gather": ("src/repro_torch/kernels/csrc/page.cu",
+                    "src/repro/kernels/page_kernel.py:69"),
 }
 
 
@@ -644,6 +663,257 @@ def phase_streaming(ak, registry, C, errs, seed: int) -> dict:
     return out
 
 
+def _exclusive_cum64(neg, perm, n):
+    """Float64 exclusive cumulative softmax mass of every column's rank in
+    the descending order (``neg``/``perm``: the network's sorted rows): a
+    rank is kept iff this is below top_p, so two sums in different orders
+    may disagree only where it lies near top_p."""
+    s = -neg[:, :n].double()
+    p = torch.softmax(s, dim=1)
+    excl = torch.cumsum(p, dim=1) - p
+    out = torch.empty_like(excl)
+    out.scatter_(1, perm[:, :n].long(), excl)
+    return out
+
+
+def phase_serving(registry, C, errs, seed: int) -> dict:
+    """Phase 7: the serving path on full-width internlm2-1.8B (see
+    ``benchmarks_torch/serving.py``): a paged, sampled engine run through
+    the user entry points with the launch counters set to 0 just before
+    it, then greedy paged and contiguous runs that must agree, the kernels
+    against their plain versions on the inputs that run gave them, the
+    serve CLI, and timings."""
+    from benchmarks_torch import serving as SV
+    from repro_torch.kernels import nucleus_kernel as NK
+    from repro_torch.kernels import page_kernel as PK
+    from repro_torch.kernels import ref as KREF
+    from repro_torch.kernels import scan_kernel as SCK
+    from repro_torch.kernels import search_kernel as SE
+    from repro_torch.kernels import sort_kernel as SK
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import COMPLETED
+    from repro_torch.models import model as M
+
+    out = {}
+    t0 = time.perf_counter()
+    w = SV.workload(seed)
+    torch.cuda.synchronize()
+    cfg = w.cfg
+    V = cfg.padded_vocab(16)
+    out["params"] = M.param_count(w.params)
+    out["init_s"] = time.perf_counter() - t0
+    log(f"serve: {cfg.name} at full width, {out['params']} parameters "
+        f"(random bf16, seed {seed}), vocab {cfg.vocab} padded to {V}; "
+        f"init {out['init_s']:.1f} s")
+
+    # -- the main path: a paged, sampled run; capture the inputs the
+    # sampler and the page gather got from it (first full-batch call) and
+    # those the page allocator's scan and search got (first call)
+    captured = {}
+    sizes = {"accumulate": [], "searchsorted": []}
+    batched = ("nucleus_mask", "topk", "page_gather")
+    prims = {n: registry.get(n) for n in batched + tuple(sizes)}
+    originals = {n: p.cuda_impl for n, p in prims.items()}
+
+    def capturing(name, impl):
+        def call(*a, **kw):
+            if name in sizes:
+                sizes[name].append(a[0].numel())
+            if name not in captured and (name in sizes
+                                         or a[-1].shape[0] == SV.SLOTS):
+                captured[name] = ([x.clone() for x in a], dict(kw))
+            return impl(*a, **kw)
+        return call
+
+    for n, p in prims.items():
+        p.cuda_impl = capturing(n, originals[n])
+    try:
+        registry.reset_stats()
+        torch.cuda.synchronize()
+        C.reset_launch_count()
+        t0 = time.perf_counter()
+        sampled, st = SV.run(w, seed=seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, kern = C.launch_counts(), C.kernel_launches()
+        pstats = registry.stats()
+    finally:
+        for n, p in prims.items():
+            p.cuda_impl = originals[n]
+    out["engine"] = dict(SV.summary(st), wall_s=wall)
+    out["launches_by_primitive"] = counts
+    out["kernel_launches"] = kern
+    check(st.tokens == SV.REQUESTS * SV.MAX_NEW
+          and all(len(t) == SV.MAX_NEW for t in sampled.values()),
+          f"paged run emitted {st.tokens} tokens")
+    check(all(0 <= x < cfg.vocab for t in sampled.values() for x in t),
+          "a sampled token outside the vocabulary")
+    samples = st.steps + st.prefills     # one sampler call per each
+    want = {
+        "page_gather": st.steps * 2 * cfg.n_layers,
+        "nucleus_mask": samples,
+    }
+    for name, n in want.items():
+        check(kern.get(name) == n,
+              f"{name} launched {kern.get(name)} times, closed form {n}")
+    check(counts.get("topk") == samples * SK.cross_launches(V),
+          f"topk launches {counts.get('topk')}")
+    check(counts.get("nucleus_mask") == samples * NK.nucleus_launches(V),
+          f"nucleus_mask launches {counts.get('nucleus_mask')}")
+    # the allocator: one accumulate + searchsortedfirst per page granted
+    # (the engine allocates one page a call) over the whole pool
+    allocs, pages = st.pages_allocated_total, SV.SLOTS * (
+        w.cache_len // w.page_size)
+    check(sizes["accumulate"] == [pages] * allocs
+          and len(sizes["searchsorted"]) == allocs,
+          f"allocator scans {len(sizes['accumulate'])} / searches "
+          f"{len(sizes['searchsorted'])} for {allocs} pages granted")
+    check(kern.get("scan") == allocs * SCK.scan_launches(pages)
+          and kern.get("searchsorted") == allocs,
+          f"allocator launches scan {kern.get('scan')} / searchsorted "
+          f"{kern.get('searchsorted')}, closed forms "
+          f"{allocs * SCK.scan_launches(pages)} / {allocs}")
+    out["allocator"] = {"allocs": allocs, "pool_pages": pages}
+    for name in batched + tuple(sizes):
+        check(pstats[name]["portable_calls"] == 0
+              and pstats[name]["calls"] > 0,
+              f"{name} stats {pstats[name]}")
+    log(f"serve: {SV.REQUESTS} requests x {SV.MAX_NEW} tokens, paged "
+        f"({w.page_size}-token pages, T = {w.cache_len // w.page_size}), "
+        f"{SV.SLOTS} slots: "
+        f"{st.steps} decode steps, {st.tokens} tokens, "
+        f"{st.tokens_per_s:.1f} tok/s, ttft p50 "
+        f"{out['engine']['ttft_p50_ms']:.1f} ms p99 "
+        f"{out['engine']['ttft_p99_ms']:.1f} ms; launches {kern}; "
+        f"by primitive {counts}")
+
+    # -- greedy: paged and contiguous must agree token for token
+    g_paged, _ = SV.run(w, temperature=0.0, seed=seed)
+    g_contig, gst = SV.run(w, paged=False, temperature=0.0, seed=seed)
+    check(g_paged == g_contig, "greedy paged != greedy contiguous tokens")
+    out["engine_contiguous_greedy"] = SV.summary(gst)
+    log("serve: greedy paged and contiguous runs emit the same tokens "
+        f"({sum(len(t) for t in g_paged.values())} tokens)")
+
+    # -- every kernel against its plain version on the path's inputs
+    (free,), kw = captured["accumulate"]
+    errs.same(["scan"], [SCK.scan_blocks(
+        kw["op"], free, unit=kw["init"],
+        exclusive=not kw.get("inclusive", True))],
+        [KREF.scan_ref(kw["op"], free, unit=kw["init"],
+                       exclusive=not kw.get("inclusive", True))],
+        f"accumulate on the allocator's {free.numel()}-page free mask")
+    (hay, qs), kw = captured["searchsorted"]
+    side = kw.get("side", "left")
+    errs.same(["searchsorted"], [SE.searchsorted_blocks(hay, qs, side=side)],
+              [SE.searchsorted_plain(hay, qs, side=side)],
+              "searchsortedfirst on the allocator's running free count")
+    (pool, table), _ = captured["page_gather"]
+    errs.same(["page_gather"], [PK.page_gather_blocks(pool, table)],
+              [PK.page_gather_ref(pool, table)],
+              "page_gather on a decode step's layer pool and table")
+    (lg,), kw = captured["nucleus_mask"]
+    top_p = kw["top_p"]
+    neg, perm = NK.sorted_rows(lg, cuda=True)
+    pneg, pperm = NK.sorted_rows(lg, cuda=False)
+    errs.same(["bitonic_inblock", "bitonic_cross"], [neg, perm],
+              [pneg, pperm], "batched sort network of the nucleus mask")
+    check(torch.equal(perm[:, :V].long(),
+                      torch.sort(-(lg + 0.0), dim=1, stable=True).indices),
+          "nucleus sortperm != torch.sort(stable=True)")
+    got = NK.mask_kernel(neg, perm, n=V, top_p=top_p, cuda=True)
+    plain = NK.mask_kernel(neg, perm, n=V, top_p=top_p, cuda=False)
+    ref = NK.nucleus_mask_ref(lg, top_p=top_p)
+    near = (_exclusive_cum64(neg, perm, V) - top_p).abs() < 1e-5
+    far = ~near
+    check(torch.equal(got[far], plain[far]) and torch.equal(got[far],
+                                                           ref[far]),
+          "nucleus mask differs from its plain version away from the cut")
+    # over every lane: 1.0 where any mask byte differs (only near the cut)
+    errs.record("nucleus_mask",
+                float((got.int() - plain.int()).abs().max()))
+    out["nucleus_near_cut"] = {
+        "ranks_within_1e-5": int(near.sum()),
+        "lanes_differ": int((got != plain).sum()),
+        "kernel_vs_plain_differ_there": int((got != plain)[near].sum()),
+        "kept_per_row": got.sum(dim=1).tolist()}
+    log(f"serve: nucleus mask (top_p {top_p}) == plain version and "
+        f"nucleus_mask_ref on {lg.shape[0]} x {V} logits of a decode step "
+        f"except near the cut: {out['nucleus_near_cut']}")
+    (lk,), kw = captured["topk"]
+    k = kw["k"]
+    check(torch.equal(SK.bitonic_argsort_batched(lk).long(),
+                      torch.sort(lk, dim=1, stable=True).indices),
+          "batched argsort != torch.sort(stable=True)")
+    tv, ti = SK.bitonic_topk_batched(lk, k)
+    check(torch.equal(tv, torch.topk(lk, k).values) and torch.equal(
+        ti.long(), torch.sort(lk, dim=1, descending=True,
+                              stable=True).indices[:, :k]),
+          "batched topk != torch.topk values / stable descending order")
+    log("serve: batched argsort and topk on the sampler's logits equal "
+        "torch.sort(stable=True) and torch.topk")
+
+    # -- the CLI, smoke config on the card
+    res, cst = serve.main(["--device", "cuda", "--requests", "8",
+                           "--slots", "4", "--paged"])
+    check(all(r.status == COMPLETED for r in res.values())
+          and cst.tokens == 8 * 32, "serve CLI did not complete")
+
+    # -- timings at the path's shapes
+    R = lg.shape[0]
+    B, T = table.shape
+    page_bytes = pool[0].numel() * pool.element_size()
+    tl = table.long()
+    rows = {}
+    b, by = bound(2 * B * T * page_bytes + table.numel() * 4, 0)
+    rows["page_gather"] = {
+        "ms": cuda_ms(lambda: PK.page_gather_blocks(pool, table), reps=20),
+        "plain_ms": cuda_ms(lambda: PK.page_gather_ref(pool, table),
+                            reps=20),
+        "library_ms": cuda_ms(lambda: pool[tl], reps=20),
+        "library": "pool[table] (advanced indexing)",
+        "bound_ms": b, "bound_by": by}
+    # the mask kernel reads each valid lane's key and rank and writes its
+    # mask byte: 9 bytes per valid lane; 2 exp, a divide, a compare each
+    b, by = bound(R * V * 9, R * V * 4)
+    rows["nucleus_mask"] = {
+        "ms": cuda_ms(lambda: NK.mask_kernel(neg, perm, n=V, top_p=top_p,
+                                             cuda=True), reps=20),
+        "plain_ms": cuda_ms(lambda: NK.mask_kernel(
+            neg, perm, n=V, top_p=top_p, cuda=False), reps=20),
+        "library_ms": None,
+        "library": "no single PyTorch call computes the top-p mask",
+        "bound_ms": b, "bound_by": by,
+        "lanes_differ": out["nucleus_near_cut"]["lanes_differ"],
+        "ranks_near_cut": out["nucleus_near_cut"]["ranks_within_1e-5"]}
+    out["sampler_ms"] = {
+        "nucleus_mask_primitive": cuda_ms(
+            lambda: NK.nucleus_mask_blocks(lg, top_p=top_p), reps=10),
+        "nucleus_mask_ref_composition": cuda_ms(
+            lambda: NK.nucleus_mask_ref(lg, top_p=top_p), reps=10),
+        "topk_primitive": cuda_ms(lambda: SK.bitonic_topk_batched(lk, k),
+                                  reps=10),
+        "torch_topk": cuda_ms(lambda: torch.topk(lk, k), reps=10),
+        "argsort_batched": cuda_ms(lambda: SK.bitonic_argsort_batched(lk),
+                                   reps=10),
+        "torch_sort_stable": cuda_ms(
+            lambda: torch.sort(lk, dim=1, stable=True), reps=10),
+    }
+    out["rows"] = rows
+    for name, r in rows.items():
+        log(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+            f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']})")
+    log(f"serve: sampler calls at {tuple(lg.shape)}, ms: "
+        + json.dumps(out["sampler_ms"]))
+    out["decode_step"] = SV.breakdown(w, seed=seed)
+    log("serve: one paged decode step + sampler, device ms by category: "
+        + json.dumps(out["decode_step"]))
+    del w, pool, table, lg, lk, neg, perm, pneg, pperm
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="End-to-end check of the "
                                  "PyTorch port on one CUDA card")
@@ -870,7 +1140,7 @@ def main() -> int:
     for name, n in stream["kernel_launches"].items():
         main_kernels[name] = main_kernels.get(name, 0) + n
     for name in REPLACES:
-        check(main_kernels.get(name, 0) > 0,
+        check(name in SERVE_KERNELS or main_kernels.get(name, 0) > 0,
               f"kernel {name} never launched on a main path")
     rows = stream["rows"]
     for name, key in (("map", "map_ljg"), ("reduce", "reduce_add"),
@@ -885,9 +1155,32 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b,
             "bound_by": by, "library_ms": r["library_ms"],
         })
-    for k in kernels:  # the sort kernels' launches now include phase 6
-        k["launches"] = main_kernels[k["name"]]
     log(f"phase 6 done in {time.perf_counter() - t0:.1f} s; comparisons "
+        f"per kernel " + json.dumps(errs.cases))
+
+    # -- 7. the serving path --------------------------------------------------
+    t0 = time.perf_counter()
+    serving = phase_serving(registry, C, errs, args.seed)
+    report["serving"] = serving
+    for name, n in serving["kernel_launches"].items():
+        main_kernels[name] = main_kernels.get(name, 0) + n
+    for name, r in serving["rows"].items():
+        src, rep = REPLACES[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": main_kernels[name], "max_abs_err": errs.err[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("lanes_differ", "ranks_near_cut")
+               if k in r},
+        })
+    for name in REPLACES:
+        check(main_kernels.get(name, 0) > 0,
+              f"kernel {name} never launched on a main path")
+    for k in kernels:  # earlier kernels' launches now include phases 6-7
+        k["launches"] = main_kernels[k["name"]]
+    log(f"phase 7 done in {time.perf_counter() - t0:.1f} s; comparisons "
         f"per kernel " + json.dumps(errs.cases))
     report["float64"] = errs.float64
     log(f"float add against float64, bound {stream['sum_rtol']:.4g} * "

@@ -1,7 +1,8 @@
 """Carry arrays between the reference and the port.
 
-The repo runs no model, so data takes the place of weights: these
-round-trip the reference's numpy arrays with their dtypes. bfloat16
+``to_torch`` / ``to_numpy`` round-trip the reference's numpy arrays
+with their dtypes, and ``params_from_jax`` turns the reference model's
+parameter tree into the port's. bfloat16
 arrives from JAX as an ``ml_dtypes`` array, which ``torch.from_numpy``
 refuses, so it travels through a ``uint16`` view; ``int32`` stays
 ``int32``.
@@ -35,3 +36,24 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
         return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
+
+
+def params_from_jax(params_np, cfg, device="cuda"):
+    """The reference's ``init_params`` pytree (numpy leaves, bf16 as
+    ``ml_dtypes.bfloat16``) as the port's parameters on ``device``: the
+    same dict, with the stacked (L, ...) leaves of ``layers`` split into
+    one dict per layer. Dense family only, as the port's model is."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet")
+
+    def tree(node, pick=None):
+        if isinstance(node, dict):
+            return {k: tree(v, pick) for k, v in node.items()}
+        a = np.asarray(node)
+        return to_torch(a if pick is None else a[pick], device)
+
+    out = {k: tree(v) for k, v in params_np.items() if k != "layers"}
+    out["layers"] = [tree(params_np["layers"], i)
+                     for i in range(cfg.n_layers)]
+    return out

@@ -32,9 +32,13 @@ from repro_torch.core.sort import (
     merge,
     merge_kv,
     merge_sort,
+    merge_sort_batched,
     merge_sort_by_key,
+    nucleus_mask,
     segmented_sort,
     sortperm,
+    sortperm_batched,
+    topk,
 )
 from repro_torch.core.search import searchsortedfirst, searchsortedlast
 from repro_torch.core.histogram import bincount, minmax_histogram
@@ -55,7 +59,8 @@ __all__ = [
     "foreachindex", "map_elements", "mapreduce", "reduce", "accumulate",
     "segmented_reduce", "segmented_scan", "any_pred", "all_pred",
     "merge", "merge_kv", "merge_sort", "merge_sort_by_key", "sortperm",
-    "segmented_sort",
+    "segmented_sort", "merge_sort_batched", "sortperm_batched", "topk",
+    "nucleus_mask",
     "searchsortedfirst", "searchsortedlast",
     "bincount", "minmax_histogram",
     "ShardedSort", "assert_no_overflow", "collect_sorted",

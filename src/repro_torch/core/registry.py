@@ -41,6 +41,7 @@ from repro_torch.core import dispatch
 from repro_torch.kernels import _build
 from repro_torch.kernels import common as KC
 from repro_torch.kernels import hist_kernel, map_kernel, merge_kernel
+from repro_torch.kernels import nucleus_kernel, page_kernel
 from repro_torch.kernels import reduce_kernel, ref as kref, scan_kernel
 from repro_torch.kernels import search_kernel, segment_kernel, sort_kernel
 from repro_torch.runtime import telemetry
@@ -57,13 +58,17 @@ from repro_torch.runtime import telemetry
 #: shared-memory tile; None = 8 x 1024) and ``sort_hyper``, which exists
 #: only so that tuning tables read the same on both packages: the CUDA
 #: network runs the unfused layout, so only None or 0 are accepted.
-TUNABLE_KEYS = ("switch_below", "block_rows", "block_cols", "sort_hyper")
+#: ``page_size``: tokens per KV-cache page, owned by ``page_gather`` (the
+#: paged engine resolves it there, so engine and kernel agree).
+TUNABLE_KEYS = ("switch_below", "block_rows", "block_cols", "sort_hyper",
+                "page_size")
 
 _COMMON_DEFAULTS = {
     "switch_below": 0,
     "block_rows": None,
     "block_cols": None,
     "sort_hyper": None,
+    "page_size": None,
 }
 
 
@@ -101,6 +106,14 @@ def _validate_tuning(name: str, kv: dict, allowed=TUNABLE_KEYS) -> None:
                 f"sort_hyper must be None or 0: the CUDA network runs the "
                 f"unfused layout (the fused hyper-block window is not "
                 f"ported yet), got {v!r}"
+            )
+        if k == "page_size" and not (
+            v is None or (isinstance(v, int) and not isinstance(v, bool)
+                          and 1 <= v <= 1024 and not v & (v - 1))
+        ):
+            raise ValueError(
+                f"page_size must be None or a power-of-two int in "
+                f"[1, 1024], got {v!r}"
             )
 
 
@@ -248,9 +261,13 @@ class Primitive:
         tunables: tuple = ("switch_below",),
         tuning_defaults: dict | None = None,
         refusal: Callable | None = None,
+        switch_measure: str = "size",
         doc: str = "",
     ):
+        if switch_measure not in ("size", "last_axis"):
+            raise ValueError(f"bad switch_measure {switch_measure!r}")
         self.name = name
+        self.switch_measure = switch_measure
         self.torch_impl = torch_impl
         self.cuda_impl = cuda_impl
         self.refusal = refusal
@@ -282,6 +299,9 @@ class Primitive:
             self.stats.calls += 1
         x = operands[0] if operands else None
         n = x.numel() if isinstance(x, torch.Tensor) else 0
+        if n and self.switch_measure == "last_axis" and x.dim():
+            # batched primitives: switch_below compares the row length
+            n = x.shape[-1]
         tune = tuning.lookup(self.name)
         switch_below = opts.pop("switch_below", None)
         if switch_below is None:
@@ -421,7 +441,8 @@ def _bincount_impl(ids, *, nbins):
     return counts[:nbins]
 
 
-_SORT_TUNABLES = TUNABLE_KEYS
+# every knob but page_size, which belongs to the paged-cache gather only
+_SORT_TUNABLES = ("switch_below", "block_rows", "block_cols", "sort_hyper")
 
 sort_p = register(Primitive(
     "sort",
@@ -590,4 +611,65 @@ segmented_sort_p = register(Primitive(
         segment_kernel.segmented_sort_blocks(values, offsets, payload),
     tunables=_SORT_TUNABLES,
     doc="per-CSR-segment sort (optional payload) on the bitonic kv network",
+))
+
+
+
+# -- the serving path: batched last-axis sorts for the sampler, the fused
+# nucleus mask and the paged KV-cache gather. ``switch_below`` of the
+# batched records compares the row length, as in the reference.
+
+def _torch_sort_batched(x, *, descending=False):
+    return torch.sort(x, dim=-1, descending=descending, stable=True).values
+
+
+def _torch_argsort_batched(x):
+    return torch.argsort(x, dim=-1, stable=True).to(torch.int32)
+
+
+def _torch_topk(x, *, k):
+    # lax.top_k's tie order (value desc, index asc): torch.topk leaves the
+    # order of equal values unspecified, a stable descending sort does not
+    order = torch.sort(x, dim=-1, descending=True, stable=True).indices
+    order = order[..., :k]
+    return torch.gather(x, -1, order), order.to(torch.int32)
+
+
+sort_batched_p = register(Primitive(
+    "sort_batched", _torch_sort_batched,
+    lambda x, *, descending=False: sort_kernel.bitonic_sort_batched(
+        x, descending=descending),
+    tunables=_SORT_TUNABLES, switch_measure="last_axis",
+    doc="last-axis sort of (..., n): every row in one network launch set",
+))
+
+argsort_batched_p = register(Primitive(
+    "argsort_batched", _torch_argsort_batched,
+    sort_kernel.bitonic_argsort_batched,
+    tunables=_SORT_TUNABLES, switch_measure="last_axis",
+    doc="stable last-axis int32 argsort of (..., n) (batched AK sortperm)",
+))
+
+topk_p = register(Primitive(
+    "topk", _torch_topk,
+    lambda x, *, k: sort_kernel.bitonic_topk_batched(x, k),
+    tunables=_SORT_TUNABLES, switch_measure="last_axis",
+    doc="last-axis top-k (values, int32 indices), descending, ties by index",
+))
+
+nucleus_mask_p = register(Primitive(
+    "nucleus_mask", nucleus_kernel.nucleus_mask_ref,
+    nucleus_kernel.nucleus_mask_blocks,
+    tunables=_SORT_TUNABLES, switch_measure="last_axis",
+    doc="fused top-p keep mask: batched descending sortperm + one mask "
+        "launch (softmax, prefix sum, cut, keep scatter)",
+))
+
+page_gather_p = register(Primitive(
+    "page_gather", page_kernel.page_gather_ref,
+    page_kernel.page_gather_blocks,
+    tunables=("switch_below", "page_size"),
+    tuning_defaults={"page_size": 8},
+    doc="paged KV-cache gather: pages (P, ps, ...) through a (B, T) block "
+        "table -> (B, T*ps, ...); owns the page_size knob",
 ))

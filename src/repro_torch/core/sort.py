@@ -2,7 +2,9 @@
 ``repro/core/sort.py``).
 
 ``merge_sort`` / ``merge_sort_by_key`` / ``sortperm``, the k-way
-``merge`` / ``merge_kv`` of the paper's §II-B, and ``segmented_sort``. The GPU specialisation is
+``merge`` / ``merge_kv`` of the paper's §II-B, ``segmented_sort``, and
+the batched last-axis forms the serve sampler uses (``merge_sort_batched``,
+``sortperm_batched``, ``topk``, ``nucleus_mask``). The GPU specialisation is
 the bitonic network of ``kernels/sort_kernel.py``; the portable path is
 ``torch.sort``. Both sides are registered once in
 ``repro_torch.core.registry``; these wrappers adapt the public signatures.
@@ -17,6 +19,10 @@ _merge = registry.get("merge")
 _merge_kv = registry.get("merge_kv")
 _argsort = registry.get("argsort")
 _segmented_sort = registry.get("segmented_sort")
+_sort_batched = registry.get("sort_batched")
+_argsort_batched = registry.get("argsort_batched")
+_topk = registry.get("topk")
+_nucleus_mask = registry.get("nucleus_mask")
 
 
 def merge_sort(x, *, descending: bool = False, backend: str | None = None):
@@ -69,3 +75,32 @@ def segmented_sort(values, offsets, *, vals=None,
     if vals is None:
         return _segmented_sort(values, offsets, backend=backend)
     return _segmented_sort(values, offsets, vals, backend=backend)
+
+
+def merge_sort_batched(x, *, descending: bool = False,
+                       backend: str | None = None):
+    """Sort (..., n) along its last axis: on the card every row goes
+    through one bitonic launch set (the batch is a grid dimension, not a
+    loop of 1-D sorts)."""
+    return _sort_batched(x, descending=descending, backend=backend)
+
+
+def sortperm_batched(x, *, backend: str | None = None):
+    """Stable int32 index permutation along the last axis of (..., n)."""
+    return _argsort_batched(x, backend=backend)
+
+
+def topk(x, k: int, *, backend: str | None = None):
+    """Top-k (values, int32 indices) along the last axis, descending, equal
+    values by ascending index (``lax.top_k``'s order). On the card it is
+    derived from the batched network, as AK would compose it."""
+    return _topk(x, k=k, backend=backend)
+
+
+def nucleus_mask(x, *, top_p: float, backend: str | None = None):
+    """Nucleus (top-p) keep mask along the last axis of logits: the
+    smallest descending-probability prefix whose inclusive softmax mass
+    reaches ``top_p`` (ties at the cut by ascending index). One registry
+    call: on the card the batched descending sortperm and one mask launch
+    (kernels/nucleus_kernel.py). ``top_p`` is a host float."""
+    return _nucleus_mask(x, top_p=float(top_p), backend=backend)

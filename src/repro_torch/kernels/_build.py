@@ -34,7 +34,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("bitonic", "hist", "search", "map", "reduce", "scan")
+SOURCES = ("bitonic", "hist", "search", "map", "reduce", "scan", "nucleus",
+           "page")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

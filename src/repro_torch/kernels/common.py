@@ -264,3 +264,8 @@ def require_cuda_or_cpu(*tensors: torch.Tensor) -> bool:
         f"operands must all lie on the CPU or on one CUDA device, got "
         f"{sorted(str(t.device) for t in tensors)}"
     )
+
+
+#: Logit of a masked-out token: finite, so that a row whose every token is
+#: masked still has a defined softmax (the reference's value).
+NEG_MASK = -1e30

@@ -12,6 +12,14 @@
 // reference's _cx/_swap_blocks compare them (so -0.0 and 0.0 are equal and
 // keep the network's order).
 //
+// Rows: the keys may hold R rows of `row` keys each (a power of two), laid
+// end to end; every row is one network (the reference vmaps the 1-D network
+// over the rows). Compare-exchange pairs never straddle a row, because each
+// stage's 2j-groups are aligned and 2j <= k <= row; only the direction of
+// the last phase (k == row) would see the row index, so it is taken as
+// ((low index) & k & (row - 1)) == 0. A 1-D sort is the case R = 1. One
+// launch set then sorts the whole batch: launches do not grow with R.
+//
 // Bound: bytes. Each cross stage streams the whole array once (read and
 // write) through device memory; the in-block kernel reads and writes each
 // block once and runs all its stages in shared memory (8192 keys = 32 KiB,
@@ -40,7 +48,8 @@ __device__ __forceinline__ void compare_exchange(K& ka, K& kb, V& va, V& vb,
 // on the block held in dynamic shared memory, then writes it back.
 template <typename K, typename V, bool KV, bool TIE>
 __global__ void inblock_kernel(K* __restrict__ keys, V* __restrict__ vals,
-                               int block, long long k_lo, long long k_hi) {
+                               int block, long long k_lo, long long k_hi,
+                               long long rmask) {
   extern __shared__ __align__(16) unsigned char smem[];
   K* sk = reinterpret_cast<K*>(smem);
   V* sv = reinterpret_cast<V*>(smem + (size_t)block * sizeof(K));
@@ -60,7 +69,7 @@ __global__ void inblock_kernel(K* __restrict__ keys, V* __restrict__ vals,
       for (int p = threadIdx.x; p < half; p += blockDim.x) {
         const int lo = ((p >> lj) << (lj + 1)) | (p & (j - 1));
         const int hi = lo + j;
-        const bool asc = ((base + lo) & k) == 0;
+        const bool asc = ((base + lo) & k & rmask) == 0;
         K ka = sk[lo], kb = sk[hi];
         V va{}, vb{};
         if (KV) { va = sv[lo]; vb = sv[hi]; }
@@ -85,12 +94,12 @@ __global__ void inblock_kernel(K* __restrict__ keys, V* __restrict__ vals,
 template <typename K, typename V, bool KV, bool TIE>
 __global__ void cross_kernel(K* __restrict__ keys, V* __restrict__ vals,
                              long long npairs, long long k, long long j,
-                             int lj) {
+                             int lj, long long rmask) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= npairs) return;
   const long long lo = ((p >> lj) << (lj + 1)) | (p & (j - 1));
   const long long hi = lo + j;
-  const bool asc = (lo & k) == 0;
+  const bool asc = (lo & k & rmask) == 0;
   K ka = keys[lo], kb = keys[hi];
   V va{}, vb{};
   if (KV) { va = vals[lo]; vb = vals[hi]; }
@@ -104,7 +113,8 @@ __global__ void cross_kernel(K* __restrict__ keys, V* __restrict__ vals,
 
 template <typename K, typename V, bool KV, bool TIE>
 int launch_inblock(void* keys, void* vals, long long total, int block,
-                   long long k_lo, long long k_hi, cudaStream_t stream) {
+                   long long k_lo, long long k_hi, long long rmask,
+                   cudaStream_t stream) {
   const size_t smem = (size_t)block * (sizeof(K) + (KV ? sizeof(V) : 0));
   auto kern = inblock_kernel<K, V, KV, TIE>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -113,37 +123,38 @@ int launch_inblock(void* keys, void* vals, long long total, int block,
   const int threads = block / 2 < 1024 ? block / 2 : 1024;
   const long long nblocks = total / block;
   kern<<<(unsigned int)nblocks, threads, smem, stream>>>(
-      static_cast<K*>(keys), static_cast<V*>(vals), block, k_lo, k_hi);
+      static_cast<K*>(keys), static_cast<V*>(vals), block, k_lo, k_hi, rmask);
   return (int)cudaGetLastError();
 }
 
 template <typename K, typename V, bool KV, bool TIE>
 int launch_cross(void* keys, void* vals, long long total, long long k,
-                 long long j, cudaStream_t stream) {
+                 long long j, long long rmask, cudaStream_t stream) {
   const long long npairs = total / 2;
   const int threads = 256;
   const long long grid = (npairs + threads - 1) / threads;
   const int lj = __builtin_ctzll((unsigned long long)j);
   cross_kernel<K, V, KV, TIE><<<(unsigned int)grid, threads, 0, stream>>>(
-      static_cast<K*>(keys), static_cast<V*>(vals), npairs, k, j, lj);
+      static_cast<K*>(keys), static_cast<V*>(vals), npairs, k, j, lj, rmask);
   return (int)cudaGetLastError();
 }
 
 template <typename K, typename V>
 int dispatch_inblock(void* keys, void* vals, int tie, long long total,
                      int block, long long k_lo, long long k_hi,
-                     cudaStream_t s) {
-  if (vals == nullptr) return launch_inblock<K, int32_t, false, false>(keys, vals, total, block, k_lo, k_hi, s);
-  if (tie) return launch_inblock<K, V, true, true>(keys, vals, total, block, k_lo, k_hi, s);
-  return launch_inblock<K, V, true, false>(keys, vals, total, block, k_lo, k_hi, s);
+                     long long rmask, cudaStream_t s) {
+  if (vals == nullptr) return launch_inblock<K, int32_t, false, false>(keys, vals, total, block, k_lo, k_hi, rmask, s);
+  if (tie) return launch_inblock<K, V, true, true>(keys, vals, total, block, k_lo, k_hi, rmask, s);
+  return launch_inblock<K, V, true, false>(keys, vals, total, block, k_lo, k_hi, rmask, s);
 }
 
 template <typename K, typename V>
 int dispatch_cross(void* keys, void* vals, int tie, long long total,
-                   long long k, long long j, cudaStream_t s) {
-  if (vals == nullptr) return launch_cross<K, int32_t, false, false>(keys, vals, total, k, j, s);
-  if (tie) return launch_cross<K, V, true, true>(keys, vals, total, k, j, s);
-  return launch_cross<K, V, true, false>(keys, vals, total, k, j, s);
+                   long long k, long long j, long long rmask,
+                   cudaStream_t s) {
+  if (vals == nullptr) return launch_cross<K, int32_t, false, false>(keys, vals, total, k, j, rmask, s);
+  if (tie) return launch_cross<K, V, true, true>(keys, vals, total, k, j, rmask, s);
+  return launch_cross<K, V, true, false>(keys, vals, total, k, j, rmask, s);
 }
 
 // Calls f(TypeTag<K>, TypeTag<V>) for key and payload dtype codes (the
@@ -168,29 +179,31 @@ int with_types(int kdtype, int vdtype, bool kv, F&& f) {
 
 }  // namespace
 
-// In place on keys[total] (and vals[total] when not null): every in-block
-// stage of phases k_lo..k_hi on each block of `block` keys.
+// In place on keys[total] (and vals[total] when not null), rows of
+// rmask + 1 keys: every in-block stage of phases k_lo..k_hi on each block
+// of `block` keys.
 AK_EXPORT int ak_bitonic_inblock(void* keys, void* vals, int dtype,
                                  int vdtype, int tie_break, long long total,
                                  int block, long long k_lo, long long k_hi,
-                                 void* stream) {
+                                 long long rmask, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_types(dtype, vdtype, vals != nullptr, [&](auto kt, auto vt) {
     typedef typename decltype(kt)::type K;
     typedef typename decltype(vt)::type V;
     return dispatch_inblock<K, V>(keys, vals, tie_break, total, block, k_lo,
-                                  k_hi, s);
+                                  k_hi, rmask, s);
   });
 }
 
-// In place: one cross stage (k, j) over keys[total] (and vals[total]).
+// In place: one cross stage (k, j) over keys[total] (and vals[total]),
+// rows of rmask + 1 keys.
 AK_EXPORT int ak_bitonic_cross(void* keys, void* vals, int dtype, int vdtype,
                                int tie_break, long long total, long long k,
-                               long long j, void* stream) {
+                               long long j, long long rmask, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_types(dtype, vdtype, vals != nullptr, [&](auto kt, auto vt) {
     typedef typename decltype(kt)::type K;
     typedef typename decltype(vt)::type V;
-    return dispatch_cross<K, V>(keys, vals, tie_break, total, k, j, s);
+    return dispatch_cross<K, V>(keys, vals, tie_break, total, k, j, rmask, s);
   });
 }

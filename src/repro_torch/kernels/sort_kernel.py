@@ -49,12 +49,12 @@ _SIGNATURES = {
     "ak_bitonic_inblock": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ],
     "ak_bitonic_cross": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ],
 }
 
@@ -88,14 +88,15 @@ def _stages_upto_block(k: int, block: int) -> list[tuple[int, int]]:
 # Plain PyTorch version: the same (k, j) stages as whole-tensor passes.
 # --------------------------------------------------------------------------
 
-def _cx_plain(keys, vals, k: int, j: int, tie_break: bool):
-    """One compare-exchange stage at distance ``j`` over the whole array.
-    Pairs are (g·2j + t, g·2j + t + j); the direction depends only on g
-    because t < j <= k/2."""
+def _cx_plain(keys, vals, k: int, j: int, tie_break: bool, row: int):
+    """One compare-exchange stage at distance ``j`` over the whole array
+    of rows of ``row`` keys. Pairs are (g·2j + t, g·2j + t + j); the
+    direction depends only on g because t < j <= k/2, and never on the
+    row index (``& (row - 1)``)."""
     total = keys.shape[0]
     groups = total // (2 * j)
     g = torch.arange(groups, dtype=torch.int64, device=keys.device)
-    asc = (((g * (2 * j)) & k) == 0).reshape(groups, 1)
+    asc = (((g * (2 * j)) & k & (row - 1)) == 0).reshape(groups, 1)
     yk = keys.reshape(groups, 2, j)
     a, b = yk[:, 0], yk[:, 1]
     if vals is None:
@@ -129,19 +130,21 @@ def _codes(keys, vals) -> tuple[int, int]:
 
 
 def _run_inblock(keys, vals, k_lo: int, k_hi: int, block: int,
-                 tie_break: bool, cuda: bool):
-    """Every in-block stage of phases k_lo, 2·k_lo, …, k_hi."""
+                 tie_break: bool, cuda: bool, row: int | None = None):
+    """Every in-block stage of phases k_lo, 2·k_lo, …, k_hi, over rows of
+    ``row`` keys (default: one row, the whole array)."""
+    row = keys.shape[0] if row is None else row
     if not cuda:
         k = k_lo
         while k <= k_hi:
             for _, j in _stages_upto_block(k, block):
-                keys, vals = _cx_plain(keys, vals, k, j, tie_break)
+                keys, vals = _cx_plain(keys, vals, k, j, tie_break, row)
             k *= 2
         return keys, vals
     lib = _lib()
     err = lib.ak_bitonic_inblock(
         _ptr(keys), _ptr(vals), *_codes(keys, vals),
-        int(tie_break), keys.shape[0], block, k_lo, k_hi,
+        int(tie_break), keys.shape[0], block, k_lo, k_hi, row - 1,
         _build.stream_handle(keys.device),
     )
     _build.check(lib, err, "bitonic in-block kernel")
@@ -149,14 +152,16 @@ def _run_inblock(keys, vals, k_lo: int, k_hi: int, block: int,
     return keys, vals
 
 
-def _run_cross(keys, vals, k: int, j: int, tie_break: bool, cuda: bool):
-    """One cross stage (k, j), j >= block."""
+def _run_cross(keys, vals, k: int, j: int, tie_break: bool, cuda: bool,
+               row: int | None = None):
+    """One cross stage (k, j), j >= block, over rows of ``row`` keys."""
+    row = keys.shape[0] if row is None else row
     if not cuda:
-        return _cx_plain(keys, vals, k, j, tie_break)
+        return _cx_plain(keys, vals, k, j, tie_break, row)
     lib = _lib()
     err = lib.ak_bitonic_cross(
         _ptr(keys), _ptr(vals), *_codes(keys, vals),
-        int(tie_break), keys.shape[0], k, j,
+        int(tie_break), keys.shape[0], k, j, row - 1,
         _build.stream_handle(keys.device),
     )
     _build.check(lib, err, "bitonic cross-stage kernel")
@@ -167,30 +172,35 @@ def _run_cross(keys, vals, k: int, j: int, tie_break: bool, cuda: bool):
 def _sort_network(keys, vals, total: int, tie_break: bool, *, block: int,
                   cuda: bool, first_k: int = 2):
     """Run bitonic phases k = first_k, 2·first_k, …, total over the padded
-    flat arrays (the reference's ``_sort_network`` with ``hyper=0``).
-    ``first_k = 2L`` resumes on data already L-run alternating-sorted: the
-    k-way merge of ``merge_kernel``."""
+    flat arrays (the reference's ``_sort_network`` with ``hyper=0``): one
+    network per row of ``total`` keys, the arrays holding one or more rows
+    end to end. ``first_k = 2L`` resumes on data already L-run
+    alternating-sorted: the k-way merge of ``merge_kernel``."""
     k = first_k
     if k <= min(total, block):
         k_hi = k
         while k_hi * 2 <= min(total, block):
             k_hi *= 2
         keys, vals = _run_inblock(keys, vals, k, k_hi, block, tie_break,
-                                  cuda)
+                                  cuda, total)
         k = k_hi * 2
     while k <= total:
         j = k // 2
         while j >= block:
-            keys, vals = _run_cross(keys, vals, k, j, tie_break, cuda)
+            keys, vals = _run_cross(keys, vals, k, j, tie_break, cuda,
+                                    total)
             j //= 2
-        keys, vals = _run_inblock(keys, vals, k, k, block, tie_break, cuda)
+        keys, vals = _run_inblock(keys, vals, k, k, block, tie_break, cuda,
+                                  total)
         k *= 2
     return keys, vals
 
 
 def _check_operands(keys, vals, tie_break: bool, cuda: bool, block: int):
-    if keys.dim() != 1:
-        raise ValueError(f"bitonic sort takes 1-D keys, got {keys.shape}")
+    if keys.dim() not in (1, 2):
+        raise ValueError(
+            f"bitonic sort takes 1-D keys or (rows, n) batches, got "
+            f"{tuple(keys.shape)}")
     if vals is not None:
         if vals.shape != keys.shape:
             raise ValueError(
@@ -215,16 +225,23 @@ def _check_operands(keys, vals, tie_break: bool, cuda: bool, block: int):
 
 
 def _padded(x, total: int, fill):
-    """A fresh contiguous buffer of ``total`` elements: ``x`` then
-    ``fill`` (the CUDA kernels write into it in place)."""
-    out = torch.empty(total, dtype=x.dtype, device=x.device)
-    out[: x.shape[0]] = x
-    out[x.shape[0]:] = fill
-    return out
+    """A fresh contiguous buffer of rows of ``total`` elements: each row of
+    ``x`` (1-D: the one row) then ``fill``, flat (the CUDA kernels write
+    into it in place)."""
+    rows = x.reshape(-1, x.shape[-1])
+    out = torch.empty((rows.shape[0], total), dtype=x.dtype,
+                      device=x.device)
+    out[:, : rows.shape[1]] = rows
+    out[:, rows.shape[1]:] = fill
+    return out.reshape(-1)
 
 
-def _sort(keys, vals, tie_break: bool, cuda: bool):
-    n = keys.shape[0]
+def sort_padded(keys, vals, tie_break: bool, cuda: bool):
+    """Sort 1-D keys, or each row of (R, n) keys, one launch set for the
+    batch, and return the padded rows: (R, total) keys and payload (None
+    without one), total = max(next_pow2(n), block), type-max padding
+    sorted to the end of each row."""
+    n = keys.shape[-1]
     _, _, block = _geometry()
     _check_operands(keys, vals, tie_break, cuda, block)
     total = max(C.next_pow2(n), block)
@@ -233,7 +250,18 @@ def _sort(keys, vals, tie_break: bool, cuda: bool):
                                            C.type_max(vals.dtype))
     kp, vp = _sort_network(kp, vp, total, tie_break, block=block,
                            cuda=cuda)
-    return kp[:n], (None if vp is None else vp[:n])
+    return kp.view(-1, total), (None if vp is None else vp.view(-1, total))
+
+
+def _sort(keys, vals, tie_break: bool, cuda: bool):
+    """``sort_padded`` cut back to the input's shape."""
+    n = keys.shape[-1]
+    kp, vp = sort_padded(keys, vals, tie_break, cuda)
+
+    def cut(p):
+        return p[:, :n].reshape(keys.shape)
+
+    return cut(kp), (None if vp is None else cut(vp))
 
 
 def _on_cuda(*tensors) -> bool:
@@ -300,3 +328,71 @@ def cross_launches(n: int, *, hyper: int = 0, block: int | None = None
         _, _, block = _geometry()
     total = max(C.next_pow2(n), block)
     return network_launches(total, first_k=2, hyper=hyper, block=block)
+
+
+# --------------------------------------------------------------------------
+# Batched entry points: rows of the last axis, one launch set per call
+# --------------------------------------------------------------------------
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1])
+
+
+def bitonic_sort_batched(keys: torch.Tensor, *, descending: bool = False,
+                         plain: bool = False) -> torch.Tensor:
+    """Sort along the last axis of (..., n): every row through the
+    network at once (the reference vmaps the 1-D network). Launches equal
+    ``cross_launches(n)`` whatever the number of rows."""
+    if keys.dim() <= 1:
+        return bitonic_sort(keys, descending=descending, plain=plain)
+    if keys.numel() == 0:
+        return keys
+    out, _ = _sort(_rows(keys), None, False, _on_cuda(keys) and not plain)
+    out = torch.flip(out, (1,)) if descending else out
+    return out.reshape(keys.shape)
+
+
+def _iota_rows(keys2d: torch.Tensor, reverse: bool = False):
+    r, n = keys2d.shape
+    idx = torch.arange(n, dtype=torch.int32, device=keys2d.device)
+    if reverse:
+        idx = (n - 1) - idx
+    return idx.expand(r, n)
+
+
+def bitonic_argsort_batched(keys: torch.Tensor, *,
+                            plain: bool = False) -> torch.Tensor:
+    """Stable argsort (int32) along the last axis of (..., n): the kv
+    network with an iota payload and the index tie-break, all rows in one
+    launch set."""
+    if keys.dim() <= 1:
+        return bitonic_argsort(keys, plain=plain)
+    if keys.numel() == 0:
+        return torch.zeros(keys.shape, dtype=torch.int32,
+                           device=keys.device)
+    k2 = _rows(keys)
+    _, perm = _sort(k2, _iota_rows(k2), True,
+                    _on_cuda(keys) and not plain)
+    return perm.reshape(keys.shape)
+
+
+def bitonic_topk_batched(keys: torch.Tensor, k: int, *,
+                         plain: bool = False):
+    """Descending top-k (values, int32 indices) along the last axis, with
+    ``lax.top_k``'s (value desc, index asc) tie order. Keys are never
+    negated (INT_MIN would wrap): the rows sort ascending with a
+    reversed-iota payload n-1-i and the index tie-break, then read
+    backwards, (key asc, n-1-i asc) reversed being (key desc, i asc)."""
+    n = keys.shape[-1]
+    if not 0 <= k <= n:
+        raise ValueError(f"top-k needs 0 <= k <= {n}, got {k}")
+    k2 = _rows(keys)
+    if k2.numel() == 0:
+        order = torch.zeros((k2.shape[0], k), dtype=torch.int32,
+                            device=keys.device)
+    else:
+        _, pay = _sort(k2, _iota_rows(k2, reverse=True), True,
+                       _on_cuda(keys) and not plain)
+        order = (n - 1) - torch.flip(pay, (1,))[:, :k]
+    order = order.reshape(*keys.shape[:-1], k)
+    return torch.gather(keys, -1, order.long()), order

@@ -1,8 +1,7 @@
 """Tracing spans + instant events, exported as Perfetto/Chrome-trace JSON.
 
-The observability tier's span half (the metrics registry of the JAX
-package, ``runtime/metrics.py``, is not ported yet; DESIGN.md §11 has the
-full model). Spans are
+The observability tier's span half (metrics live in
+``runtime/metrics.py``; DESIGN.md §11 has the full model). Spans are
 nestable and thread-local::
 
     with telemetry.span("engine.decode", cat="engine", step=t):
@@ -37,6 +36,8 @@ import contextlib
 import json
 import threading
 import time
+
+from repro_torch.runtime import metrics
 
 # -- global state -----------------------------------------------------------
 _enabled = False
@@ -311,3 +312,10 @@ def validate_trace(doc: dict) -> dict:
 def validate_trace_file(path: str) -> dict:
     with open(path) as f:
         return validate_trace(json.load(f))
+
+
+# -- the one-stop snapshot --------------------------------------------------
+def snapshot() -> dict:
+    """``ak.telemetry.snapshot()``: the process metrics registry with every
+    registered collector synced."""
+    return metrics.snapshot()

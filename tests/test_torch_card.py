@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the sort path's (bitonic network, merge, histogram, search) and the
-streaming path's (map, reduce, scan, segmented scan, segmented sort).
+card: the sort path's (bitonic network, merge, histogram, search), the
+streaming path's (map, reduce, scan, segmented scan, segmented sort) and
+the serving path's (the batched network, the nucleus mask, the page
+gather).
 Every test here is marked ``cuda`` and skips without a CUDA device; on
 the GPU machine run ``PYTHONPATH=src:. python -m pytest -m cuda
 tests/test_torch_card.py``. This file imports neither jax nor the JAX
@@ -18,6 +20,8 @@ from repro_torch.kernels import common as C
 from repro_torch.kernels import hist_kernel as HK
 from repro_torch.kernels import map_kernel as MAPK
 from repro_torch.kernels import merge_kernel as MK
+from repro_torch.kernels import nucleus_kernel as NK
+from repro_torch.kernels import page_kernel as PK
 from repro_torch.kernels import reduce_kernel as RK
 from repro_torch.kernels import ref as KREF
 from repro_torch.kernels import scan_kernel as SCK
@@ -315,3 +319,90 @@ def test_catalogue_rule_on_the_card(gen):
     idx = ak.foreachindex(MAPK.square, 1000)
     assert idx.is_cuda and torch.equal(
         idx, (torch.arange(1000, device="cuda", dtype=torch.int32) ** 2))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_batched_bitonic_vs_plain_and_closed_form(gen, dtype):
+    for rows, n in ((1, 5), (4, 8191), (3, 20000), (8, 94208)):
+        k = _keys(gen, rows * n, dtype, hi=50).view(rows, n)
+        k[0, 0] = torch.finfo(dtype).min if dtype.is_floating_point \
+            else torch.iinfo(dtype).min
+        closed = SK.cross_launches(n)
+        for fn, label in ((SK.bitonic_sort_batched, "sort"),
+                          (SK.bitonic_argsort_batched, "argsort"),
+                          (lambda x: SK.bitonic_topk_batched(
+                              x, min(16, n)), "topk")):
+            C.reset_launch_count()
+            got = fn(k)
+            torch.cuda.synchronize()
+            assert C.launch_count() == closed, (label, rows, n)
+            assert got is not None
+        assert torch.equal(SK.bitonic_sort_batched(k),
+                           SK.bitonic_sort_batched(k, plain=True))
+        ref = torch.sort(k, dim=1, stable=True)
+        assert torch.equal(SK.bitonic_sort_batched(k), ref.values)
+        perm = SK.bitonic_argsort_batched(k)
+        assert torch.equal(perm, SK.bitonic_argsort_batched(k, plain=True))
+        assert torch.equal(perm.long(), ref.indices)
+        kk = min(16, n)
+        v, i = SK.bitonic_topk_batched(k, kk)
+        pv, pi = SK.bitonic_topk_batched(k, kk, plain=True)
+        assert torch.equal(v, pv) and torch.equal(i, pi)
+        # lax.top_k's order: value desc, index asc
+        desc = torch.sort(-k.float() if dtype != torch.int32
+                          else -k.long(), dim=1, stable=True).indices
+        assert torch.equal(i.long(), desc[:, :kk])
+
+
+def _exclusive_cum64(lg, neg, perm, n):
+    """Float64 exclusive cumulative softmax mass of each column's rank:
+    a rank is kept iff this is below top_p."""
+    s = -neg[:, :n].double()
+    p = torch.softmax(s, dim=1)
+    excl = torch.cumsum(p, dim=1) - p
+    out = torch.empty_like(excl)
+    out.scatter_(1, perm[:, :n].long(), excl)
+    return out
+
+
+@pytest.mark.parametrize("shape", [(1, 300), (4, 8193), (8, 94208)])
+@pytest.mark.parametrize("top_p", [1e-6, 0.5, 0.95])
+def test_nucleus_kernel_vs_plain(gen, shape, top_p):
+    rows, n = shape
+    lg = torch.randn(shape, generator=gen, device="cuda") * 4
+    lg[:, n // 2:] = torch.where(lg[:, n // 2:] > 6, lg[:, n // 2:],
+                                 torch.full((), C.NEG_MASK, device="cuda"))
+    neg, perm = NK.sorted_rows(lg, cuda=True)
+    pneg, pperm = NK.sorted_rows(lg, cuda=False)
+    assert torch.equal(neg, pneg) and torch.equal(perm, pperm)
+    C.reset_launch_count()
+    got = NK.nucleus_mask_blocks(lg, top_p=top_p)
+    torch.cuda.synchronize()
+    assert C.kernel_launches().get("nucleus_mask") == 1
+    assert C.launch_count() == NK.nucleus_launches(n)
+    want = NK.mask_kernel(neg, perm, n=n, top_p=top_p, cuda=False)
+    near = (_exclusive_cum64(lg, neg, perm, n) - top_p).abs() < 1e-5
+    assert torch.equal(got[~near], want[~near])
+    assert torch.equal(NK.nucleus_mask_ref(lg, top_p=top_p)[~near],
+                       want[~near])
+    assert bool(got.any(dim=1).all())
+
+
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32,
+                                   torch.int32))
+@pytest.mark.parametrize("tail", [(8, 128), (3,), ()])
+def test_page_gather_kernel_bitwise_vs_plain(gen, dtype, tail):
+    P, ps, B, T = 37, 8, 5, 11
+    pages = _keys(gen, P * ps * math.prod(tail), dtype).view(P, ps, *tail)
+    table = torch.randint(0, P, (B, T), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    C.reset_launch_count()
+    got = PK.page_gather_blocks(pages, table)
+    torch.cuda.synchronize()
+    assert C.kernel_launches() == {"page_gather": 1}
+    assert torch.equal(got, PK.page_gather_ref(pages, table))
+    bad = table.clone()
+    bad[0, 0] = P
+    got = PK.page_gather_blocks(pages, bad)
+    assert not bool(got[0, :ps].ne(0).any())
+    assert torch.equal(got[:, ps:], PK.page_gather_ref(pages, table)[:, ps:])

@@ -34,6 +34,8 @@ def test_slice_primitives_registered():
         "sort", "sort_kv", "argsort", "merge", "merge_kv", "searchsorted",
         "minmax_histogram", "bincount", "map", "mapreduce", "accumulate",
         "segmented_reduce", "segmented_scan", "segmented_sort",
+        "sort_batched", "argsort_batched", "topk", "nucleus_mask",
+        "page_gather",
     }
     with pytest.raises(ValueError):
         registry.register(registry.Primitive("sort", lambda x: x))
@@ -179,6 +181,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
         import benchmarks_torch.arithmetic, benchmarks_torch.call_overhead
         import benchmarks_torch.streaming_breakdown
         import benchmarks_torch.streaming_inputs
+        import repro_torch.launch.serve, repro_torch.configs
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
