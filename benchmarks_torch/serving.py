@@ -1,18 +1,22 @@
-"""The serving path at full width on the card: internlm2-1.8B (24 layers,
+"""The serving path at full width on the card, with random bfloat16
+weights from a seeded generator, paged KV cache, 8 slots, 16 requests of
+256 random prompt tokens and 64 new tokens each (top-k 16, top-p 0.95).
+``--config`` picks the model: internlm2-1.8B (the default; 24 layers,
 d_model 2048, 16 heads, 8 KV heads, d_ff 8192, vocab 92544 padded to
-94208) with random bfloat16 weights from a seeded generator, paged KV
-cache, 8 slots, 16 requests of 256 random prompt tokens and 64 new tokens
-each (top-k 16, top-p 0.95).
+94208) or granite-moe-1b (24 layers, d_model 1024, 16 heads, 8 KV heads,
+32 experts of d_ff 512, top-8, vocab 49155 padded to 51200).
 
-    PYTHONPATH=src:. python -m benchmarks_torch.serving [--seed S] [--out F]
+    PYTHONPATH=src:. python -m benchmarks_torch.serving \
+        [--config {internlm2_1_8b,granite_moe_1b}] [--seed S] [--out F]
 
 Prints the engine's tokens/s and TTFT, and where one decode step's time
 goes: device time by kernel class from ``torch.profiler`` (weight and
 attention products both land in "matmuls" there), and CUDA-event times of
 the step's parts run alone at its shapes (the weight products, the
-attention core, the page gathers, the sampler), and the host cost of one
-page-gather call split into its parts. ``chip_smoke.py`` phase 7
-drives the same workload from here. Needs a card.
+attention core, the page gathers, the sampler; for the MoE model also the
+routing, the expert GEMMs and the combine of every layer), and the host
+cost of one page-gather call split into its parts. ``chip_smoke.py``
+phases 7 and 9 drive the same workloads from here. Needs a card.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from benchmarks_torch.call_overhead import per_call_us
+from repro_torch import core as ak
 from repro_torch.configs import load_config
 from repro_torch.core import registry
 from repro_torch.kernels import _build
@@ -35,8 +40,10 @@ from repro_torch.launch import serve
 from repro_torch.launch.engine import Engine, Request
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.models import moe as MOE
 
 ARCH = "internlm2_1_8b"
+ARCHS = (ARCH, "granite_moe_1b")
 SLOTS, REQUESTS, PROMPT_LEN, MAX_NEW = 8, 16, 256, 64
 TOP_K, TOP_P = 16, 0.95
 
@@ -50,9 +57,9 @@ class Workload:
     cache_len: int
 
 
-def workload(seed: int = 0, device="cuda") -> Workload:
+def workload(seed: int = 0, device="cuda", arch: str = ARCH) -> Workload:
     """The full-width model (random weights from ``seed``) and prompts."""
-    cfg = load_config(ARCH)
+    cfg = load_config(arch)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = M.init_params(gen, cfg, device=device)
     prompts = np.random.default_rng(seed).integers(
@@ -86,6 +93,7 @@ def run(w: Workload, **kw):
 
 CATEGORIES = (
     ("page gathers", ("page_gather",)),
+    ("expert grouped GEMMs", ("groupproblemshape", "grouped")),
     ("sampler sort network", ("inblock_kernel", "cross_kernel")),
     ("sampler mask", ("nucleus_kernel",)),
     ("matmuls", ("gemm", "gemv", "nvjet", "cutlass", "sm90_", "xmma",
@@ -141,6 +149,28 @@ def decode_step(w: Workload, inputs):
                                    top_p=TOP_P, vocab=w.cfg.vocab)
 
 
+def _kernel_ms(prof, reps: int) -> dict:
+    """Device ms per call of each CUDA kernel in a profiler trace of
+    ``reps`` calls."""
+    kernels: dict[str, float] = {}
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3 / reps
+    return kernels
+
+
+def _device_ms(fn) -> float:
+    """Device ms of one warm call of ``fn``: its kernels' time."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(_kernel_ms(prof, 1).values())
+
+
 def _event_ms(fn, reps: int = 5) -> float:
     """Mean CUDA-event time of ``fn`` over ``reps`` warm calls."""
     fn()
@@ -156,10 +186,14 @@ def _event_ms(fn, reps: int = 5) -> float:
 
 
 def parts(w: Workload, inputs) -> dict:
-    """CUDA-event ms of one decode step and of its parts alone, at the
-    step's shapes: every weight product of the layers and the head, the
-    attention core of every layer, the 2 x n_layers page gathers, the
-    sampler."""
+    """CUDA-event ms of one decode step and of its parts alone (host work
+    included), and each part's device ms (its kernels' time in a
+    profiler trace), at the step's shapes: every weight product of the layers and the head (the
+    dense FFN's included; the experts' are their own part), the attention
+    core of every layer, the 2 x n_layers page gathers, the sampler; for
+    the MoE model also every layer's routing (router, top-k, sortperm,
+    counts, offsets), expert GEMMs and combine (``segmented_reduce``) on
+    one step's 8 x top_k routed rows."""
     cfg, p = w.cfg, w.params
     caches, table, tok, pos, keys = inputs
     dev = tok.device
@@ -169,11 +203,14 @@ def parts(w: Workload, inputs) -> dict:
 
     def matmuls():
         for lp in p["layers"]:
-            a, m = lp["attn"], lp["mlp"]
-            for wt in (a["wq"], a["wk"], a["wv"], a["wo"], m["w_gate"],
-                       m["w_up"]):
+            a = lp["attn"]
+            for wt in (a["wq"], a["wk"], a["wv"], a["wo"]):
                 x @ wt
-            f @ m["w_down"]
+            if "mlp" in lp:
+                m = lp["mlp"]
+                x @ m["w_gate"]
+                x @ m["w_up"]
+                f @ m["w_down"]
         x @ p["head"]["unembed"]
 
     q = torch.randn(SLOTS, 1, H, hd, device=dev).to(cfg.dtype)
@@ -196,14 +233,49 @@ def parts(w: Workload, inputs) -> dict:
             serve.sample_logits(keys, logits, top_k=TOP_K, top_p=TOP_P,
                                 vocab=cfg.vocab)
 
-    out = {"step": _event_ms(lambda: decode_step(w, inputs)),
-           "weight matmuls": _event_ms(matmuls),
-           "attention core": _event_ms(attention),
-           "page gathers": _event_ms(gathers),
-           "sampler": _event_ms(sampler)}
+    fns = {"weight matmuls": matmuls, "attention core": attention,
+           "page gathers": gathers, "sampler": sampler}
+    if cfg.family == "moe":
+        fns.update(moe_parts(w, x.view(SLOTS, d)))
+    out = {"step": _event_ms(lambda: decode_step(w, inputs))}
+    out.update((n, _event_ms(f)) for n, f in fns.items())
     out["rest of the step"] = out["step"] - sum(
         v for n, v in out.items() if n != "step")
-    return out
+    return out, {n: _device_ms(f) for n, f in fns.items()}
+
+
+def moe_parts(w: Workload, xf) -> dict:
+    """Every MoE layer's routing, expert GEMMs and combine over one decode
+    step's rows ``xf`` (SLOTS, d), as functions to time."""
+    cfg, layers = w.cfg, w.params["layers"]
+    T, k = xf.shape[0], cfg.top_k
+    capacity = max(int(T * k * cfg.moe_capacity_factor / cfg.n_experts), 4)
+    mp = layers[0]["moe"]
+    ids, gates, _, _ = MOE._route(mp, cfg, xf)
+    perm, _, _, _, counts, offsets = MOE._dispatch_indices(cfg, ids, T,
+                                                           capacity)
+    xs = xf[perm.long() // k]
+    contrib = torch.randn(T * k, cfg.d_model, device=xf.device).to(
+        cfg.dtype)
+    tok_offsets = torch.arange(T + 1, dtype=torch.int32,
+                               device=xf.device) * k
+
+    def routing():
+        for lp in layers:
+            ids, _, _, _ = MOE._route(lp["moe"], cfg, xf)
+            MOE._dispatch_indices(cfg, ids, T, capacity)
+
+    def experts():
+        for lp in layers:
+            MOE._expert_ffn_bucketed(lp["moe"], xs, counts, offsets)
+
+    def combine():
+        with registry.tuning.preset("moe_dispatch"):
+            for _ in layers:
+                ak.segmented_reduce(torch.add, contrib, tok_offsets, init=0)
+
+    return {"moe routing": routing, "moe expert GEMMs": experts,
+            "moe combine": combine}
 
 
 def gather_host_us(w: Workload, inputs, calls: int = 2000) -> dict:
@@ -253,19 +325,16 @@ def breakdown(w: Workload, reps: int = 3, seed: int = 0) -> dict:
             decode_step(w, inputs)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
+    kernels = _kernel_ms(prof, reps)
     cats: dict[str, float] = {}
-    kernels: dict[str, float] = {}
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            ms = us / 1e3 / reps
-            kernels[evt.key] = kernels.get(evt.key, 0.0) + ms
-            cat = _category(evt.key)
-            cats[cat] = cats.get(cat, 0.0) + ms
+    for name, ms in kernels.items():
+        cat = _category(name)
+        cats[cat] = cats.get(cat, 0.0) + ms
     device = sum(cats.values())
+    event_ms, device_ms = parts(w, inputs)
     return {
         "wall_ms": wall, "device_ms": device,
-        "parts_ms": parts(w, inputs),
+        "parts_ms": event_ms, "parts_device_ms": device_ms,
         "page_gather_host_us": gather_host_us(w, inputs),
         "idle_share": max(0.0, 1.0 - device / wall) if wall else None,
         "categories_ms": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
@@ -288,14 +357,15 @@ def summary(stats) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=ARCHS, default=ARCH)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("serving measures the card; no CUDA device found")
-    w = workload(args.seed)
+    w = workload(args.seed, arch=args.config)
     _, stats = run(w, seed=args.seed)
-    out = {"device": torch.cuda.get_device_name(0),
+    out = {"device": torch.cuda.get_device_name(0), "config": args.config,
            "engine": summary(stats), "decode_step": breakdown(w)}
     print(json.dumps(out, indent=1))
     if args.out:

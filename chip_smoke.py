@@ -110,7 +110,8 @@ def sum_rtol(n: int) -> tuple[float, int]:
 
 SORT_KERNELS = ("bitonic_inblock", "bitonic_cross", "minmax_histogram",
                 "searchsorted")
-SERVE_KERNELS = ("nucleus_mask", "page_gather")
+# kernels whose first launch comes after phase 6
+LATER_KERNELS = ("nucleus_mask", "page_gather", "flash_attention")
 REPLACES = {
     "bitonic_inblock": ("src/repro_torch/kernels/csrc/bitonic.cu",
                         "src/repro/kernels/sort_kernel.py:289"),
@@ -132,6 +133,8 @@ REPLACES = {
                      "src/repro/kernels/nucleus_kernel.py:127"),
     "page_gather": ("src/repro_torch/kernels/csrc/page.cu",
                     "src/repro/kernels/page_kernel.py:69"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/attention.cu",
+                        "src/repro/kernels/attention_kernel.py:101"),
 }
 
 
@@ -914,6 +917,283 @@ def phase_serving(registry, C, errs, seed: int) -> dict:
     return out
 
 
+# name, B, Sq, Sk, H, KV, hd, causal, dtype: the GQA shapes of phase 8
+ATTN_SHAPES = (
+    ("internlm2-1.8B prefill", 8, 256, 256, 16, 8, 128, True,
+     torch.bfloat16),
+    ("granite-moe-1b prefill", 8, 256, 256, 16, 8, 64, True,
+     torch.bfloat16),
+    ("long prefill", 1, 8192, 8192, 16, 8, 128, True, torch.bfloat16),
+    ("decode, ragged", 8, 1, 289, 16, 8, 128, False, torch.bfloat16),
+)
+# (Sq, Sk) of tests/test_attention_kernel.py's grid: BH 4, hd 64, float32
+ATTN_GRID = ((128, 512), (128, 1024), (256, 512), (100, 300), (1, 512))
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """(query, key) pairs a head attends: all, or under the top-left
+    causal mask min(i + 1, Sk) for query i."""
+    if not causal:
+        return Sq * Sk
+    m = min(Sq, Sk)
+    return m * (m + 1) // 2 + (Sq - m) * Sk
+
+
+def attention_err(got, want, what) -> float:
+    """|kernel - plain| within rtol 2e-4 / atol 2e-5 (the reference's
+    attention tolerance), plus one bfloat16 ulp of the plain result for a
+    bfloat16 output (both sides round their float32 result); returns the
+    largest |difference|."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    lim = 2e-4 * w.abs() + 2e-5
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(w)
+        lim = lim + torch.ldexp(torch.ones_like(w), e - 8)
+    check(got.dtype == want.dtype and got.shape == want.shape
+          and bool((err <= lim).all()),
+          f"{what}: flash kernel off its plain version by up to "
+          f"{float(err.max())}")
+    return float(err.max())
+
+
+def phase_attention(C, errs) -> dict:
+    """Phase 8: flash attention through its own entry points
+    (``flash_attention_gqa`` at the serving shapes, ``flash_attention`` on
+    the JAX test file's grid), counted: one launch per call. Then each
+    result against its plain version, and timings beside the port's
+    ``blockwise_attention`` (what the models run), SDPA (the library
+    yardstick) and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention_kernel as AK
+    from repro_torch.kernels import ref as KREF
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cases = []
+    for name, B, Sq, Sk, H, KV, hd, causal, dt in ATTN_SHAPES:
+        q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn(B, Sk, KV, hd, generator=gen,
+                            device="cuda").to(dt) for _ in range(2))
+        cases.append(dict(name=name, gqa=True, q=q, k=k, v=v, causal=causal,
+                          heads=B * H, Sq=Sq, Sk=Sk, hd=hd))
+    for Sq, Sk in ATTN_GRID:
+        for causal in (True, False):
+            q = torch.randn(4, Sq, 64, generator=gen, device="cuda")
+            k, v = (torch.randn(4, Sk, 64, generator=gen, device="cuda")
+                    for _ in range(2))
+            cases.append(dict(name=f"grid {Sq}x{Sk} causal={causal}",
+                              gqa=False, q=q, k=k, v=v, causal=causal,
+                              heads=4, Sq=Sq, Sk=Sk, hd=64))
+
+    def kernel(c):
+        fn = AK.flash_attention_gqa if c["gqa"] else AK.flash_attention
+        return fn(c["q"], c["k"], c["v"], causal=c["causal"])
+
+    def plain(c):
+        fn = (AK.flash_attention_gqa_ref if c["gqa"]
+              else KREF.flash_attention_ref)
+        return fn(c["q"], c["k"], c["v"], causal=c["causal"])
+
+    def blockwise(c):
+        q, k, v = c["q"], c["k"], c["v"]
+        if not c["gqa"]:
+            q, k, v = q[:, :, None], k[:, :, None], v[:, :, None]
+        return L.blockwise_attention(q, k, v, causal=c["causal"])
+
+    def sdpa(c):
+        q, k, v = c["q"], c["k"], c["v"]
+        if c["gqa"]:
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        return F.scaled_dot_product_attention(
+            q, k, v, is_causal=c["causal"],
+            enable_gqa=q.shape[-3] != k.shape[-3])
+
+    # the main path: every case once through its entry point
+    torch.cuda.synchronize()
+    C.reset_launch_count()
+    outs = [kernel(c) for c in cases]
+    torch.cuda.synchronize()
+    kern = C.kernel_launches()
+    check(kern == {"flash_attention": len(cases)},
+          f"flash attention launches {kern}, closed form 1 per call x "
+          f"{len(cases)}")
+    rows = []
+    for c, got in zip(cases, outs):
+        err = attention_err(got, plain(c), c["name"])
+        errs.record("flash_attention", err)
+        bp = (blockwise(c).reshape(got.shape).float()
+              - got.float()).abs().max()
+        q, k, v = c["q"], c["k"], c["v"]
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        ops = 4 * c["heads"] * c["hd"] * visible_pairs(c["Sq"], c["Sk"],
+                                                        c["causal"])
+        b, by = bound(nbytes, ops)
+        reps = 3 if c["Sq"] > 4096 else 10
+        rows.append({
+            "shape": c["name"], "q": list(q.shape), "k": list(k.shape),
+            "dtype": str(q.dtype), "causal": c["causal"],
+            "max_abs_err": err, "blockwise_vs_kernel_max_abs": float(bp),
+            "ms": cuda_ms(lambda: kernel(c), reps=reps),
+            "plain_ms": cuda_ms(lambda: plain(c), reps=reps),
+            "blockwise_ms": cuda_ms(lambda: blockwise(c), reps=reps),
+            "library_ms": cuda_ms(lambda: sdpa(c), reps=reps),
+            "bound_ms": b, "bound_by": by})
+        r = rows[-1]
+        log(f"  flash {r['shape']} {r['dtype']}: {r['ms']:.4f} ms "
+            f"(plain {r['plain_ms']:.4f}, blockwise {r['blockwise_ms']:.4f}"
+            f", sdpa {r['library_ms']:.4f}, bound {b:.4f} ms by {by}); "
+            f"max |kernel - plain| {err:.3g}")
+    del outs, cases
+    torch.cuda.empty_cache()
+    return {"kernel_launches": kern, "rows": rows}
+
+
+def phase_moe_serving(registry, C, errs, seed: int) -> dict:
+    """Phase 9: granite-moe-1b at full width through the serving engine
+    (``benchmarks_torch/serving.py --config granite_moe_1b``): a paged,
+    sampled run with the launch counters set to 0 just before it, its
+    launches against the closed forms (the prefill sortperm network, the
+    sampler, the page gather, the allocator) and its portable calls (0
+    for the page gather and the sampler; one ``segmented_reduce`` combine
+    per MoE layer call); greedy paged and contiguous runs that must agree;
+    the grouped-mm expert FFN against the per-expert loop on the inputs
+    the run gave it; the CLI; tokens/s, TTFT and a decode-step breakdown.
+    """
+    from benchmarks_torch import serving as SV
+    from repro_torch.kernels import nucleus_kernel as NK
+    from repro_torch.kernels import scan_kernel as SCK
+    from repro_torch.kernels import sort_kernel as SK
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import COMPLETED
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+
+    out = {}
+    t0 = time.perf_counter()
+    w = SV.workload(seed, arch="granite_moe_1b")
+    torch.cuda.synchronize()
+    cfg = w.cfg
+    V = cfg.padded_vocab(16)
+    out["params"] = M.param_count(w.params)
+    out["init_s"] = time.perf_counter() - t0
+    log(f"moe serve: {cfg.name} at full width, {out['params']} parameters "
+        f"(random bf16, seed {seed}), {cfg.n_experts} experts top-"
+        f"{cfg.top_k}, vocab {cfg.vocab} padded to {V}; init "
+        f"{out['init_s']:.1f} s")
+
+    # the main path; capture the expert FFN's inputs (first decode-shaped
+    # and first prefill-shaped call)
+    captured = {}
+    original = MOE._expert_ffn_bucketed
+
+    def capturing(p, xs, counts, offsets, grouped=None):
+        if xs.shape[0] not in captured:
+            captured[xs.shape[0]] = (p, xs.clone(), counts.clone(),
+                                     offsets.clone())
+        return original(p, xs, counts, offsets, grouped)
+
+    MOE._expert_ffn_bucketed = capturing
+    try:
+        registry.reset_stats()
+        torch.cuda.synchronize()
+        C.reset_launch_count()
+        t0 = time.perf_counter()
+        sampled, st = SV.run(w, seed=seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, kern = C.launch_counts(), C.kernel_launches()
+        pstats = registry.stats()
+    finally:
+        MOE._expert_ffn_bucketed = original
+    out["engine"] = dict(SV.summary(st), wall_s=wall)
+    out["launches_by_primitive"] = counts
+    out["kernel_launches"] = kern
+    check(st.tokens == SV.REQUESTS * SV.MAX_NEW
+          and all(len(t) == SV.MAX_NEW for t in sampled.values()),
+          f"paged run emitted {st.tokens} tokens")
+    check(all(0 <= x < cfg.vocab for t in sampled.values() for x in t),
+          "a sampled token outside the vocabulary")
+    samples = st.steps + st.prefills
+    layer_calls = samples * cfg.n_layers          # MoE FFN calls
+    routed = SV.PROMPT_LEN * cfg.top_k            # prefill sortperm keys
+    want = {
+        ("kernel", "page_gather"): st.steps * 2 * cfg.n_layers,
+        ("kernel", "nucleus_mask"): samples,
+        ("primitive", "topk"): samples * SK.cross_launches(V),
+        ("primitive", "nucleus_mask"): samples * NK.nucleus_launches(V),
+        ("primitive", "argsort"): (st.prefills * cfg.n_layers
+                                   * SK.cross_launches(routed)),
+    }
+    allocs, pages = st.pages_allocated_total, SV.SLOTS * (
+        w.cache_len // w.page_size)
+    want[("kernel", "scan")] = allocs * SCK.scan_launches(pages)
+    want[("kernel", "searchsorted")] = allocs
+    for (kind, name), n in want.items():
+        got = (kern if kind == "kernel" else counts).get(name)
+        check(got == n, f"{kind} {name} launched {got} times, closed form "
+                        f"{n}")
+    for name in ("page_gather", "nucleus_mask", "topk", "argsort",
+                 "accumulate", "searchsorted"):
+        check(pstats[name]["portable_calls"] == 0
+              and pstats[name]["calls"] > 0, f"{name} stats {pstats[name]}")
+    seg = pstats["segmented_reduce"]
+    check(seg["calls"] == seg["portable_calls"] == layer_calls,
+          f"segmented_reduce stats {seg}, expected {layer_calls} portable "
+          f"combines (one per MoE layer call)")
+    out["closed_forms"] = {f"{k} {n}": v for (k, n), v in want.items()}
+    out["segmented_reduce_portable"] = seg["portable_calls"]
+    log(f"moe serve: {SV.REQUESTS} requests x {SV.MAX_NEW} tokens, paged, "
+        f"{SV.SLOTS} slots: {st.steps} decode steps, {st.tokens} tokens, "
+        f"{st.tokens_per_s:.1f} tok/s, ttft p50 "
+        f"{out['engine']['ttft_p50_ms']:.1f} ms p99 "
+        f"{out['engine']['ttft_p99_ms']:.1f} ms; launches {kern}; by "
+        f"primitive {counts}; {seg['portable_calls']} portable combines")
+
+    # greedy: paged and contiguous must agree token for token
+    g_paged, _ = SV.run(w, temperature=0.0, seed=seed)
+    g_contig, gst = SV.run(w, paged=False, temperature=0.0, seed=seed)
+    check(g_paged == g_contig, "moe greedy paged != greedy contiguous")
+    out["engine_contiguous_greedy"] = SV.summary(gst)
+    log("moe serve: greedy paged and contiguous runs emit the same tokens "
+        f"({sum(len(t) for t in g_paged.values())} tokens)")
+
+    # the grouped-mm expert FFN against the per-expert loop
+    check(SV.SLOTS * cfg.top_k in captured and routed in captured,
+          f"expert FFN calls captured at {sorted(captured)} rows")
+    out["expert_ffn"] = {}
+    for rows in (SV.SLOTS * cfg.top_k, routed):
+        p, xs, cnt, off = captured[rows]
+        check(MOE.grouped_mm_applies(xs, p["w_gate"]),
+              "torch._grouped_mm does not apply on the path's inputs")
+        g = MOE._expert_ffn_bucketed(p, xs, cnt, off).float()
+        lp = MOE._expert_ffn_bucketed(p, xs, cnt, off, False).float()
+        diff, top = float((g - lp).abs().max()), float(lp.abs().max())
+        check(diff <= 2 ** -6 * top,
+              f"grouped-mm expert FFN off the loop by {diff} (largest "
+              f"output {top}; limit two bf16 ulps of it)")
+        out["expert_ffn"][rows] = {
+            "max_abs_diff": diff, "largest": top,
+            "grouped_ms": cuda_ms(lambda: MOE._expert_ffn_bucketed(
+                p, xs, cnt, off), reps=10),
+            "loop_ms": cuda_ms(lambda: MOE._expert_ffn_bucketed(
+                p, xs, cnt, off, False), reps=10)}
+    log("moe serve: grouped-mm expert FFN == per-expert loop within two "
+        "bf16 ulps of the largest output: " + json.dumps(out["expert_ffn"]))
+
+    res, cst = serve.main(["--device", "cuda", "--config", "granite_moe_1b",
+                           "--requests", "8", "--slots", "4", "--paged"])
+    check(all(r.status == COMPLETED for r in res.values())
+          and cst.tokens == 8 * 32, "serve CLI (granite_moe_1b) did not "
+                                    "complete")
+    out["decode_step"] = SV.breakdown(w, seed=seed)
+    log("moe serve: one paged decode step + sampler: "
+        + json.dumps(out["decode_step"]))
+    del w, captured
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="End-to-end check of the "
                                  "PyTorch port on one CUDA card")
@@ -1140,7 +1420,7 @@ def main() -> int:
     for name, n in stream["kernel_launches"].items():
         main_kernels[name] = main_kernels.get(name, 0) + n
     for name in REPLACES:
-        check(name in SERVE_KERNELS or main_kernels.get(name, 0) > 0,
+        check(name in LATER_KERNELS or main_kernels.get(name, 0) > 0,
               f"kernel {name} never launched on a main path")
     rows = stream["rows"]
     for name, key in (("map", "map_ljg"), ("reduce", "reduce_add"),
@@ -1175,13 +1455,38 @@ def main() -> int:
             **{k: r[k] for k in ("lanes_differ", "ranks_near_cut")
                if k in r},
         })
+    log(f"phase 7 done in {time.perf_counter() - t0:.1f} s; comparisons "
+        f"per kernel " + json.dumps(errs.cases))
+
+    # -- 8. flash attention on its own entry point ---------------------------
+    t0 = time.perf_counter()
+    attn = phase_attention(C, errs)
+    report["attention"] = attn
+    main_kernels["flash_attention"] = attn["kernel_launches"][
+        "flash_attention"]
+    r = attn["rows"][0]          # internlm2-1.8B prefill: phase 7's model
+    src, rep = REPLACES["flash_attention"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": src,
+        "replaces": rep, "launches": main_kernels["flash_attention"],
+        "max_abs_err": errs.err["flash_attention"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "shape": r["shape"]})
+    log(f"phase 8 done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 9. granite-moe-1b through the serving engine ------------------------
+    t0 = time.perf_counter()
+    moe = phase_moe_serving(registry, C, errs, args.seed)
+    report["serving_moe"] = moe
+    for name, n in moe["kernel_launches"].items():
+        main_kernels[name] = main_kernels.get(name, 0) + n
     for name in REPLACES:
         check(main_kernels.get(name, 0) > 0,
               f"kernel {name} never launched on a main path")
-    for k in kernels:  # earlier kernels' launches now include phases 6-7
+    for k in kernels:  # earlier kernels' launches now include phases 6-9
         k["launches"] = main_kernels[k["name"]]
-    log(f"phase 7 done in {time.perf_counter() - t0:.1f} s; comparisons "
-        f"per kernel " + json.dumps(errs.cases))
+    log(f"phase 9 done in {time.perf_counter() - t0:.1f} s")
     report["float64"] = errs.float64
     log(f"float add against float64, bound {stream['sum_rtol']:.4g} * "
         f"sum |x| (depth {stream['sum_depth']}): " + json.dumps(errs.float64))

@@ -81,7 +81,7 @@ class ModelConfig:
 
 
 #: Architectures of the port so far; the others wait for their families.
-ARCH_IDS = ["internlm2_1_8b"]
+ARCH_IDS = ["internlm2_1_8b", "granite_moe_1b", "deepseek_moe_16b"]
 
 
 def _module(arch: str):

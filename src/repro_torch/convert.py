@@ -42,8 +42,11 @@ def params_from_jax(params_np, cfg, device="cuda"):
     """The reference's ``init_params`` pytree (numpy leaves, bf16 as
     ``ml_dtypes.bfloat16``) as the port's parameters on ``device``: the
     same dict, with the stacked (L, ...) leaves of ``layers`` split into
-    one dict per layer. Dense family only, as the port's model is."""
-    if cfg.family != "dense":
+    one dict per layer (a moe layer's stacked expert weights, router and
+    shared experts included; deepseek-moe's dense ``layer0`` is not
+    stacked and stays one dict). Dense and moe families, as the port's
+    model."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet")
 
@@ -54,6 +57,6 @@ def params_from_jax(params_np, cfg, device="cuda"):
         return to_torch(a if pick is None else a[pick], device)
 
     out = {k: tree(v) for k, v in params_np.items() if k != "layers"}
-    out["layers"] = [tree(params_np["layers"], i)
-                     for i in range(cfg.n_layers)]
+    n = cfg.n_layers - int(cfg.family == "moe" and cfg.first_layer_dense)
+    out["layers"] = [tree(params_np["layers"], i) for i in range(n)]
     return out

@@ -35,7 +35,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("bitonic", "hist", "search", "map", "reduce", "scan", "nucleus",
-           "page")
+           "page", "attention")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -15,6 +15,9 @@ kernels take only the catalogue of ``common.OPS``.
 """
 from __future__ import annotations
 
+import contextlib
+import math
+
 import numpy as np
 import torch
 
@@ -163,3 +166,35 @@ def minmax_histogram_ref(x: torch.Tensor, nbins: int, lo, hi):
     hist.scatter_add_(0, b.long(), torch.ones_like(b))
     flat = x.reshape(-1)
     return hist, flat.min(), flat.max()
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """Plain softmax attention in float32, the oracle of the flash
+    kernel: q (BH, Sq, hd), k and v (BH, Sk, hd), the causal mask
+    aligned top-left (key j visible to query i iff j <= i). Returns
+    q's dtype. Float32 products run in full precision whatever
+    ``torch.backends.cuda.matmul.allow_tf32`` says."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    with full_f32_matmul():
+        s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
+                         k.to(torch.float32)) * scale
+        if causal:
+            Sq, Sk = s.shape[-2:]
+            mask = (torch.arange(Sk, device=s.device)[None, :]
+                    <= torch.arange(Sq, device=s.device)[:, None])
+            s = torch.where(mask[None], s, -math.inf)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bqk,bkd->bqd", p, v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """float32 matmuls in IEEE float32 on the card (no TF32) for the
+    scope; nothing changes on the CPU."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

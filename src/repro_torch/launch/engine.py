@@ -85,9 +85,10 @@ from repro_torch.runtime.supervisor import (
     Supervisor,
 )
 
-#: Families the slot scheduler supports so far; the reference's moe, ssm
-#: and hybrid come with their slices of the port.
-ENGINE_FAMILIES = ("dense",)
+#: Families the slot scheduler supports so far (both pad prompts and may
+#: page their KV cache, as in the reference); the reference's ssm and
+#: hybrid come with their slices of the port.
+ENGINE_FAMILIES = ("dense", "moe")
 
 # -- request status lifecycle (RequestResult.status) -------------------------
 # PENDING is the only non-terminal state; every request handed to

@@ -208,7 +208,11 @@ def main(argv=None):
     from repro_torch.configs import load_smoke_config
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="internlm2_1_8b")
+    ap.add_argument("--arch", "--config", dest="arch",
+                    default="internlm2_1_8b",
+                    help="architecture whose smoke config is served "
+                         "(internlm2_1_8b, granite_moe_1b, "
+                         "deepseek_moe_16b)")
     ap.add_argument("--device", default="cuda",
                     help="device to serve on (default: the card; 'cpu' "
                          "runs the plain versions of the kernels)")

@@ -1,5 +1,5 @@
-"""Top-level model of the dense family: init, forward, prefill, decode
-step, contiguous and paged caches (counterpart of
+"""Top-level model of the dense and moe families: init, forward, prefill,
+decode step, contiguous and paged caches (counterpart of
 ``repro/models/model.py``).
 
 Parameters are a plain dict of tensors on one device; the reference's
@@ -9,10 +9,16 @@ layouts: contiguous ``{"kv": {"k", "v"}}`` of (L, B, S, KV, hd), paged
 pools of (L, P, page_size, KV, hd). Decode and prefill write the caches
 IN PLACE and return them (the reference donates them to its jit).
 
-Other families raise ``NotImplementedError``: moe, ssm, hybrid, encdec
-and vlm come with later slices of the port.
+A moe model stacks [attention, MoE FFN] layers, with deepseek-moe's
+layer 0 a dense layer whose FFN is as wide as the shared and routed
+experts' activation together (``params["layer0"]``, cache layer 0).
+
+Other families raise ``NotImplementedError``: ssm, hybrid, encdec and vlm
+come with later slices of the port.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -20,14 +26,14 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 TP_DEFAULT = 16
-FAMILIES = ("dense",)
+FAMILIES = ("dense", "moe")
 
 
 def _check_family(cfg):
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ported: {FAMILIES}); "
-            f"moe, ssm, hybrid, encdec and vlm come with later slices")
+            f"ssm, hybrid, encdec and vlm come with later slices")
 
 
 def _vocab(cfg):
@@ -40,13 +46,33 @@ def init_params(gen: torch.Generator, cfg, device="cuda"):
     from ``gen`` on ``device``; the draws are not the reference's."""
     _check_family(cfg)
     V, d = _vocab(cfg), cfg.d_model
-    return {
+    p = {
         "embed": L.embedding_init(gen, V, d, cfg.dtype, device),
         "final_norm": L.rmsnorm_init(d, device),
         "head": L.lm_head_init(gen, d, V, cfg.dtype, device),
-        "layers": [T.dense_layer_init(gen, cfg, device)
-                   for _ in range(cfg.n_layers)],
     }
+    if cfg.family == "dense":
+        p["layers"] = [T.dense_layer_init(gen, cfg, device)
+                       for _ in range(cfg.n_layers)]
+    else:
+        p["layers"] = [T.moe_layer_init(gen, cfg, device)
+                       for _ in range(cfg.n_layers - _first_dense(cfg))]
+        if _first_dense(cfg):
+            p["layer0"] = T.dense_layer_init(gen, _dense_ff_view(cfg),
+                                             device)
+    return p
+
+
+def _first_dense(cfg) -> int:
+    """1 when layer 0 is a dense layer in front of the moe stack."""
+    return int(cfg.family == "moe" and cfg.first_layer_dense)
+
+
+def _dense_ff_view(cfg):
+    """deepseek-moe layer 0: a dense FFN sized like the shared + routed
+    activation."""
+    return dataclasses.replace(
+        cfg, d_ff=cfg.d_ff * (cfg.top_k + cfg.n_shared_experts))
 
 
 def param_count(params) -> int:
@@ -60,14 +86,23 @@ def param_count(params) -> int:
 
 
 def forward(params, cfg, tokens, *, chunk=1024):
-    """Logits over the padded vocab for a full sequence (no cache)."""
+    """A full sequence (no cache) -> (logits over the padded vocab, the
+    MoE balance loss summed over layers: 0 for dense)."""
     _check_family(cfg)
     x = L.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    if _first_dense(cfg):
+        x, _ = T.dense_block(params["layer0"], cfg, x, positions,
+                             chunk=chunk)
     for p in params["layers"]:
-        x, _ = T.dense_block(p, cfg, x, positions, chunk=chunk)
+        if cfg.family == "dense":
+            x, _ = T.dense_block(p, cfg, x, positions, chunk=chunk)
+        else:
+            x, aux, _ = T.moe_block(p, cfg, x, positions, chunk=chunk)
+            aux_total = aux_total + aux
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.lm_head(params["head"], x)
+    return L.lm_head(params["head"], x), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -142,11 +177,18 @@ def _decode(params, cfg, tokens, caches, position, *, chunk=1024,
     positions = (torch.as_tensor(position, device=dev)[..., None]
                  + torch.arange(S, device=dev))
     kvs = caches["kv"]
-    for i, p in enumerate(params["layers"]):
+    kw = dict(cache_index=position, block_table=block_tables,
+              page_size=page_size, chunk=chunk)
+    first = _first_dense(cfg)
+    if first:
+        x, _ = T.dense_block(params["layer0"], cfg, x, positions,
+                             cache={"k": kvs["k"][0], "v": kvs["v"][0]}, **kw)
+    for i, p in enumerate(params["layers"], start=first):
         cache = {"k": kvs["k"][i], "v": kvs["v"][i]}
-        x, _ = T.dense_block(p, cfg, x, positions, cache=cache,
-                             cache_index=position, block_table=block_tables,
-                             page_size=page_size, chunk=chunk)
+        if cfg.family == "dense":
+            x, _ = T.dense_block(p, cfg, x, positions, cache=cache, **kw)
+        else:
+            x, _, _ = T.moe_block(p, cfg, x, positions, cache=cache, **kw)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.lm_head(params["head"], x), caches
 

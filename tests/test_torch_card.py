@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the sort path's (bitonic network, merge, histogram, search), the
-streaming path's (map, reduce, scan, segmented scan, segmented sort) and
+streaming path's (map, reduce, scan, segmented scan, segmented sort),
 the serving path's (the batched network, the nucleus mask, the page
-gather).
+gather), the flash attention kernel, and the MoE FFN's grouped expert
+product against its per-expert loop.
 Every test here is marked ``cuda`` and skips without a CUDA device; on
 the GPU machine run ``PYTHONPATH=src:. python -m pytest -m cuda
 tests/test_torch_card.py``. This file imports neither jax nor the JAX
@@ -16,6 +17,8 @@ import torch
 
 from repro_torch import core as ak
 from repro_torch.core import registry
+from repro_torch.configs import load_smoke_config
+from repro_torch.kernels import attention_kernel as AK
 from repro_torch.kernels import common as C
 from repro_torch.kernels import hist_kernel as HK
 from repro_torch.kernels import map_kernel as MAPK
@@ -28,6 +31,7 @@ from repro_torch.kernels import scan_kernel as SCK
 from repro_torch.kernels import search_kernel as SE
 from repro_torch.kernels import segment_kernel as SGK
 from repro_torch.kernels import sort_kernel as SK
+from repro_torch.models import moe as MOE
 
 pytestmark = pytest.mark.cuda
 
@@ -406,3 +410,111 @@ def test_page_gather_kernel_bitwise_vs_plain(gen, dtype, tail):
     got = PK.page_gather_blocks(pages, bad)
     assert not bool(got[0, :ps].ne(0).any())
     assert torch.equal(got[:, ps:], PK.page_gather_ref(pages, table)[:, ps:])
+
+
+def _bf16_ulp(x):
+    """One bfloat16 ulp at each element of ``x`` (8 significant bits)."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def _assert_attention_close(got, want):
+    """float32: rtol 2e-4 / atol 2e-5 (the reference's); bfloat16 output:
+    one bf16 ulp more, since both sides round their float32 result."""
+    g, w = got.float(), want.float()
+    lim = 2e-4 * w.abs() + 2e-5
+    if got.dtype == torch.bfloat16:
+        lim = lim + _bf16_ulp(want)
+    err = (g - w).abs()
+    assert bool((err <= lim).all()), float((err - lim).max())
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("sq,sk,causal", [
+    (128, 512, True), (100, 300, True), (100, 300, False), (1, 512, True),
+    (1, 512, False), (256, 512, False)])
+def test_flash_kernel_vs_plain(gen, dtype, sq, sk, causal):
+    BH, hd = 4, 64
+    q, k, v = (torch.randn(BH, s, hd, generator=gen, device="cuda").to(dtype)
+               for s in (sq, sk, sk))
+    C.reset_launch_count()
+    got = AK.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert C.kernel_launches() == {"flash_attention": 1}
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_attention_close(got, KREF.flash_attention_ref(q, k, v,
+                                                          causal=causal))
+
+
+@pytest.mark.parametrize("hd", AK.HEAD_DIMS)
+@pytest.mark.parametrize("shape", [(2, 100, 300, 8, 2, True),
+                                   (8, 1, 289, 16, 8, False),
+                                   (3, 70, 70, 4, 4, True)])
+def test_flash_gqa_kernel_vs_plain_and_blockwise(gen, hd, shape):
+    B, Sq, Sk, H, KV, causal = shape
+    q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda")
+    k, v = (torch.randn(B, Sk, KV, hd, generator=gen, device="cuda")
+            for _ in range(2))
+    C.reset_launch_count()
+    got = AK.flash_attention_gqa(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert C.launch_count() == 1
+    want = AK.flash_attention_gqa_ref(q, k, v, causal=causal)
+    _assert_attention_close(got, want)
+    gb = AK.flash_attention_gqa(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                causal=causal)
+    _assert_attention_close(gb, AK.flash_attention_gqa_ref(
+        q.bfloat16(), k.bfloat16(), v.bfloat16(), causal=causal))
+
+
+def test_flash_kernel_refuses_other_head_dims(gen):
+    q = torch.randn(1, 4, 2, 24, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        AK.flash_attention_gqa(q, q, q)
+
+
+def test_grouped_mm_equals_the_expert_loop(gen):
+    """``torch._grouped_mm`` against the per-expert ``torch.matmul`` loop
+    on granite-moe-1b's widths (32 experts, d 1024, d_ff 512), empty
+    buckets included: the two sum K products in different orders and
+    round to bfloat16, so rtol is one bf16 ulp (2^-7) and atol 1e-2 (the
+    outputs are ~0.6 in size)."""
+    E, K, N = 32, 1024, 512
+    counts = torch.randint(0, 40, (E,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    counts[3] = 0
+    counts[E - 1] = 0
+    rows = int(counts.sum())
+    x = torch.randn(rows, K, generator=gen, device="cuda").bfloat16()
+    w = (torch.rand(E, K, N, generator=gen, device="cuda") * 2 - 1) / 32
+    w = w.bfloat16()
+    ends = torch.cumsum(counts, 0).to(torch.int32)
+    assert MOE.grouped_mm_applies(x, w)
+    got = MOE.grouped_matmul(x, w, counts, ends)
+    want = MOE.grouped_matmul(x, w, counts, ends, grouped=False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=1e-2)
+
+
+def test_moe_ffn_on_the_card(gen):
+    """The granite smoke MoE FFN in bfloat16 at prefill size: the prefill
+    sortperm reaches the bitonic kernels (closed-form launches), the
+    (T*k, d) combine takes the portable flagged path, counted, and the
+    padded dispatch agrees with the bucketed one (the same drops; the
+    padded combine adds in bfloat16, so two bf16 ulps)."""
+    cfg = load_smoke_config("granite_moe_1b")
+    p = MOE.moe_init(gen, cfg, "cuda")
+    x = torch.randn(1, 1024, cfg.d_model, generator=gen,
+                    device="cuda").bfloat16()
+    registry.reset_stats()
+    C.reset_launch_count()
+    got, aux = MOE.moe_ffn(p, cfg, x, capacity_factor=1.0)
+    torch.cuda.synchronize()
+    n = x.shape[1] * cfg.top_k
+    assert C.launch_counts().get("argsort") == SK.cross_launches(n)
+    assert registry.stats("segmented_reduce")["portable_calls"] == 1
+    padded, paux = MOE.moe_ffn(p, cfg, x, capacity_factor=1.0,
+                               dispatch="padded")
+    assert float(aux) == float(paux)
+    torch.testing.assert_close(padded.float(), got.float(), rtol=2 ** -6,
+                               atol=2e-2)

@@ -1,8 +1,10 @@
 """The port's continuous-batching engine against the JAX package's, on the
-internlm2-1.8B smoke config in float32: greedy tokens equal the
-reference ``Engine(overlap=False)``'s, contiguous and paged; sampled
-tokens depend on the request only (not on slot count, submission order,
-paged mode or a preemption); the serve CLI runs on the CPU."""
+internlm2-1.8B and granite-moe-1b smoke configs in float32: greedy tokens
+equal the reference ``Engine(overlap=False)``'s, contiguous and paged (and,
+for granite-moe-1b, a sequential reference that prefills and decodes each
+request alone); sampled tokens depend on the request only (not on slot
+count, submission order, paged mode or a preemption); the serve CLI runs
+on the CPU."""
 import dataclasses
 
 import jax
@@ -19,6 +21,7 @@ from repro_torch.configs import load_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve
 from repro_torch.launch.engine import COMPLETED, Engine, Request
+from repro_torch.models import model as M
 
 ARCH = "internlm2_1_8b"
 PLENS = [5, 8, 3, 7, 6]
@@ -135,3 +138,64 @@ def test_serve_loop_under_a_seeded_fault_plan_emits_the_clean_tokens(setup):
     assert es.faults_injected > 0 and es.step_retries + es.preemptions > 0
     assert torch.equal(clean, chaos) and clean.dtype == torch.int32
     assert clean.shape == (3, 5) and st.tokens == ct.tokens == 15
+
+
+@pytest.fixture(scope="module")
+def moe_setup():
+    arch = "granite_moe_1b"
+    rcfg = dataclasses.replace(ref_smoke(arch), dtype=jnp.float32)
+    cfg = dataclasses.replace(load_smoke_config(arch), dtype=torch.float32)
+    rparams = RM.init_params(jax.random.PRNGKey(3), rcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, rparams), cfg,
+                             device="cpu")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in PLENS]
+    return rcfg, rparams, cfg, params, prompts
+
+
+def _sequential_greedy(params, cfg, prompt, max_new):
+    """One request alone: its right-padded prompt prefilled (as the
+    engine pads it), then greedy decode steps at batch 1."""
+    tok = np.zeros((1, PROMPT_PAD), np.int32)
+    tok[0, :len(prompt)] = prompt
+    logits, caches, _ = M.prefill(params, cfg, torch.from_numpy(tok),
+                                  cache_len=CACHE_LEN)
+    out = [int(torch.argmax(logits[0, len(prompt) - 1, :cfg.vocab]))]
+    pos = len(prompt)
+    while len(out) < max_new:
+        nt = torch.tensor([[out[-1]]], dtype=torch.int32)
+        logits, caches = M.decode_step(params, cfg, nt, caches, pos)
+        out.append(int(torch.argmax(logits[0, 0, :cfg.vocab])))
+        pos += 1
+    return out
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_moe_greedy_tokens_equal_reference_engine_and_sequential(moe_setup,
+                                                                 paged):
+    rcfg, rparams, cfg, params, prompts = moe_setup
+    eng = REngine(rparams, rcfg, slots=2, cache_len=CACHE_LEN,
+                  prompt_pad=PROMPT_PAD, temperature=0.0, overlap=False,
+                  paged=paged, page_size=4)
+    res, _ = eng.run(_requests(prompts, RRequest))
+    want = {r: v.tokens for r, v in res.items()}
+    eng = Engine(params, cfg, slots=2, cache_len=CACHE_LEN,
+                 prompt_pad=PROMPT_PAD, temperature=0.0, paged=paged,
+                 page_size=4)
+    res, stats = eng.run(_requests(prompts, Request))
+    assert {r: v.tokens for r, v in res.items()} == want
+    assert all(v.status == COMPLETED for v in res.values())
+    assert stats.tokens == sum(MAX_NEW)
+    for i, (p, m) in enumerate(zip(prompts, MAX_NEW)):
+        assert _sequential_greedy(params, cfg, p, m) == want[i]
+
+
+def test_serve_cli_serves_the_moe_smoke_config(capsys):
+    results, stats = serve.main(["--device", "cpu", "--config",
+                                 "granite_moe_1b", "--requests", "3",
+                                 "--slots", "2", "--prompt-len", "6",
+                                 "--max-new", "4", "--paged"])
+    assert "served 3/3 requests" in capsys.readouterr().out
+    assert stats.tokens == 12
+    assert all(r.status == COMPLETED for r in results.values())

@@ -1,9 +1,12 @@
-"""The dense model in the port against the JAX package: parameter
-conversion, the layers (RoPE, RMSNorm, blockwise attention, attention over
-contiguous, per-slot and paged caches), and prefill and decode logits of
-the internlm2-1.8B smoke config, all in float32 (rtol 2e-4, atol 2e-5, the
-reference's attention tolerances); and, within the port in bfloat16, the
-paged decode bit for bit equal to the contiguous one."""
+"""The dense and moe models in the port against the JAX package:
+parameter conversion, the layers (RoPE, RMSNorm, blockwise attention,
+attention over contiguous, per-slot and paged caches), and prefill and
+decode logits of the internlm2-1.8B smoke config, and forward, prefill and
+decode (contiguous and paged) logits and the balance loss of the
+granite-moe-1b and deepseek-moe-16b smoke configs, all in float32 (rtol
+2e-4, atol 2e-5, the reference's attention tolerances); and, within the
+port in bfloat16, the paged decode bit for bit equal to the contiguous
+one."""
 import dataclasses
 
 import jax
@@ -189,8 +192,9 @@ def test_prefill_and_decode_logits_match_reference(f32_model):
     wl, wc, _ = RM.prefill(rparams, rcfg, jnp.asarray(tok), cache_len=16)
     gl, gc, _ = M.prefill(params, cfg, torch.from_numpy(tok), cache_len=16)
     _close(gl, wl)
-    _close(M.forward(params, cfg, torch.from_numpy(tok)),
-           RM.forward(rparams, rcfg, jnp.asarray(tok))[0])
+    logits, aux = M.forward(params, cfg, torch.from_numpy(tok))
+    _close(logits, RM.forward(rparams, rcfg, jnp.asarray(tok))[0])
+    assert float(aux) == 0.0
     pos = np.array([8, 5], np.int32)
     for step in range(3):
         nt = rng.integers(0, cfg.vocab, size=(2, 1)).astype(np.int32)
@@ -260,3 +264,93 @@ def test_paged_decode_is_bitwise_the_contiguous_decode_in_bf16():
                              block_tables=table, page_size=ps)
         assert a.dtype == torch.bfloat16 and torch.equal(a, c)
         pos = pos + 1
+
+
+MOE_ARCHS = ("granite_moe_1b", "deepseek_moe_16b")
+
+
+@pytest.fixture(scope="module", params=MOE_ARCHS)
+def moe_model(request):
+    rcfg = dataclasses.replace(ref_smoke(request.param), dtype=jnp.float32)
+    cfg = dataclasses.replace(load_smoke_config(request.param),
+                              dtype=torch.float32)
+    rparams = RM.init_params(jax.random.PRNGKey(2), rcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, rparams), cfg,
+                             device="cpu")
+    return rcfg, rparams, cfg, params
+
+
+def test_moe_params_from_jax_keep_every_leaf(moe_model):
+    rcfg, rparams, cfg, params = moe_model
+    assert M.param_count(params) == RM.param_count(rparams)
+    n_moe = cfg.n_layers - int(cfg.first_layer_dense)
+    assert len(params["layers"]) == n_moe
+    assert ("layer0" in params) == cfg.first_layer_dense
+    assert params["layers"][0]["moe"]["w_gate"].shape == (
+        cfg.n_experts, cfg.d_model, cfg.d_ff)
+    fresh = M.init_params(torch.Generator().manual_seed(0),
+                          load_smoke_config(cfg.name.removesuffix("_smoke")),
+                          "cpu")
+    assert M.param_count(fresh) == M.param_count(params)
+
+
+def test_moe_forward_prefill_and_decode_match_reference(moe_model):
+    rcfg, rparams, cfg, params = moe_model
+    rng = np.random.default_rng(6)
+    tok = rng.integers(0, cfg.vocab, size=(2, 8)).astype(np.int32)
+    gl, gaux = M.forward(params, cfg, torch.from_numpy(tok))
+    wl, waux = RM.forward(rparams, rcfg, jnp.asarray(tok))
+    _close(gl, wl)
+    np.testing.assert_allclose(float(gaux), float(waux), **TOL)
+    assert float(gaux) > 0.0
+    wl, wc, _ = RM.prefill(rparams, rcfg, jnp.asarray(tok), cache_len=16)
+    gl, gc, _ = M.prefill(params, cfg, torch.from_numpy(tok), cache_len=16)
+    _close(gl, wl)
+    # the paged pool holds the same prefix: 2 lanes x 4 pages of 4 tokens
+    ps, T = 4, 4
+    table = np.arange(2 * T, dtype=np.int32).reshape(2, T)[:, ::-1].copy()
+    pool = M.zero_paged_caches(cfg, num_pages=2 * T, page_size=ps,
+                               device="cpu")
+    for name in ("k", "v"):
+        rows = gc["kv"][name].reshape(cfg.n_layers, 2, T, ps,
+                                      cfg.n_kv_heads, cfg.head_dim)
+        pool["kv"][name][:, torch.from_numpy(table).long()] = rows
+    pos = np.array([8, 5], np.int32)
+    for _ in range(3):
+        nt = rng.integers(0, cfg.vocab, size=(2, 1)).astype(np.int32)
+        wl, wc = RM.decode_step(rparams, rcfg, jnp.asarray(nt), wc,
+                                jnp.asarray(pos))
+        gl, gc = M.decode_step(params, cfg, torch.from_numpy(nt), gc,
+                               torch.from_numpy(pos))
+        pl, pool = M.decode_step(params, cfg, torch.from_numpy(nt), pool,
+                                 torch.from_numpy(pos),
+                                 block_tables=torch.from_numpy(table),
+                                 page_size=ps)
+        _close(gl, wl)
+        _close(pl, wl)
+        pos = pos + 1
+    _close(gc["kv"]["v"], wc["kv"]["v"])
+
+
+def test_moe_slot_and_paged_prefill_match_reference(moe_model):
+    rcfg, rparams, cfg, params = moe_model
+    tok = np.random.default_rng(7).integers(
+        0, cfg.vocab, size=(1, 8)).astype(np.int32)
+    caches = M.zero_caches(cfg, batch=2, cache_len=16, device="cpu")
+    rc = RM.zero_caches(rcfg, batch=2, cache_len=16)
+    gl, gc = M.slot_prefill(params, cfg, torch.from_numpy(tok), caches, 1,
+                            cache_len=16)
+    wl, wc = RM.slot_prefill(rparams, rcfg, jnp.asarray(tok), rc, 1,
+                             cache_len=16)
+    _close(gl, wl)
+    _close(gc["kv"]["k"], wc["kv"]["k"])
+    pages = np.array([2, 5], np.int32)            # 5 = P: the sentinel
+    pool = M.zero_paged_caches(cfg, num_pages=5, page_size=4, device="cpu")
+    rpool = RM.zero_paged_caches(rcfg, num_pages=5, page_size=4)
+    gl, gp = M.paged_prefill(params, cfg, torch.from_numpy(tok), pool,
+                             torch.from_numpy(pages), cache_len=16,
+                             page_size=4)
+    wl, wp = RM.paged_prefill(rparams, rcfg, jnp.asarray(tok), rpool,
+                              jnp.asarray(pages), cache_len=16, page_size=4)
+    _close(gl, wl)
+    _close(gp["kv"]["k"], wp["kv"]["k"])

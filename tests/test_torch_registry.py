@@ -182,6 +182,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
         import benchmarks_torch.streaming_breakdown
         import benchmarks_torch.streaming_inputs
         import repro_torch.launch.serve, repro_torch.configs
+        import repro_torch.kernels.attention_kernel, repro_torch.models.moe
+        import benchmarks_torch.serving
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
