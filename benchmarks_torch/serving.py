@@ -15,13 +15,12 @@ attention products both land in "matmuls" there), and CUDA-event times of
 the step's parts run alone at its shapes (the weight products, the
 attention core, the page gathers, the sampler; for the MoE model also the
 routing, the expert GEMMs and the combine of every layer), and the host
-cost of one page-gather call split into its parts. ``chip_smoke.py``
+cost of one page-gather call. ``chip_smoke.py``
 phases 7 and 9 drive the same workloads from here. Needs a card.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import dataclasses
 import json
 import time
@@ -34,7 +33,6 @@ from benchmarks_torch.call_overhead import per_call_us
 from repro_torch import core as ak
 from repro_torch.configs import load_config
 from repro_torch.core import registry
-from repro_torch.kernels import _build
 from repro_torch.kernels import page_kernel as PK
 from repro_torch.launch import serve
 from repro_torch.launch.engine import Engine, Request
@@ -190,7 +188,7 @@ def parts(w: Workload, inputs) -> dict:
     included), and each part's device ms (its kernels' time in a
     profiler trace), at the step's shapes: every weight product of the layers and the head (the
     dense FFN's included; the experts' are their own part), the attention
-    core of every layer, the 2 x n_layers page gathers, the sampler; for
+    core of every layer, the n_layers K/V page gathers, the sampler; for
     the MoE model also every layer's routing (router, top-k, sortperm,
     counts, offsets), expert GEMMs and combine (``segmented_reduce``) on
     one step's 8 x top_k routed rows."""
@@ -222,9 +220,9 @@ def parts(w: Workload, inputs) -> dict:
             L.blockwise_attention(q, k, v, causal=True, q_offset=pos)
 
     def gathers():
+        kv = caches["kv"]
         for i in range(cfg.n_layers):
-            for c in caches["kv"].values():
-                registry.call("page_gather", c[i], table)
+            registry.call("page_gather", (kv["k"][i], kv["v"][i]), table)
 
     logits = torch.randn(SLOTS, cfg.padded_vocab(16), device=dev)
 
@@ -279,35 +277,20 @@ def moe_parts(w: Workload, xf) -> dict:
 
 
 def gather_host_us(w: Workload, inputs, calls: int = 2000) -> dict:
-    """Host-clock microseconds per page-gather call on one layer's pool
-    and the decode step's table, split into its parts (median of 5 runs of
-    ``calls`` back-to-back calls, one synchronise each): the registry call
-    the model makes, the wrapper alone, the bare ctypes launch on a
-    preallocated output, the output's ``torch.empty``, the library lookup
-    and stream handle the wrapper takes each call, and ``pool[table]``.
-    The card's work is ~5 us a call, so a part that costs less on the
-    host reads as the device time."""
+    """Host-clock microseconds per page-gather call on one layer's K/V
+    pools and the decode step's table (median of 5 runs of ``calls``
+    back-to-back calls, one synchronise each): the registry call the model
+    makes, the wrapper alone, and ``pool[table]`` for K and for V. The
+    card's work is a few microseconds a call, so a call that costs less on
+    the host reads as the device time. ``launch_path.py`` splits a call
+    into its parts."""
     caches, table = inputs[0], inputs[1]
-    pool = caches["kv"]["k"][0]
+    kv = (caches["kv"]["k"][0], caches["kv"]["v"][0])
     tl = table.long()
-    B, T = table.shape
-    shape = (B, T * pool.shape[1], *pool.shape[2:])
-    out = torch.empty(shape, dtype=pool.dtype, device=pool.device)
-    lib = _build.library("page", PK._SIGNATURES)
-    stream = _build.stream_handle(pool.device)
-    args = (ctypes.c_void_p(pool.data_ptr()),
-            ctypes.c_void_p(table.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), pool.shape[0], B * T,
-            pool[0].numel() * pool.element_size(), stream)
     parts = {
-        "registry_call": lambda: registry.call("page_gather", pool, table),
-        "wrapper": lambda: PK.page_gather_blocks(pool, table),
-        "ctypes_launch": lambda: lib.ak_page_gather(*args),
-        "torch_empty": lambda: torch.empty(shape, dtype=pool.dtype,
-                                           device=pool.device),
-        "library_lookup": lambda: _build.library("page", PK._SIGNATURES),
-        "stream_handle": lambda: _build.stream_handle(pool.device),
-        "pool[table]": lambda: pool[tl],
+        "registry_call": lambda: registry.call("page_gather", kv, table),
+        "wrapper": lambda: PK.page_gather_blocks(kv, table),
+        "pool[table] x 2": lambda: (kv[0][tl], kv[1][tl]),
     }
     return {k: per_call_us(fn, calls) for k, fn in parts.items()}
 

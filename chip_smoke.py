@@ -12,7 +12,8 @@ on full-width internlm2-1.8B. Phases:
   1. environment: card name and power limit, torch / CUDA / nvcc
      versions, kernel build time;
   2. every kernel held bitwise against its plain PyTorch version on the
-     card (sort network, k-way merge, histogram, search);
+     card (sort network, k-way merge, histogram, search: a warp per query
+     below ``THREAD_QUERIES_FROM`` queries, a thread per query from it);
   3. ``merge_sort`` and ``sortperm`` of 2^28 float32 keys, checked against
      ``torch.sort(stable=True)``, launches against the closed form;
   4. SIHSort, 4 ranks x 2^26 keys + payload: the sorted concatenation,
@@ -46,8 +47,9 @@ on full-width internlm2-1.8B. Phases:
      full width (random bf16 weights from the seed), ``Engine(paged=True)``
      with 8 slots serving 16 requests of 256 prompt tokens and 64 new
      tokens (top-k 16, top-p 0.95) through the user entry points; launches
-     of the page gather, the nucleus mask and the batched network against
-     their closed forms per decode step and sampler call,
+     of the page gather (one a layer and decode step: K and V together),
+     the nucleus mask and the batched network against their closed forms
+     per decode step and sampler call,
      ``portable_calls == 0`` on the sampler and ``page_gather``; greedy
      paged and contiguous runs of the same requests emit the same tokens;
      the kernels against their plain versions on the inputs that run gave
@@ -284,14 +286,16 @@ def phase_parity(SK, MK, HK, SE) -> Errors:
             hay = torch.sort(torch.cat([keys_on(gen, n, dtype,
                                                 "duplicates"),
                                         top.repeat(7)])).values
-            idx = torch.randint(0, hay.numel(), (300,), generator=gen,
-                                device="cuda")
-            q = torch.cat([hay[idx], keys_on(gen, 300, dtype), top])
-            for side in ("left", "right"):
-                errs.same(["searchsorted"],
-                          [SE.searchsorted_blocks(hay, q, side=side)],
-                          [SE.searchsorted_plain(hay, q, side=side)],
-                          f"search {dtype} n={n} {side}")
+            # 601 queries: a warp each; 4x as many: a thread each
+            for nq in (300, 4 * SE.THREAD_QUERIES_FROM):
+                idx = torch.randint(0, hay.numel(), (nq,), generator=gen,
+                                    device="cuda")
+                q = torch.cat([hay[idx], keys_on(gen, nq, dtype), top])
+                for side in ("left", "right"):
+                    errs.same(["searchsorted"],
+                              [SE.searchsorted_blocks(hay, q, side=side)],
+                              [SE.searchsorted_plain(hay, q, side=side)],
+                              f"search {dtype} n={n} nq={q.numel()} {side}")
     torch.cuda.synchronize()
     return errs
 
@@ -331,11 +335,17 @@ def phase_main_parity(SK, MK, HK, SE, errs, x, gx, gp, cap, shard, lo, hi,
               HK.minmax_histogram_blocks(shard, 256, lo, hi),
               HK.minmax_histogram_plain(shard, 256, lo, hi),
               "histogram of a 2^26-key shard")
-    for side in ("left", "right"):
-        errs.same(["searchsorted"],
-                  [SE.searchsorted_blocks(shard, q, side=side)],
-                  [SE.searchsorted_plain(shard, q, side=side)],
-                  f"search of a 2^26-key shard, {side}")
+    # SIHSort's 3 splitters (a warp each), and as many splitters as take
+    # the thread-per-query kernel
+    many = shard[torch.arange(SE.THREAD_QUERIES_FROM, device="cuda")
+                 * (RANK_N // SE.THREAD_QUERIES_FROM)]
+    for qs in (q, many):
+        for side in ("left", "right"):
+            errs.same(["searchsorted"],
+                      [SE.searchsorted_blocks(shard, qs, side=side)],
+                      [SE.searchsorted_plain(shard, qs, side=side)],
+                      f"search of {qs.numel()} keys into a 2^26-key "
+                      f"shard, {side}")
     torch.cuda.synchronize()
 
 
@@ -724,7 +734,9 @@ def phase_serving(registry, C, errs, seed: int) -> dict:
                 sizes[name].append(a[0].numel())
             if name not in captured and (name in sizes
                                          or a[-1].shape[0] == SV.SLOTS):
-                captured[name] = ([x.clone() for x in a], dict(kw))
+                captured[name] = ([tuple(y.clone() for y in x)
+                                   if isinstance(x, tuple) else x.clone()
+                                   for x in a], dict(kw))
             return impl(*a, **kw)
         return call
 
@@ -753,7 +765,7 @@ def phase_serving(registry, C, errs, seed: int) -> dict:
           "a sampled token outside the vocabulary")
     samples = st.steps + st.prefills     # one sampler call per each
     want = {
-        "page_gather": st.steps * 2 * cfg.n_layers,
+        "page_gather": st.steps * cfg.n_layers,   # K and V in one launch
         "nucleus_mask": samples,
     }
     for name, n in want.items():
@@ -811,10 +823,16 @@ def phase_serving(registry, C, errs, seed: int) -> dict:
     errs.same(["searchsorted"], [SE.searchsorted_blocks(hay, qs, side=side)],
               [SE.searchsorted_plain(hay, qs, side=side)],
               "searchsortedfirst on the allocator's running free count")
-    (pool, table), _ = captured["page_gather"]
-    errs.same(["page_gather"], [PK.page_gather_blocks(pool, table)],
-              [PK.page_gather_ref(pool, table)],
-              "page_gather on a decode step's layer pool and table")
+    (pools, table), _ = captured["page_gather"]
+    check(isinstance(pools, tuple) and len(pools) == 2,
+          "the model's page gather did not take the K/V pair")
+    errs.same(["page_gather"], PK.page_gather_blocks(pools, table),
+              PK.page_gather_ref(pools, table),
+              "page_gather of a decode step's K/V pools and table")
+    for pool in pools:
+        errs.same(["page_gather"], [PK.page_gather_blocks(pool, table)],
+                  [PK.page_gather_ref(pool, table)],
+                  "page_gather of one decode-step pool")
     (lg,), kw = captured["nucleus_mask"]
     top_p = kw["top_p"]
     neg, perm = NK.sorted_rows(lg, cuda=True)
@@ -865,16 +883,18 @@ def phase_serving(registry, C, errs, seed: int) -> dict:
     # -- timings at the path's shapes
     R = lg.shape[0]
     B, T = table.shape
-    page_bytes = pool[0].numel() * pool.element_size()
+    page_bytes = pools[0][0].numel() * pools[0].element_size()
     tl = table.long()
     rows = {}
-    b, by = bound(2 * B * T * page_bytes + table.numel() * 4, 0)
+    # the model's call: K and V through one table (read and write each)
+    b, by = bound(2 * 2 * B * T * page_bytes + table.numel() * 4, 0)
     rows["page_gather"] = {
-        "ms": cuda_ms(lambda: PK.page_gather_blocks(pool, table), reps=20),
-        "plain_ms": cuda_ms(lambda: PK.page_gather_ref(pool, table),
+        "ms": cuda_ms(lambda: PK.page_gather_blocks(pools, table), reps=20),
+        "plain_ms": cuda_ms(lambda: PK.page_gather_ref(pools, table),
                             reps=20),
-        "library_ms": cuda_ms(lambda: pool[tl], reps=20),
-        "library": "pool[table] (advanced indexing)",
+        "library_ms": cuda_ms(lambda: (pools[0][tl], pools[1][tl]),
+                              reps=20),
+        "library": "pool[table] for K and for V (advanced indexing)",
         "bound_ms": b, "bound_by": by}
     # the mask kernel reads each valid lane's key and rank and writes its
     # mask byte: 9 bytes per valid lane; 2 exp, a divide, a compare each
@@ -912,7 +932,7 @@ def phase_serving(registry, C, errs, seed: int) -> dict:
     out["decode_step"] = SV.breakdown(w, seed=seed)
     log("serve: one paged decode step + sampler, device ms by category: "
         + json.dumps(out["decode_step"]))
-    del w, pool, table, lg, lk, neg, perm, pneg, pperm
+    del w, pools, pool, table, lg, lk, neg, perm, pneg, pperm
     torch.cuda.empty_cache()
     return out
 
@@ -1118,7 +1138,7 @@ def phase_moe_serving(registry, C, errs, seed: int) -> dict:
     layer_calls = samples * cfg.n_layers          # MoE FFN calls
     routed = SV.PROMPT_LEN * cfg.top_k            # prefill sortperm keys
     want = {
-        ("kernel", "page_gather"): st.steps * 2 * cfg.n_layers,
+        ("kernel", "page_gather"): st.steps * cfg.n_layers,
         ("kernel", "nucleus_mask"): samples,
         ("primitive", "topk"): samples * SK.cross_launches(V),
         ("primitive", "nucleus_mask"): samples * NK.nucleus_launches(V),

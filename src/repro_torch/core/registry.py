@@ -159,11 +159,14 @@ class TuningTable:
         """The knobs in force for ``name``."""
         self._check_name(name)
         out = dict(self._defaults[name])
-        for mapping in self._preset_stack():
-            out.update(mapping.get(name, {}))
-        out.update(self._global.get(name, {}))
-        for layer in self._stack():
-            out.update(layer.get(name, {}))
+        for mapping in getattr(self._tls, "presets", ()):
+            if name in mapping:
+                out.update(mapping[name])
+        if name in self._global:
+            out.update(self._global[name])
+        for layer in getattr(self._tls, "stack", ()):
+            if name in layer:
+                out.update(layer[name])
         return out
 
     def set(self, name: str, **kv) -> None:
@@ -298,6 +301,10 @@ class Primitive:
         with self._lock:
             self.stats.calls += 1
         x = operands[0] if operands else None
+        if isinstance(x, tuple) and x:
+            # operands of one geometry taken together (page_gather's K/V
+            # pools): the first decides the backend for all
+            x = x[0]
         n = x.numel() if isinstance(x, torch.Tensor) else 0
         if n and self.switch_measure == "last_axis" and x.dim():
             # batched primitives: switch_below compares the row length
@@ -320,16 +327,19 @@ class Primitive:
         with self._lock:
             self._backends.add(resolved)
 
-        cm = (telemetry.span("ak." + self.name, cat="primitive",
-                             backend=resolved, n=int(n))
-              if telemetry.enabled() else telemetry.span(""))
-        scope = dict(block_rows=tune["block_rows"],
-                     block_cols=tune["block_cols"],
-                     sort_hyper=tune["sort_hyper"]) if resolved == "cuda" \
-            else {}
+        span = (telemetry.span("ak." + self.name, cat="primitive",
+                               backend=resolved, n=int(n))
+                if telemetry.enabled() else telemetry.span(""))
+        impl = self._impl(resolved)
         loads = _build.loads()
-        with cm, KC.launch_attribution(self.name), KC.tuning_scope(**scope):
-            out = self._impl(resolved)(*operands, **opts)
+        with span, KC.launch_attribution(self.name):
+            if resolved == "cuda":   # the kernels' block knobs
+                with KC.tuning_scope(block_rows=tune["block_rows"],
+                                     block_cols=tune["block_cols"],
+                                     sort_hyper=tune["sort_hyper"]):
+                    out = impl(*operands, **opts)
+            else:                    # the portable path reads none
+                out = impl(*operands, **opts)
         if _build.loads() == loads:
             with self._lock:
                 self.stats.cache_hits += 1

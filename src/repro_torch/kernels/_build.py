@@ -120,8 +120,13 @@ def loads() -> int:
 def library(stem: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library of ``csrc/<stem>.cu`` (built on first use), with
     ``argtypes`` set from ``signatures`` = {function: [ctypes types]}.
-    Every entry point returns ``cudaGetLastError()`` as an int."""
+    Every entry point returns ``cudaGetLastError()`` as an int. Once a
+    library is loaded this is one dictionary read: the lock guards only
+    the first load."""
     global _loads
+    lib = _libs.get(stem)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(stem)
         if lib is None:
@@ -170,5 +175,12 @@ def as_double(value, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype).to(torch.float64))
 
 
-def stream_handle(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream_handle(device: torch.device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``,
+    as an int for a ``c_void_p`` argument. Read straight from PyTorch's
+    stream registry, as Triton's launcher does, without building a
+    ``torch.cuda.Stream`` object each call."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

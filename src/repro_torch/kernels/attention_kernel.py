@@ -89,8 +89,7 @@ def _launch(q, k, v, out, B, H, KV, Sq, Sk, hd, strides, causal):
             raise ValueError("flash attention needs the head dim contiguous")
     lib = _build.library("attention", _SIGNATURES)
     err = lib.ak_flash_attention(
-        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _build.dtype_code(q.dtype, "flash attention"), B, H, KV, Sq, Sk, hd,
         *strides, 1.0 / math.sqrt(hd), int(bool(causal)),
         _build.stream_handle(q.device))

@@ -23,7 +23,6 @@ span on the calling thread.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import operator
 import threading
@@ -63,24 +62,38 @@ def sort_hyper() -> int | None:
     return getattr(_tuning, "sort_hyper", None)
 
 
-@contextlib.contextmanager
+class _TuningScope:
+    """The context of :func:`tuning_scope` (a class: the registry enters
+    one around every kernel call, and a generator-based context costs
+    several times as much)."""
+
+    __slots__ = ("new", "prev")
+
+    def __init__(self, block_rows, block_cols, sort_hyper):
+        self.new = (block_rows, block_cols, sort_hyper)
+
+    def __enter__(self):
+        self.prev = (
+            getattr(_tuning, "block_rows", None),
+            getattr(_tuning, "block_cols", None),
+            getattr(_tuning, "sort_hyper", None),
+        )
+        rows, cols, hyper = self.new
+        if rows is not None:
+            _tuning.block_rows = rows
+        if cols is not None:
+            _tuning.block_cols = cols
+        if hyper is not None:
+            _tuning.sort_hyper = hyper
+
+    def __exit__(self, *exc):
+        _tuning.block_rows, _tuning.block_cols, _tuning.sort_hyper = \
+            self.prev
+
+
 def tuning_scope(*, block_rows=None, block_cols=None, sort_hyper=None):
     """Scoped kernel-tuning overrides; ``None`` keeps the current value."""
-    prev = (
-        getattr(_tuning, "block_rows", None),
-        getattr(_tuning, "block_cols", None),
-        getattr(_tuning, "sort_hyper", None),
-    )
-    if block_rows is not None:
-        _tuning.block_rows = block_rows
-    if block_cols is not None:
-        _tuning.block_cols = block_cols
-    if sort_hyper is not None:
-        _tuning.sort_hyper = sort_hyper
-    try:
-        yield
-    finally:
-        _tuning.block_rows, _tuning.block_cols, _tuning.sort_hyper = prev
+    return _TuningScope(block_rows, block_cols, sort_hyper)
 
 
 # --------------------------------------------------------------------------
@@ -119,16 +132,27 @@ def reset_launch_count() -> None:
         _launch_by_kernel.clear()
 
 
-@contextlib.contextmanager
+class _LabelScope:
+    """The context of :func:`launch_attribution` (a class, for the same
+    reason as :class:`_TuningScope`)."""
+
+    __slots__ = ("label", "prev")
+
+    def __init__(self, label: str):
+        self.label = label
+
+    def __enter__(self):
+        self.prev = getattr(_launch_label, "value", None)
+        _launch_label.value = self.label
+
+    def __exit__(self, *exc):
+        _launch_label.value = self.prev
+
+
 def launch_attribution(label: str):
     """Attribute every launch in this thread-local scope to ``label``.
     Nestable: the innermost label wins."""
-    prev = getattr(_launch_label, "value", None)
-    _launch_label.value = label
-    try:
-        yield
-    finally:
-        _launch_label.value = prev
+    return _LabelScope(label)
 
 
 def count_launch(kernel: str) -> None:
@@ -255,11 +279,15 @@ def as_blocks(x: torch.Tensor, fill) -> tuple[torch.Tensor, int]:
 def require_cuda_or_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on one CUDA device, False when all lie
     on the CPU; raises on a mix or any other device."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return True
+    device = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != device:
+            break
+    else:
+        if device.type == "cuda":
+            return True
+        if device.type == "cpu":
+            return False
     raise ValueError(
         f"operands must all lie on the CPU or on one CUDA device, got "
         f"{sorted(str(t.device) for t in tensors)}"

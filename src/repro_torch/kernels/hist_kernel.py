@@ -67,11 +67,10 @@ def minmax_histogram_blocks(x: torch.Tensor, nbins: int, lo, hi):
     partials = torch.empty(2 * grid, dtype=bits, device=x.device)
     out = torch.empty(2, dtype=x.dtype, device=x.device)
     err = lib.ak_minmax_histogram(
-        ctypes.c_void_p(flat.data_ptr()), code, n, nbins, _as_f32(lo),
-        _as_f32(hi), ctypes.c_void_p(hist_ticket.data_ptr()),
-        ctypes.c_void_p(hist_ticket[nbins:].data_ptr()),
-        ctypes.c_void_p(partials.data_ptr()), grid,
-        ctypes.c_void_p(out.data_ptr()), _build.stream_handle(x.device),
+        flat.data_ptr(), code, n, nbins, _as_f32(lo), _as_f32(hi),
+        hist_ticket.data_ptr(), hist_ticket[nbins:].data_ptr(),
+        partials.data_ptr(), grid, out.data_ptr(),
+        _build.stream_handle(x.device),
     )
     _build.check(lib, err, "min/max histogram kernel")
     C.count_launch("minmax_histogram")

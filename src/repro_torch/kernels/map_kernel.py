@@ -145,8 +145,8 @@ def flat_operands(arrays) -> list[torch.Tensor]:
     return [a.reshape(-1).contiguous() for a in arrays]
 
 
-def operand_pointers(flat) -> list[ctypes.c_void_p]:
-    ptrs = [ctypes.c_void_p(a.data_ptr()) for a in flat]
+def operand_pointers(flat) -> list[int | None]:
+    ptrs = [a.data_ptr() for a in flat]
     return ptrs + [None] * (MAX_OPERANDS - len(ptrs))
 
 
@@ -172,7 +172,7 @@ def map_blocks(f: Body, *arrays: torch.Tensor, out_dtype=None
         *operand_pointers(flat), f.code,
         _build.dtype_code(arrays[0].dtype, "map"),
         _build.dtype_code(out_dtype, "map"), n, *f.kernel_params(), grid,
-        ctypes.c_void_p(out.data_ptr()), _build.stream_handle(out.device),
+        out.data_ptr(), _build.stream_handle(out.device),
     )
     _build.check(lib, err, "map kernel")
     C.count_launch("map")

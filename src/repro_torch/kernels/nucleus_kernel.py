@@ -91,8 +91,8 @@ def mask_kernel(neg, perm, *, n: int, top_p: float,
     keep = torch.empty((rows, n), dtype=torch.bool, device=neg.device)
     lib = _build.library("nucleus", _SIGNATURES)
     err = lib.ak_nucleus_mask(
-        ctypes.c_void_p(neg.data_ptr()), ctypes.c_void_p(perm.data_ptr()),
-        ctypes.c_void_p(keep.data_ptr()), rows, n, row, float(top_p),
+        neg.data_ptr(), perm.data_ptr(), keep.data_ptr(), rows, n, row,
+        float(top_p),
         _build.stream_handle(neg.device),
     )
     _build.check(lib, err, "nucleus mask kernel")

@@ -82,7 +82,7 @@ def reduce_blocks(f, op, *arrays: torch.Tensor, unit, out_dtype=None
     lib = _build.library("reduce", _SIGNATURES)
     grid = max(1, min(C.ceil_div(n, lib.ak_reduce_cta_elems()), _MAX_GRID))
     stream = _build.stream_handle(device)
-    key = (device.index, stream.value)
+    key = (device.index, stream)
     scratch = _SCRATCH.get(key)
     if scratch is None:
         scratch = _SCRATCH[key] = torch.zeros(
@@ -96,9 +96,8 @@ def reduce_blocks(f, op, *arrays: torch.Tensor, unit, out_dtype=None
         cat.code, n, *f.kernel_params(),
         _build.as_double(cat.identity(acc), acc),
         _build.as_double(unit, out_dtype),
-        ctypes.c_void_p(scratch.data_ptr() + 4),  # the partials
-        ctypes.c_void_p(scratch.data_ptr()), grid,
-        ctypes.c_void_p(out.data_ptr()), stream,
+        scratch.data_ptr() + 4,  # the partials
+        scratch.data_ptr(), grid, out.data_ptr(), stream,
     )
     _build.check(lib, err, "reduce kernel")
     C.count_launch("reduce")

@@ -57,7 +57,7 @@ def refusal(op, x) -> str | None:
 
 
 def _ptr(t):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+    return None if t is None else t.data_ptr()
 
 
 def scan_passes(op, x: torch.Tensor, flags, *, unit, mode: int,

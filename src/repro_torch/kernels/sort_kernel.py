@@ -120,7 +120,7 @@ def _cx_plain(keys, vals, k: int, j: int, tie_break: bool, row: int):
 # --------------------------------------------------------------------------
 
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr()) if t is not None else None
+    return t.data_ptr() if t is not None else None
 
 
 def _codes(keys, vals) -> tuple[int, int]:

@@ -204,8 +204,9 @@ def attention_apply(p, cfg, x, *, positions, causal=True, cache=None,
             valid = (cols < T * ps) & (phys < P)
             offs = cols % ps
             _write_kv(cache, phys, offs, valid, k, v)
-            k = _registry.call("page_gather", cache["k"], block_table)
-            v = _registry.call("page_gather", cache["v"], block_table)
+            # K and V share the table: one gather (one launch) for both
+            k, v = _registry.call("page_gather", (cache["k"], cache["v"]),
+                                  block_table)
         elif ci.dim() == 1:
             S = cache["k"].shape[1]
             rows = torch.arange(B, device=dev)[:, None].expand(B, Sq)

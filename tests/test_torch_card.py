@@ -2,8 +2,8 @@
 card: the sort path's (bitonic network, merge, histogram, search), the
 streaming path's (map, reduce, scan, segmented scan, segmented sort),
 the serving path's (the batched network, the nucleus mask, the page
-gather), the flash attention kernel, and the MoE FFN's grouped expert
-product against its per-expert loop.
+gather of one pool and of a K/V pair), the flash attention kernel, and
+the MoE FFN's grouped expert product against its per-expert loop.
 Every test here is marked ``cuda`` and skips without a CUDA device; on
 the GPU machine run ``PYTHONPATH=src:. python -m pytest -m cuda
 tests/test_torch_card.py``. This file imports neither jax nor the JAX
@@ -410,6 +410,77 @@ def test_page_gather_kernel_bitwise_vs_plain(gen, dtype, tail):
     got = PK.page_gather_blocks(pages, bad)
     assert not bool(got[0, :ps].ne(0).any())
     assert torch.equal(got[:, ps:], PK.page_gather_ref(pages, table)[:, ps:])
+
+
+# haystack sizes at the 32-ary search's round edges (33^r +- 1), and 2^26
+KARY_N = (0, 1, 2, 31, 32, 33, 34, 1088, 1089, 1090, 33 ** 3 - 1,
+          33 ** 3 + 1, 1 << 26)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nq", (1, 3, 300, 5000))
+def test_kary_search_bitwise_vs_torch_searchsorted(gen, dtype, nq):
+    """Both search kernels (a warp per query, 32-ary; a thread per query)
+    and the wrapper's pick between them, against ``torch.searchsorted``,
+    on haystacks with duplicates and type-max keys, both sides; one launch
+    a call."""
+    top = torch.tensor([math.inf if dtype.is_floating_point
+                        else 2**31 - 1], device="cuda").to(dtype)
+    for n in KARY_N:
+        hay = _keys(gen, n, dtype, hi=None if n > 5000 else 5)
+        if n > 3:
+            hay[-3:] = top
+        hay = torch.sort(hay).values
+        idx = torch.randint(0, max(n, 1), (nq,), generator=gen,
+                            device="cuda")
+        q = (hay[idx] if n else _keys(gen, nq, dtype)).clone()
+        q[nq // 2:] = _keys(gen, nq - nq // 2, dtype)
+        q[-1:] = top
+        for side in ("left", "right"):
+            want = torch.searchsorted(hay, q, right=side == "right").to(
+                torch.int32)
+            C.reset_launch_count()
+            got = SE.searchsorted_blocks(hay, q, side=side)
+            torch.cuda.synchronize()
+            assert C.kernel_launches() == {"searchsorted": 1}
+            assert torch.equal(got, want), (n, side)
+            for warp in (True, False):
+                out = torch.empty_like(want)
+                SE._launch(hay, q, out, side == "right", warp)
+                assert torch.equal(out, want), (n, side, warp)
+
+
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32,
+                                   torch.int32))
+@pytest.mark.parametrize("tail", [(8, 128), (3,), ()])
+def test_page_gather_pair_kernel_bitwise_vs_plain(gen, dtype, tail):
+    """A K/V pair through one table in one launch: each equal to its plain
+    gather, and zeros where the table entry lies outside the pool."""
+    P, ps, B, T = 37, 8, 5, 11
+    k, v = (_keys(gen, P * ps * math.prod(tail), dtype).view(P, ps, *tail)
+            for _ in range(2))
+    table = torch.randint(0, P, (B, T), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    C.reset_launch_count()
+    got = PK.page_gather_blocks((k, v), table)
+    torch.cuda.synchronize()
+    assert C.kernel_launches() == {"page_gather": 1}
+    want = PK.page_gather_ref((k, v), table)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, PK.page_gather_ref(p, table))
+               for g, p in zip(got, (k, v)))
+    bad = table.clone()
+    bad[0, 0], bad[-1, -1] = P, -1
+    C.reset_launch_count()
+    got = PK.page_gather_blocks((k, v), bad)
+    torch.cuda.synchronize()
+    assert C.kernel_launches() == {"page_gather": 1}
+    for g, w in zip(got, want):
+        assert not bool(g[0, :ps].ne(0).any())
+        assert not bool(g[-1, -ps:].ne(0).any())
+        assert torch.equal(g[1:-1], w[1:-1])
+        assert torch.equal(g[0, ps:], w[0, ps:])
+        assert torch.equal(g[-1, :-ps], w[-1, :-ps])
 
 
 def _bf16_ulp(x):

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from repro.configs import load_smoke_config as ref_smoke
-from repro.launch.engine import Engine as REngine
+from repro.launch import engine as reference_engine
 from repro.launch.engine import Request as RRequest
 from repro.models import model as RM
 from repro_torch.configs import load_smoke_config
@@ -47,17 +47,41 @@ def _requests(prompts, cls):
             for i, (p, m) in enumerate(zip(prompts, MAX_NEW))]
 
 
+class _CopyingJnp:
+    """``jax.numpy`` with ``asarray`` taking a private copy of a numpy
+    array. The reference engine hands ``jnp.asarray(pos)`` to a decode
+    step and then advances ``pos`` in place. On the CPU the decode is
+    dispatched asynchronously and the host-to-device copy may run after
+    that advance, so a loaded machine changes the reference's tokens. A
+    copy per transfer leaves the engine's semantics as written."""
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    @staticmethod
+    def asarray(x, *args, **kwargs):
+        if isinstance(x, np.ndarray):
+            x = x.copy()
+        return jnp.asarray(x, *args, **kwargs)
+
+
+def _reference_tokens(rparams, rcfg, prompts, **kw):
+    """Greedy tokens of the reference ``Engine(overlap=False)``, by rid."""
+    eng = reference_engine.Engine(rparams, rcfg, slots=2,
+                                  cache_len=CACHE_LEN,
+                                  prompt_pad=PROMPT_PAD, temperature=0.0,
+                                  overlap=False, page_size=4, **kw)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(reference_engine, "jnp", _CopyingJnp())
+        res, _ = eng.run(_requests(prompts, RRequest))
+    return {r: v.tokens for r, v in res.items()}
+
+
 @pytest.fixture(scope="module")
 def reference_greedy(setup):
     rcfg, rparams, _, _, prompts = setup
-    out = {}
-    for paged in (False, True):
-        eng = REngine(rparams, rcfg, slots=2, cache_len=CACHE_LEN,
-                      prompt_pad=PROMPT_PAD, temperature=0.0,
-                      overlap=False, paged=paged, page_size=4)
-        res, _ = eng.run(_requests(prompts, RRequest))
-        out[paged] = {r: v.tokens for r, v in res.items()}
-    return out
+    return {paged: _reference_tokens(rparams, rcfg, prompts, paged=paged)
+            for paged in (False, True)}
 
 
 @pytest.mark.parametrize("paged", [False, True])
@@ -175,11 +199,7 @@ def _sequential_greedy(params, cfg, prompt, max_new):
 def test_moe_greedy_tokens_equal_reference_engine_and_sequential(moe_setup,
                                                                  paged):
     rcfg, rparams, cfg, params, prompts = moe_setup
-    eng = REngine(rparams, rcfg, slots=2, cache_len=CACHE_LEN,
-                  prompt_pad=PROMPT_PAD, temperature=0.0, overlap=False,
-                  paged=paged, page_size=4)
-    res, _ = eng.run(_requests(prompts, RRequest))
-    want = {r: v.tokens for r, v in res.items()}
+    want = _reference_tokens(rparams, rcfg, prompts, paged=paged)
     eng = Engine(params, cfg, slots=2, cache_len=CACHE_LEN,
                  prompt_pad=PROMPT_PAD, temperature=0.0, paged=paged,
                  page_size=4)

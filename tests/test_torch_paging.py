@@ -12,9 +12,11 @@ from repro.core import registry as rreg
 from repro.kernels import page_kernel as RPK
 from repro.launch.paging import PageExhausted as RPageExhausted
 from repro.launch.paging import PagePool as RPagePool
+from repro_torch.configs import load_smoke_config
 from repro_torch.core import registry
 from repro_torch.kernels import page_kernel as PK
 from repro_torch.launch.paging import PageExhausted, PagePool
+from repro_torch.models import model as M
 
 from torch_parity import assert_bitwise, t
 
@@ -38,6 +40,65 @@ def test_page_gather_bitwise_vs_reference(dtype, tail):
         assert_bitwise(PK.page_gather_blocks(t(pages), t(table)),
                        RPK.page_gather_blocks(jnp.asarray(pages),
                                               jnp.asarray(table)))
+
+
+@pytest.mark.parametrize("dtype", ("bf16", "f32"))
+@pytest.mark.parametrize("tail", [(2, 8), (3,), ()])
+def test_page_gather_pair_is_two_gathers_bitwise(dtype, tail):
+    """A K/V pair through one table: a tuple equal to two one-pool
+    gathers and to the reference's ``page_gather_ref`` of each pool, on
+    both backends."""
+    rng = np.random.default_rng(7 + len(tail))
+    P, ps, B, T = 9, 4, 3, 5
+    k, v = (rng.standard_normal((P, ps, *tail)).astype(np.float32)
+            for _ in range(2))
+    if dtype == "bf16":
+        k, v = k.astype(ml_dtypes.bfloat16), v.astype(ml_dtypes.bfloat16)
+    table = rng.integers(0, P, size=(B, T)).astype(np.int32)
+    want = [RPK.page_gather_ref(jnp.asarray(p), jnp.asarray(table))
+            for p in (k, v)]
+    got = PK.page_gather_blocks((t(k), t(v)), t(table))
+    assert isinstance(got, tuple) and len(got) == 2
+    for g, one, w in zip(got, (k, v), want):
+        assert torch.equal(g, PK.page_gather_blocks(t(one), t(table)))
+        assert_bitwise(g, w)
+    for g, w in zip(PK.page_gather_ref((t(k), t(v)), t(table)), want):
+        assert_bitwise(g, w)
+    for backend in ("torch", "cuda"):
+        got = registry.call("page_gather", (t(k), t(v)), t(table),
+                            backend=backend)
+        assert isinstance(got, tuple) and len(got) == 2
+        for g, w in zip(got, want):
+            assert_bitwise(g, w)
+
+
+def test_page_gather_pair_validates_geometry():
+    table = torch.zeros(1, 2, dtype=torch.int32)
+    pool = torch.zeros(4, 2, 3)
+    with pytest.raises(ValueError):
+        PK.page_gather_blocks((pool, torch.zeros(4, 2, 5)), table)
+    with pytest.raises(ValueError):
+        PK.page_gather_blocks((pool, pool.to(torch.bfloat16)), table)
+    with pytest.raises(ValueError):
+        PK.page_gather_ref((pool, pool, pool), table)
+    with pytest.raises(ValueError):
+        PK.page_gather_blocks((), table)
+
+
+def test_paged_decode_step_gathers_k_and_v_in_one_call_per_layer():
+    """The model's paged attention makes one ``page_gather`` call a layer
+    for K and V together: n_layers calls a decode step."""
+    cfg = load_smoke_config("internlm2_1_8b")
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    B, ps, T = 2, 4, 3
+    pool = M.zero_paged_caches(cfg, num_pages=B * T, page_size=ps,
+                               device="cpu")
+    table = torch.arange(B * T, dtype=torch.int32).view(B, T)
+    tok = torch.zeros(B, 1, dtype=torch.int32)
+    registry.reset_stats()
+    M.decode_step(params, cfg, tok, pool, torch.tensor([2, 5]),
+                  block_tables=table, page_size=ps)
+    assert registry.stats("page_gather")["calls"] == cfg.n_layers
 
 
 def test_page_gather_validates_and_owns_page_size():
