@@ -10,12 +10,16 @@ rank), then the streaming and segmented primitives, then the serving path
 on full-width internlm2-1.8B. Phases:
 
   1. environment: card name and power limit, torch / CUDA / nvcc
-     versions, kernel build time;
+     versions, kernel build time, ptxas's register and spill lines, and
+     the HGMMA (wgmma) instructions in the attention library's SASS;
   2. every kernel held bitwise against its plain PyTorch version on the
-     card (sort network, k-way merge, histogram, search: a warp per query
-     below ``THREAD_QUERIES_FROM`` queries, a thread per query from it);
+     card (sort network, the fused window at every ``sort_hyper`` m = 1..6
+     against its plain stages and the unfused kernel, k-way merge,
+     histogram, search: a warp per query below ``THREAD_QUERIES_FROM``
+     queries, a thread per query from it);
   3. ``merge_sort`` and ``sortperm`` of 2^28 float32 keys, checked against
-     ``torch.sort(stable=True)``, launches against the closed form;
+     ``torch.sort(stable=True)``, launches against the closed form at the
+     default ``sort_hyper``;
   4. SIHSort, 4 ranks x 2^26 keys + payload: the sorted concatenation,
      payload integrity, zero overflow, 19 collectives and the closed-form
      launches per rank;
@@ -28,6 +32,10 @@ on full-width internlm2-1.8B. Phases:
      the same function, and its bound; and a sweep of the sort and merge
      primitives over 2^8..2^16 keys, kernels against the portable path,
      which gives the size from which the kernels win (``switch_below``);
+     and the ``sort_hyper`` sweep m = 0..6 (m = 0: the unfused kernel) of
+     ``merge_sort``, ``sortperm``, the 2^26-key kv sort and the P = 4
+     merge, bitwise across m, launches against the closed form at each m,
+     timed;
   6. the streaming and segmented path (paper Table II and the primitives
      built on it), through the user entry points: RBF and LJG over 2^26
      points (``ak.map_elements`` with the catalogue bodies), their total
@@ -56,10 +64,19 @@ on full-width internlm2-1.8B. Phases:
      them (the page gather bitwise, the nucleus mask equal except at ranks
      whose cumulative mass lies within 1e-5 of top_p, counted); the serve
      CLI once on the smoke config; tokens/s, TTFT, kernel timings and where
-     one decode step's device time goes.
+     one decode step's device time goes;
+  8. flash attention through its entry points at the serving shapes, the
+     head dims 8, 80 and 256 and the reference test file's float32 grid:
+     one launch a call under the kernel ``attention_path`` picks (decode,
+     tensor-core or CUDA-core), each against its plain version (rtol 2e-4
+     / atol 2e-5, + 1 bf16 ulp), timed beside SDPA, ``blockwise_attention``
+     and the bound; the decode kernel against the prefill kernels as
+     G * Sq grows;
+  9. granite-moe-1b through the serving engine and phase 7's traffic.
 
-Launch counters are set to 0 just before phases 3, 4, 6 and 7 and read
-just after; the kernels' ``launches`` are the sum of those runs' counts. The last line of
+Launch counters are set to 0 just before phases 3, 4, 6, 7, 8 and 9 and
+before each run of the ``sort_hyper`` sweep, and read just after; the
+kernels' ``launches`` are the sum of those runs' counts. The last line of
 standard output is ``{"ok": true, "device": {...}}``; it is printed only
 when every phase passed. Without a CUDA device, or without the repo's
 ``src/`` beside it, the script exits non-zero and prints no result.
@@ -84,6 +101,7 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12    # H100 SXM bf16 on the tensor cores, dense
 
 MAIN_N = 1 << 28
 RANKS = 4
@@ -110,13 +128,18 @@ def sum_rtol(n: int) -> tuple[float, int]:
     d = n // (1024 * 256) + 21
     return math.sqrt(d) * 2.0 ** -24, d
 
-SORT_KERNELS = ("bitonic_inblock", "bitonic_cross", "minmax_histogram",
+SORT_KERNELS = ("bitonic_inblock", "bitonic_window", "minmax_histogram",
                 "searchsorted")
-# kernels whose first launch comes after phase 6
-LATER_KERNELS = ("nucleus_mask", "page_gather", "flash_attention")
+FLASH_KERNELS = ("flash_simt", "flash_decode", "flash_wgmma")
+# kernels whose first launch comes after phase 6 (the unfused cross kernel:
+# in phase 5's sort_hyper sweep, whose m = 0 pass is the main path run with
+# sort_hyper=0)
+LATER_KERNELS = ("nucleus_mask", "page_gather", *FLASH_KERNELS)
 REPLACES = {
     "bitonic_inblock": ("src/repro_torch/kernels/csrc/bitonic.cu",
                         "src/repro/kernels/sort_kernel.py:289"),
+    "bitonic_window": ("src/repro_torch/kernels/csrc/bitonic.cu",
+                       "src/repro/kernels/sort_kernel.py:323"),
     "bitonic_cross": ("src/repro_torch/kernels/csrc/bitonic.cu",
                       "src/repro/kernels/sort_kernel.py:323"),
     "minmax_histogram": ("src/repro_torch/kernels/csrc/hist.cu",
@@ -135,9 +158,14 @@ REPLACES = {
                      "src/repro/kernels/nucleus_kernel.py:127"),
     "page_gather": ("src/repro_torch/kernels/csrc/page.cu",
                     "src/repro/kernels/page_kernel.py:69"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/attention.cu",
-                        "src/repro/kernels/attention_kernel.py:101"),
+    **{name: ("src/repro_torch/kernels/csrc/attention.cu",
+              "src/repro/kernels/attention_kernel.py:101")
+       for name in FLASH_KERNELS},
 }
+# the sort path's closed forms at the default sort_hyper (HYPER_ORDER) and
+# unfused (sort_hyper=0): a 2^28 sort, the 2^26 local kv sort, the P = 4
+# merge finish of 2^27 keys, a re-sort of the same 2^27 buffer
+SORT_CLOSED = {"default": (43, 35, 8, 39), "unfused": (136, 105, 29, 120)}
 
 
 def log(*a):
@@ -175,8 +203,12 @@ def cuda_ms(fn, setup=lambda: (), reps=5, warmup=1) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S
+          ) -> tuple[float, str]:
+    """The least time (ms) the card could take: bytes over the memory rate
+    or operations over ``ops_per_s`` (float32 on the CUDA cores by
+    default; bf16 operands at the tensor-core rate), the larger."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -232,10 +264,10 @@ def keys_on(gen, n, dtype, dist="normal"):
     return torch.randn(n, generator=gen, device="cuda").to(dtype)
 
 
-def phase_parity(SK, MK, HK, SE) -> Errors:
+def phase_parity(SK, MK, HK, SE, C) -> Errors:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = Errors()
-    both = ("bitonic_inblock", "bitonic_cross")
+    both = ("bitonic_inblock", "bitonic_window")
     for dtype in DTYPES:
         for n in SIZES:
             k = keys_on(gen, n, dtype)
@@ -256,6 +288,38 @@ def phase_parity(SK, MK, HK, SE) -> Errors:
         a, _ = SK._run_cross(x.clone(), None, 1 << 20, 1 << 16, False, True)
         b, _ = SK._run_cross(x.clone(), None, 1 << 20, 1 << 16, False, False)
         errs.same(["bitonic_cross"], [a], [b], f"cross {dtype}")
+        # the fused window at every order: against the plain stages and the
+        # unfused kernel, keys alone and kv with the tie-break off and on
+        v20 = torch.randint(0, 50, (1 << 20,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        for m in range(1, SK.MAX_HYPER + 1):
+            for vv, tie in ((None, False), (v20, False), (v20, True)):
+                cp = (lambda: (x.clone(), None if vv is None
+                               else vv.clone()))
+                got = SK._run_window(*cp(), 1 << 20, 1 << 19, m, tie, True)
+                want = SK._run_window(*cp(), 1 << 20, 1 << 19, m, tie, False)
+                ka, va = cp()
+                for st in range(m):
+                    ka, va = SK._run_cross(ka, va, 1 << 20, (1 << 19) >> st,
+                                           tie, True)
+                errs.same(["bitonic_window"], got[:1 + (vv is not None)],
+                          want[:1 + (vv is not None)],
+                          f"window m={m} {dtype} kv={vv is not None} "
+                          f"tie={tie}")
+                errs.same(["bitonic_window"], got[:1 + (vv is not None)],
+                          (ka, va)[:1 + (vv is not None)],
+                          f"window m={m} vs unfused {dtype}")
+            # whole networks at order m, both sides of a window boundary
+            with C.tuning_scope(sort_hyper=m):
+                for n in (1 << 17, (1 << 19) + 3):
+                    k = keys_on(gen, n, dtype)
+                    v = torch.randint(0, 50, (n,), generator=gen,
+                                      device="cuda", dtype=torch.int32)
+                    errs.same(("bitonic_inblock", "bitonic_window"),
+                              SK.bitonic_sort_kv(k, v, tie_break=True),
+                              SK.bitonic_sort_kv(k, v, tie_break=True,
+                                                 plain=True),
+                              f"sort_kv m={m} {dtype} {n}")
         # k-way merge: P runs with ragged counts
         for nruns in (2, 3, 4, 8):
             run_len = 5000
@@ -304,13 +368,16 @@ def phase_main_parity(SK, MK, HK, SE, errs, x, gx, gp, cap, shard, lo, hi,
                       q) -> None:
     """The kernels against their plain versions on the main path's inputs
     (launches here are not counted in the main path's runs)."""
-    both = ("bitonic_inblock", "bitonic_cross")
+    both = ("bitonic_inblock", "bitonic_window")
     for name, run, args in (
             ("bitonic_inblock", SK._run_inblock, (2, 8192, 8192, False)),
-            ("bitonic_cross", SK._run_cross, (MAIN_N, MAIN_N // 2, False))):
+            ("bitonic_cross", SK._run_cross, (MAIN_N, MAIN_N // 2, False)),
+            *(("bitonic_window", SK._run_window,
+               (MAIN_N, MAIN_N // 2, m, False))
+              for m in range(1, SK.MAX_HYPER + 1))):
         got, _ = run(x.clone(), None, *args, True)
         want, _ = run(x.clone(), None, *args, False)
-        errs.same([name], [got], [want], f"{name} stage, 2^28 keys")
+        errs.same([name], [got], [want], f"{name} {args}, 2^28 keys")
         del got, want
     errs.same(both, [SK.bitonic_sort(x)], [SK.bitonic_sort(x, plain=True)],
               "merge_sort network, 2^28 keys")
@@ -347,6 +414,78 @@ def phase_main_parity(SK, MK, HK, SE, errs, x, gx, gp, cap, shard, lo, hi,
                       f"search of {qs.numel()} keys into a 2^26-key "
                       f"shard, {side}")
     torch.cuda.synchronize()
+
+
+def phase_hyper_sweep(ak, registry, SK, MK, C, errs, x, gx, gp, cap
+                      ) -> dict:
+    """``merge_sort`` and ``sortperm`` of the 2^28 float32 keys, the
+    2^26-key kv sort and the P = 4 merge finish of phase 4, through the
+    registry at every ``sort_hyper`` m = 0..6 (m = 0 is the unfused
+    kernel): each bitwise equal across m and to ``torch.sort`` or the
+    plain network, its counted launches equal to the closed form at m,
+    then timed (CUDA events, median of 5). The runs at every m are the
+    main path with that knob: their launches add to the kernels' counts."""
+    prims = ("sort", "argsort", "sort_kv", "merge_kv")
+    ref = torch.sort(x, stable=True)
+    k26, v26 = gx[:RANK_N], gp[:RANK_N]
+    kv_plain = SK.bitonic_sort_kv(k26, v26, plain=True)
+    runs, order = torch.sort(gx[:RANKS * cap].view(RANKS, cap), dim=1)
+    pay = gp[:RANKS * cap].view(RANKS, cap).gather(1, order).reshape(-1)
+    runs = runs.reshape(-1)
+    counts = torch.tensor([cap // 2 + d for d in (-4099, 17, 3001, -1)],
+                          dtype=torch.int32, device="cuda")
+    merge_plain = MK.kway_merge_kv(runs, pay, RANKS, counts=counts,
+                                   plain=True)
+    del order
+    calls = {
+        "merge_sort": (lambda: ak.merge_sort(x), "sort"),
+        "sortperm": (lambda: ak.sortperm(x), "argsort"),
+        "kv_sort_2^26": (lambda: ak.merge_sort_by_key(k26, v26), "sort_kv"),
+        "merge_P4_2^27": (lambda: registry.call(
+            "merge_kv", runs, pay, counts, nruns=RANKS), "merge_kv"),
+    }
+    closed = {
+        "merge_sort": lambda m: SK.cross_launches(MAIN_N, hyper=m),
+        "sortperm": lambda m: SK.cross_launches(MAIN_N, hyper=m),
+        "kv_sort_2^26": lambda m: SK.cross_launches(RANK_N, hyper=m),
+        "merge_P4_2^27": lambda m: MK.merge_launches(RANKS * cap, RANKS,
+                                                     hyper=m),
+    }
+    want = {"merge_sort": [ref.values], "sortperm": [ref.indices.int()],
+            "kv_sort_2^26": list(kv_plain), "merge_P4_2^27":
+            list(merge_plain)}
+    kernels: dict = {}
+    rows = []
+    for m in range(SK.MAX_HYPER + 1):
+        row = {"m": m}
+        with registry.tuning.overrides({p: {"sort_hyper": m}
+                                        for p in prims}):
+            for name, (fn, prim) in calls.items():
+                torch.cuda.synchronize()
+                C.reset_launch_count()
+                got = fn()
+                torch.cuda.synchronize()
+                launches = C.launch_counts().get(prim)
+                for kname, n in C.kernel_launches().items():
+                    kernels[kname] = kernels.get(kname, 0) + n
+                check(launches == closed[name](m),
+                      f"{name} at sort_hyper={m}: {launches} launches, "
+                      f"closed form {closed[name](m)}")
+                got = list(got) if isinstance(got, tuple) else [got]
+                errs.same(("bitonic_inblock", "bitonic_window" if m
+                           else "bitonic_cross"), got, want[name],
+                          f"{name} at sort_hyper={m}")
+                del got
+                row[f"{name}_launches"] = launches
+                row[f"{name}_ms"] = cuda_ms(fn)
+        rows.append(row)
+        log(f"  sort_hyper={m}: " + json.dumps(row))
+    best = min(rows, key=lambda r: r["merge_sort_ms"])["m"]
+    del runs, pay, kv_plain, merge_plain, ref
+    return {"rows": rows, "kernel_launches": kernels,
+            "fastest_merge_sort_m": best,
+            "torch_sort_ms": cuda_ms(lambda: torch.sort(x)),
+            "bound_ms_one_pass": bound(2 * MAIN_N * 4, 0)[0]}
 
 
 def phase_crossover(registry) -> dict:
@@ -938,6 +1077,7 @@ def phase_serving(registry, C, errs, seed: int) -> dict:
 
 
 # name, B, Sq, Sk, H, KV, hd, causal, dtype: the GQA shapes of phase 8
+# (tests/test_torch_attention.py's PHASE8 lists the path each takes)
 ATTN_SHAPES = (
     ("internlm2-1.8B prefill", 8, 256, 256, 16, 8, 128, True,
      torch.bfloat16),
@@ -945,9 +1085,19 @@ ATTN_SHAPES = (
      torch.bfloat16),
     ("long prefill", 1, 8192, 8192, 16, 8, 128, True, torch.bfloat16),
     ("decode, ragged", 8, 1, 289, 16, 8, 128, False, torch.bfloat16),
+    ("yi-34b smoke prefill, hd 8", 2, 64, 64, 7, 1, 8, True,
+     torch.bfloat16),
+    ("yi-34b smoke decode, hd 8", 2, 1, 64, 7, 1, 8, False, torch.bfloat16),
+    ("prefill, hd 80", 4, 300, 300, 16, 8, 80, True, torch.bfloat16),
+    ("prefill, hd 256", 2, 512, 512, 8, 4, 256, True, torch.bfloat16),
+    ("decode, hd 256, f32", 4, 1, 1000, 8, 4, 256, False, torch.float32),
 )
 # (Sq, Sk) of tests/test_attention_kernel.py's grid: BH 4, hd 64, float32
 ATTN_GRID = ((128, 512), (128, 1024), (256, 512), (100, 300), (1, 512))
+# the kernels' row in the kernels line: the shape each is timed at
+ATTN_ROW = {"flash_wgmma": "internlm2-1.8B prefill",
+            "flash_decode": "decode, ragged",
+            "flash_simt": "grid 128x512 causal=True"}
 
 
 def visible_pairs(Sq: int, Sk: int, causal: bool) -> int:
@@ -970,21 +1120,24 @@ def attention_err(got, want, what) -> float:
     if got.dtype == torch.bfloat16:
         _, e = torch.frexp(w)
         lim = lim + torch.ldexp(torch.ones_like(w), e - 8)
-    check(got.dtype == want.dtype and got.shape == want.shape
-          and bool((err <= lim).all()),
-          f"{what}: flash kernel off its plain version by up to "
-          f"{float(err.max())}")
+    ok = (got.dtype == want.dtype and got.shape == want.shape
+          and bool((err <= lim).all()))
+    check(ok, f"{what}: flash kernel off its plain version by up to "
+              f"{float(err.max())}")
     return float(err.max())
 
 
 def phase_attention(C, errs) -> dict:
     """Phase 8: flash attention through its own entry points
-    (``flash_attention_gqa`` at the serving shapes, ``flash_attention`` on
-    the JAX test file's grid), counted: one launch per call. Then each
-    result against its plain version, and timings beside the port's
+    (``flash_attention_gqa`` at the serving shapes and the head dims 8,
+    80, 256, ``flash_attention`` on the JAX test file's grid), counted:
+    one launch per call under the kernel ``attention_path`` picks. Then
+    each result against its plain version, timings beside the port's
     ``blockwise_attention`` (what the models run), SDPA (the library
-    yardstick) and the bound."""
+    yardstick) and the bound (bf16 at the tensor-core rate). The table
+    behind the path rule is ``benchmarks_torch/attention_paths.py``."""
     import torch.nn.functional as F
+    from benchmarks_torch.launch_path import device_us
     from repro_torch.kernels import attention_kernel as AK
     from repro_torch.kernels import ref as KREF
     from repro_torch.models import layers as L
@@ -996,7 +1149,9 @@ def phase_attention(C, errs) -> dict:
         k, v = (torch.randn(B, Sk, KV, hd, generator=gen,
                             device="cuda").to(dt) for _ in range(2))
         cases.append(dict(name=name, gqa=True, q=q, k=k, v=v, causal=causal,
-                          heads=B * H, Sq=Sq, Sk=Sk, hd=hd))
+                          heads=B * H, Sq=Sq, Sk=Sk, hd=hd,
+                          path=AK.attention_path(B, Sq, Sk, H, KV, hd, dt,
+                                                 causal)))
     for Sq, Sk in ATTN_GRID:
         for causal in (True, False):
             q = torch.randn(4, Sq, 64, generator=gen, device="cuda")
@@ -1004,11 +1159,13 @@ def phase_attention(C, errs) -> dict:
                     for _ in range(2))
             cases.append(dict(name=f"grid {Sq}x{Sk} causal={causal}",
                               gqa=False, q=q, k=k, v=v, causal=causal,
-                              heads=4, Sq=Sq, Sk=Sk, hd=64))
+                              heads=4, Sq=Sq, Sk=Sk, hd=64,
+                              path=AK.attention_path(4, Sq, Sk, 1, 1, 64,
+                                                     q.dtype, causal)))
 
-    def kernel(c):
+    def kernel(c, **kw):
         fn = AK.flash_attention_gqa if c["gqa"] else AK.flash_attention
-        return fn(c["q"], c["k"], c["v"], causal=c["causal"])
+        return fn(c["q"], c["k"], c["v"], causal=c["causal"], **kw)
 
     def plain(c):
         fn = (AK.flash_attention_gqa_ref if c["gqa"]
@@ -1035,36 +1192,45 @@ def phase_attention(C, errs) -> dict:
     outs = [kernel(c) for c in cases]
     torch.cuda.synchronize()
     kern = C.kernel_launches()
-    check(kern == {"flash_attention": len(cases)},
-          f"flash attention launches {kern}, closed form 1 per call x "
-          f"{len(cases)}")
+    want = {}
+    for c in cases:
+        name = AK.PATH_KERNELS[c["path"]]
+        want[name] = want.get(name, 0) + 1
+    check(kern == want, f"flash attention launches {kern}, closed form 1 "
+                        f"per call under its path's kernel: {want}")
     rows = []
     for c, got in zip(cases, outs):
+        name = AK.PATH_KERNELS[c["path"]]
         err = attention_err(got, plain(c), c["name"])
-        errs.record("flash_attention", err)
+        errs.record(name, err)
         bp = (blockwise(c).reshape(got.shape).float()
               - got.float()).abs().max()
         q, k, v = c["q"], c["k"], c["v"]
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         ops = 4 * c["heads"] * c["hd"] * visible_pairs(c["Sq"], c["Sk"],
                                                         c["causal"])
-        b, by = bound(nbytes, ops)
+        b, by = bound(nbytes, ops, BF16_OPS_PER_S
+                      if q.dtype == torch.bfloat16 else F32_OPS_PER_S)
         reps = 3 if c["Sq"] > 4096 else 10
         rows.append({
             "shape": c["name"], "q": list(q.shape), "k": list(k.shape),
-            "dtype": str(q.dtype), "causal": c["causal"],
+            "dtype": str(q.dtype), "causal": c["causal"], "path": c["path"],
+            "kernel": name,
             "max_abs_err": err, "blockwise_vs_kernel_max_abs": float(bp),
             "ms": cuda_ms(lambda: kernel(c), reps=reps),
             "plain_ms": cuda_ms(lambda: plain(c), reps=reps),
             "blockwise_ms": cuda_ms(lambda: blockwise(c), reps=reps),
             "library_ms": cuda_ms(lambda: sdpa(c), reps=reps),
+            "device_us": device_us(lambda: kernel(c), calls=20),
+            "library_device_us": device_us(lambda: sdpa(c), calls=20),
             "bound_ms": b, "bound_by": by})
         r = rows[-1]
-        log(f"  flash {r['shape']} {r['dtype']}: {r['ms']:.4f} ms "
-            f"(plain {r['plain_ms']:.4f}, blockwise {r['blockwise_ms']:.4f}"
-            f", sdpa {r['library_ms']:.4f}, bound {b:.4f} ms by {by}); "
-            f"max |kernel - plain| {err:.3g}")
-    del outs, cases
+        log(f"  flash {r['shape']} {r['dtype']} [{c['path']}]: "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, blockwise "
+            f"{r['blockwise_ms']:.4f}, sdpa {r['library_ms']:.4f}, bound "
+            f"{b:.4f} ms by {by}); device {r['device_us']:.2f} us (sdpa "
+            f"{r['library_device_us']:.2f}); max |kernel - plain| {err:.3g}")
+    del outs
     torch.cuda.empty_cache()
     return {"kernel_launches": kern, "rows": rows}
 
@@ -1256,14 +1422,24 @@ def main() -> int:
                       .splitlines() if "registers" in ln or "spill" in ln]
                   for s, p in libs.items()},
     }
+    # the tensor-core kernel's SASS: wgmma appears as HGMMA
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump"), "-sass",
+         str(libs["attention"])], capture_output=True, text=True,
+        timeout=300).stdout
+    hgmma = [ln.strip() for ln in sass.splitlines() if "HGMMA" in ln]
+    report["env"]["attention_sass"] = {"hgmma_instructions": len(hgmma),
+                                       "first": hgmma[:4]}
+    check(hgmma, "no wgmma (HGMMA) instruction in the attention library")
     log(f"card: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{report['env']['nvcc']}")
-    log(f"kernel build: {build_s:.3f} s")
+    log(f"kernel build: {build_s:.3f} s; {len(hgmma)} HGMMA instructions "
+        f"in the attention library's SASS")
 
     # -- 2. every kernel against its plain version, bitwise ------------------
     t0 = time.perf_counter()
-    errs = phase_parity(SK, MK, HK, SE)
+    errs = phase_parity(SK, MK, HK, SE, C)
     log(f"parity: {sum(errs.cases.values())} kernel/plain comparisons "
         f"bitwise equal ({time.perf_counter() - t0:.1f} s)")
 
@@ -1278,7 +1454,8 @@ def main() -> int:
     main_counts = C.launch_counts()
     main_kernels = C.kernel_launches()
     closed = SK.cross_launches(MAIN_N)
-    check(main_counts.get("sort") == closed == 136,
+    check(main_counts.get("sort") == closed == SORT_CLOSED["default"][0]
+          < SORT_CLOSED["unfused"][0],
           f"merge_sort launches {main_counts} vs closed form {closed}")
     check(main_counts.get("argsort") == closed,
           f"sortperm launches {main_counts} vs closed form {closed}")
@@ -1318,11 +1495,14 @@ def main() -> int:
         check(sum(st.collectives.values()) == 19
               and st.collectives["all_to_all"] == 1,
               f"rank {r} collectives {st.collectives}")
-        check(st.launches.get("sort_kv") == want_sort == 105,
+        check(st.launches.get("sort_kv") == want_sort
+              == SORT_CLOSED["default"][1],
               f"rank {r} local sort launches {st.launches}")
-        check(st.launches.get("merge_kv") == want_merge == 29,
+        check(st.launches.get("merge_kv") == want_merge
+              == SORT_CLOSED["default"][2],
               f"rank {r} merge launches {st.launches}")
-        check(want_merge < SK.cross_launches(RANKS * cap) == 120,
+        check(want_merge < SK.cross_launches(RANKS * cap)
+              == SORT_CLOSED["default"][3],
               "merge finish not below a re-sort")
     for name in REPLACES:
         main_kernels[name] = main_kernels.get(name, 0) + sum(
@@ -1385,7 +1565,8 @@ def main() -> int:
         src, rep = REPLACES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": main_kernels[name], "max_abs_err": errs.err[name],
+            "launches": main_kernels.get(name, 0),
+            "max_abs_err": errs.err[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
             "library_ms": lib_ms,
         })
@@ -1398,15 +1579,35 @@ def main() -> int:
                                             False), fresh, reps=3),
           cuda_ms(lambda: torch.sort(x.view(-1, 8192), dim=1)),
           2 * nb, MAIN_N // 2 * stages)
-    entry("bitonic_cross",
-          cuda_ms(lambda k: SK._run_cross(k, None, MAIN_N, MAIN_N // 2,
-                                          False, True), fresh),
-          cuda_ms(lambda k: SK._run_cross(k, None, MAIN_N, MAIN_N // 2,
-                                          False, False), fresh),
-          # every pair of this stage is ascending: the elementwise min and
-          # max of the two halves, which a sort along a dimension of 2 is
-          cuda_ms(lambda: torch.sort(x.view(2, -1), dim=0)),
-          2 * nb, MAIN_N // 2)
+    # The top window of the last phase (k = N, distances N/2 .. N/2^w) on
+    # a bitonic sequence, which is what the network feeds it: its groups
+    # are the columns of view(2^w, -1), each bitonic, so the window sorts
+    # each column and one torch.sort along dim 0 computes it (at w = 1,
+    # the unfused stage, on any input: the min and max of the halves).
+    half = MAIN_N // 2
+    xb = torch.cat([torch.sort(x[:half]).values,
+                    torch.sort(x[half:], descending=True).values])
+    bitonic = lambda: (xb.clone(),)  # noqa: E731
+    w = SK.HYPER_ORDER
+    for name, run, width in (
+            ("bitonic_window", lambda k, c: SK._run_window(
+                k, None, MAIN_N, half, w, False, c), w),
+            ("bitonic_cross", lambda k, c: SK._run_cross(
+                k, None, MAIN_N, half, False, c), 1)):
+        lib = lambda: torch.sort(xb.view(1 << width, -1), dim=0)  # noqa: E731
+        got = run(xb.clone(), True)[0]
+        check(torch.equal(got, lib().values.reshape(-1)),
+              f"{name}: the top window of phase N on a bitonic sequence != "
+              f"torch.sort of view({1 << width}, -1) along dim 0")
+        # in place: every key is read, only the keys that change need a
+        # write (the kernels store swapped pairs only)
+        moved = int((got != xb).sum())
+        entry(name, cuda_ms(lambda k: run(k, True), bitonic),
+              cuda_ms(lambda k: run(k, False), bitonic, reps=3),
+              cuda_ms(lib), nb + 4 * moved, MAIN_N // 2 * width)
+        kernels[-1]["keys_moved"] = moved
+        del got
+    del xb
     entry("minmax_histogram",
           cuda_ms(lambda: HK.minmax_histogram_blocks(shard, 256, lo, hi)),
           cuda_ms(lambda: HK.minmax_histogram_plain(shard, 256, lo, hi)),
@@ -1419,6 +1620,17 @@ def main() -> int:
           cuda_ms(lambda: SE.searchsorted_plain(shard, q, side="right")),
           cuda_ms(lambda: torch.searchsorted(shard, q, right=True)),
           3 * (4 + 4 + 4 * probes), 3 * probes)
+    t0 = time.perf_counter()
+    sweep = phase_hyper_sweep(ak, registry, SK, MK, C, errs, x, gx, gp, cap)
+    for name, n in sweep["kernel_launches"].items():
+        main_kernels[name] = main_kernels.get(name, 0) + n
+    for k in kernels:
+        k["launches"] = main_kernels[k["name"]]
+    timing["sort_hyper_sweep"] = sweep
+    log(f"sort_hyper sweep ({time.perf_counter() - t0:.1f} s): fastest "
+        f"merge_sort at m = {sweep['fastest_merge_sort_m']} (default "
+        f"{SK.HYPER_ORDER}); torch.sort {sweep['torch_sort_ms']:.3f} ms, "
+        f"one pass's byte bound {sweep['bound_ms_one_pass']:.3f} ms")
     report["timing"] = timing
     report["kernels"] = kernels
     for k in kernels:
@@ -1451,7 +1663,8 @@ def main() -> int:
         src, rep = REPLACES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": main_kernels[name], "max_abs_err": errs.err[name],
+            "launches": main_kernels.get(name, 0),
+            "max_abs_err": errs.err[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b,
             "bound_by": by, "library_ms": r["library_ms"],
         })
@@ -1468,7 +1681,8 @@ def main() -> int:
         src, rep = REPLACES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": main_kernels[name], "max_abs_err": errs.err[name],
+            "launches": main_kernels.get(name, 0),
+            "max_abs_err": errs.err[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
@@ -1482,17 +1696,18 @@ def main() -> int:
     t0 = time.perf_counter()
     attn = phase_attention(C, errs)
     report["attention"] = attn
-    main_kernels["flash_attention"] = attn["kernel_launches"][
-        "flash_attention"]
-    r = attn["rows"][0]          # internlm2-1.8B prefill: phase 7's model
-    src, rep = REPLACES["flash_attention"]
-    kernels.append({
-        "name": "flash_attention", "route": "cuda", "source": src,
-        "replaces": rep, "launches": main_kernels["flash_attention"],
-        "max_abs_err": errs.err["flash_attention"], "ms": r["ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "shape": r["shape"]})
+    for name, n in attn["kernel_launches"].items():
+        main_kernels[name] = main_kernels.get(name, 0) + n
+    for name, shape in ATTN_ROW.items():
+        r = next(r for r in attn["rows"] if r["shape"] == shape)
+        src, rep = REPLACES[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": main_kernels.get(name, 0),
+            "max_abs_err": errs.err[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"]})
     log(f"phase 8 done in {time.perf_counter() - t0:.1f} s")
 
     # -- 9. granite-moe-1b through the serving engine ------------------------

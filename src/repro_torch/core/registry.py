@@ -55,9 +55,9 @@ from repro_torch.runtime import telemetry
 #: request is demoted to the portable path (0 = never); every primitive
 #: with a kernel takes it. The bitonic network's family also takes
 #: ``block_rows``/``block_cols`` (its block of rows x cols keys, one CTA's
-#: shared-memory tile; None = 8 x 1024) and ``sort_hyper``, which exists
-#: only so that tuning tables read the same on both packages: the CUDA
-#: network runs the unfused layout, so only None or 0 are accepted.
+#: shared-memory tile; None = 8 x 1024) and ``sort_hyper``, the cross
+#: stages one window launch fuses (None or an int in [0, 6], as in the
+#: reference; None = ``sort_kernel.HYPER_ORDER``, 0 = one launch a stage).
 #: ``page_size``: tokens per KV-cache page, owned by ``page_gather`` (the
 #: paged engine resolves it there, so engine and kernel agree).
 TUNABLE_KEYS = ("switch_below", "block_rows", "block_cols", "sort_hyper",
@@ -101,11 +101,14 @@ def _validate_tuning(name: str, kv: dict, allowed=TUNABLE_KEYS) -> None:
             raise ValueError(
                 f"block_cols must be a power-of-two multiple of {KC.LANES}"
             )
-        if k == "sort_hyper" and v not in (None, 0):
+        if k == "sort_hyper" and not (
+            v is None or (isinstance(v, int) and not isinstance(v, bool)
+                          and 0 <= v <= 6)
+        ):
+            # the window kernel holds 2^m keys and payloads a thread in
+            # registers: 64 of each at m = 6
             raise ValueError(
-                f"sort_hyper must be None or 0: the CUDA network runs the "
-                f"unfused layout (the fused hyper-block window is not "
-                f"ported yet), got {v!r}"
+                f"sort_hyper must be None or an int in [0, 6], got {v!r}"
             )
         if k == "page_size" and not (
             v is None or (isinstance(v, int) and not isinstance(v, bool)

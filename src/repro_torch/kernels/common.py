@@ -4,10 +4,9 @@ Counterpart of ``repro/kernels/common.py``. The block knobs keep their
 names and defaults so the registry's tuning table reads the same on both
 packages: ``block_rows() * block_cols()`` is the bitonic network's block
 (8 x 1024 = 8192 keys, one CTA's shared-memory tile here), and
-``sort_hyper()`` is the hyper-block order. The CUDA network implements
-only the unfused layout (one launch per cross stage, ``sort_hyper == 0``);
-the fused hyper-block window is later work, and the registry accepts no
-other value.
+``sort_hyper()`` is the hyper-block order: the cross stages one window
+launch fuses (0 keeps one launch per cross stage; None takes
+``sort_kernel.HYPER_ORDER``).
 
 The operator catalogue (:data:`OPS` by name, :func:`catalogued_op`) lists
 the combining operators the streaming kernels take, each with its code in
@@ -57,8 +56,8 @@ def block_elems() -> int:
 
 
 def sort_hyper() -> int | None:
-    """Hyper-block order set by the tuning scope (None = default, the
-    unfused layout, which is all the CUDA network runs)."""
+    """Hyper-block order set by the tuning scope (None = the default,
+    ``sort_kernel.HYPER_ORDER``)."""
     return getattr(_tuning, "sort_hyper", None)
 
 

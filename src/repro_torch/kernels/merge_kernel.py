@@ -7,8 +7,8 @@ reverse the odd runs) establish the network's phase invariant, then the
 network runs from ``first_k = 2L``, so only its merge phases run. The
 same holds here: the pre-passes are PyTorch ops, and the merge runs the
 CUDA network of ``sort_kernel`` (plain version on the CPU). Launches
-follow ``merge_launches``: at P = 4 runs of 2^25 it is 29 against 120 for
-a re-sort of the same 2^27 buffer.
+follow ``merge_launches``: at P = 4 runs of 2^25 it is 8 against 39 for
+a re-sort of the same 2^27 buffer (29 against 120 unfused, ``sort_hyper=0``).
 """
 from __future__ import annotations
 
@@ -110,13 +110,16 @@ def kway_merge_kv(keys, vals, nruns: int, *, counts=None,
     return _merge(keys, vals, nruns, counts, tie_break, cuda)
 
 
-def merge_launches(n: int, nruns: int, *, hyper: int = 0,
+def merge_launches(n: int, nruns: int, *, hyper: int | None = None,
                    block: int | None = None) -> int:
-    """Closed-form launch count of one ``kway_merge`` call."""
+    """Closed-form launch count of one ``kway_merge`` call at the live
+    ``sort_hyper`` (default ``sort_kernel.HYPER_ORDER``)."""
     if n == 0 or nruns <= 1:
         return 0
     if block is None:
         _, _, block = SK._geometry()
+    if hyper is None:
+        hyper = SK._hyper_order()
     L, total = _run_shape(n, nruns, block)
     return SK.network_launches(total, first_k=2 * L, hyper=hyper,
                                block=block)

@@ -2,28 +2,39 @@
 PyTorch version (counterpart of ``repro/kernels/sort_kernel.py``).
 
 Replaces the TPU kernels ``_inblock_body`` (run by ``_run_inblock``) and
-``_hyper_body`` (run by ``_run_hyper``) of ``sort_kernel.py``, in their
-unfused ``sort_hyper=0`` layout:
+``_hyper_body`` (run by ``_run_hyper``) of ``sort_kernel.py``:
 
   * **in-block kernel** (``csrc/bitonic.cu`` ``inblock_kernel``): one CTA
     per block of ``block_rows() * block_cols()`` keys (8192 by default)
     held in dynamic shared memory; it runs every stage (k, j) with
     j < block of the phases it is given.
-  * **cross-stage kernel** (``cross_kernel``): one launch per cross stage
-    j >= block, one thread per compare-exchange pair, in device memory.
+  * **window kernel** (``window_kernel``): the fused hyper-block window,
+    up to ``m = sort_hyper`` consecutive cross stages j >= block of one
+    phase in one pass over device memory. One thread holds the 2^w
+    elements that the window's stages exchange (stride the window's
+    smallest distance) in registers.
+  * **cross-stage kernel** (``cross_kernel``): one launch per cross stage,
+    one thread per compare-exchange pair: the ``sort_hyper=0`` layout.
 
-What bounds them on an H100 is device-memory bandwidth: every cross stage
-reads and writes the whole padded array once, and a sort of 2^m keys makes
-(m-13)(m-12)/2 of them. The design keeps every stage below the block size
-in shared memory (one read and one write per block per phase), which is
-what the TPU kernel did in VMEM; fusing several cross stages into one pass
-(the reference's hyper-block window) is the next step.
+What bounds them on an H100 is device-memory bandwidth: every cross pass
+reads and writes the whole padded array once. A sort of 2^m keys has
+(m-13)(m-12)/2 cross stages; windows of up to ``m`` of them cut the
+passes to sum(ceil(i/m)). The design keeps every stage below the block
+size in shared memory (one read and one write per block per phase), as
+the TPU kernel did in VMEM.
+
+One difference from the reference's schedule is left: the reference's
+last window of a phase absorbs the in-block finish (its VMEM held whole
+blocks); here the finish stays one in-block launch, so a cross phase
+costs ``ceil(i/m) + 1`` launches against the reference's ``ceil(i/m)``
+(``network_schedule``, ``network_launches``).
 
 Padding (type-max to ``max(next_pow2(n), block)``), the stage sequence and
 the direction rule ``((global low index) & k) == 0`` are the reference's,
 and the network is oblivious, so kernel, plain version and the JAX Pallas
 path agree bitwise on NaN-free keys without mixed signed zeros, including
-the pair order of equal keys when ``tie_break`` is off.
+the pair order of equal keys when ``tie_break`` is off, whatever the
+window order.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernels or raises. The CUDA kernels write in place
@@ -42,6 +53,14 @@ SORT_ROWS = 8
 SORT_COLS = 1024
 SORT_BLOCK = SORT_ROWS * SORT_COLS
 
+# Default hyper-block order m (the ``sort_hyper`` knob when unset): each
+# window launch fuses up to m cross stages. Chosen from a sweep of m = 0..6
+# of ``merge_sort`` at 2^28 float32 keys on the card (``chip_smoke.py``,
+# PERF.md); the reference's 3 was a choice for the TPU's VMEM. 0 selects
+# the unfused one-launch-per-stage layout.
+HYPER_ORDER = 6
+MAX_HYPER = 6
+
 # Largest dynamic shared memory one CTA may take on Hopper (bytes).
 MAX_SMEM = 232448
 
@@ -55,6 +74,12 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+    ],
+    "ak_bitonic_window": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_void_p,
     ],
 }
 
@@ -72,6 +97,11 @@ def _geometry() -> tuple[int, int, int]:
             f"{rows}x{cols} = {block}"
         )
     return rows, cols, block
+
+
+def _hyper_order() -> int:
+    m = C.sort_hyper()
+    return HYPER_ORDER if m is None else m
 
 
 def _stages_upto_block(k: int, block: int) -> list[tuple[int, int]]:
@@ -169,30 +199,80 @@ def _run_cross(keys, vals, k: int, j: int, tie_break: bool, cuda: bool,
     return keys, vals
 
 
-def _sort_network(keys, vals, total: int, tie_break: bool, *, block: int,
-                  cuda: bool, first_k: int = 2):
-    """Run bitonic phases k = first_k, 2·first_k, …, total over the padded
-    flat arrays (the reference's ``_sort_network`` with ``hyper=0``): one
-    network per row of ``total`` keys, the arrays holding one or more rows
-    end to end. ``first_k = 2L`` resumes on data already L-run
-    alternating-sorted: the k-way merge of ``merge_kernel``."""
+def _run_window(keys, vals, k: int, jtop: int, w: int, tie_break: bool,
+                cuda: bool, row: int | None = None):
+    """One fused window of phase k: the w cross stages at distances jtop,
+    jtop/2, ..., jtop >> (w-1) (all >= block), over rows of ``row`` keys.
+    The plain version applies them one by one."""
+    row = keys.shape[0] if row is None else row
+    if not cuda:
+        for s in range(w):
+            keys, vals = _cx_plain(keys, vals, k, jtop >> s, tie_break, row)
+        return keys, vals
+    lib = _lib()
+    err = lib.ak_bitonic_window(
+        _ptr(keys), _ptr(vals), *_codes(keys, vals),
+        int(tie_break), keys.shape[0], k, jtop, w, row - 1,
+        _build.stream_handle(keys.device),
+    )
+    _build.check(lib, err, "bitonic window kernel")
+    C.count_launch("bitonic_window")
+    return keys, vals
+
+
+def network_schedule(total: int, *, first_k: int = 2, hyper: int,
+                     block: int) -> list[tuple]:
+    """The launches of ``_sort_network`` in order, as a pure function of
+    the shape: ``("inblock", k_lo, k_hi)`` runs every in-block stage of
+    phases k_lo..k_hi; ``("cross", k, j)`` one cross stage (hyper 0);
+    ``("window", k, jtop, w)`` the w cross stages jtop .. jtop >> (w-1)
+    of phase k. Per cross phase k > block: its ``i = log2(k/block)``
+    stages in windows of up to ``hyper`` (largest distance first), then
+    the in-block finish."""
+    if hyper < 0 or hyper > MAX_HYPER:
+        raise ValueError(f"hyper must be in [0, {MAX_HYPER}], got {hyper}")
+    out = []
     k = first_k
     if k <= min(total, block):
         k_hi = k
         while k_hi * 2 <= min(total, block):
             k_hi *= 2
-        keys, vals = _run_inblock(keys, vals, k, k_hi, block, tie_break,
-                                  cuda, total)
+        out.append(("inblock", k, k_hi))
         k = k_hi * 2
     while k <= total:
         j = k // 2
         while j >= block:
-            keys, vals = _run_cross(keys, vals, k, j, tie_break, cuda,
-                                    total)
-            j //= 2
-        keys, vals = _run_inblock(keys, vals, k, k, block, tie_break, cuda,
-                                  total)
+            if hyper == 0:
+                out.append(("cross", k, j))
+                j //= 2
+                continue
+            w = min(hyper, (j // block).bit_length())
+            out.append(("window", k, j, w))
+            j >>= w
+        out.append(("inblock", k, k))
         k *= 2
+    return out
+
+
+def _sort_network(keys, vals, total: int, tie_break: bool, *, block: int,
+                  cuda: bool, first_k: int = 2):
+    """Run bitonic phases k = first_k, 2·first_k, …, total over the padded
+    flat arrays, launch by launch as ``network_schedule`` lists them for
+    the live ``sort_hyper``: one network per row of ``total`` keys, the
+    arrays holding one or more rows end to end. ``first_k = 2L`` resumes
+    on data already L-run alternating-sorted: the k-way merge of
+    ``merge_kernel``."""
+    for item in network_schedule(total, first_k=first_k,
+                                 hyper=_hyper_order(), block=block):
+        if item[0] == "inblock":
+            keys, vals = _run_inblock(keys, vals, item[1], item[2], block,
+                                      tie_break, cuda, total)
+        elif item[0] == "cross":
+            keys, vals = _run_cross(keys, vals, item[1], item[2], tie_break,
+                                    cuda, total)
+        else:
+            keys, vals = _run_window(keys, vals, item[1], item[2], item[3],
+                                     tie_break, cuda, total)
     return keys, vals
 
 
@@ -300,10 +380,12 @@ def bitonic_argsort(keys: torch.Tensor, *, plain: bool = False):
 
 def network_launches(total: int, *, first_k: int = 2, hyper: int,
                      block: int) -> int:
-    """Closed-form launch count of ``_sort_network(total, first_k=…)``,
-    the reference's formula: one in-block launch if any phase fits a
-    block, then per cross phase ``i + 1`` launches unfused (``⌈i/m⌉``
-    fused) for ``i = log₂(k/block)``."""
+    """Closed-form launch count of ``_sort_network(total, first_k=…)``
+    (the length of ``network_schedule``): one in-block launch if any
+    phase fits a block, then per cross phase ``i + 1`` launches unfused
+    (hyper 0) or ``ceil(i/m) + 1`` fused, for ``i = log₂(k/block)``. The
+    reference's fused count is ``ceil(i/m)``: its last window absorbs the
+    in-block finish."""
     launches = 0
     k = first_k
     if k <= min(total, block):
@@ -312,20 +394,19 @@ def network_launches(total: int, *, first_k: int = 2, hyper: int,
             k *= 2
     while k <= total:
         i = (k // block).bit_length() - 1
-        if hyper <= 0:
-            launches += i + 1
-        else:
-            launches += -(-i // hyper)
+        launches += (i if hyper <= 0 else -(-i // hyper)) + 1
         k *= 2
     return launches
 
 
-def cross_launches(n: int, *, hyper: int = 0, block: int | None = None
-                   ) -> int:
-    """Closed-form launch count of an n-element sort; the CUDA network
-    runs the unfused layout, ``hyper=0``."""
+def cross_launches(n: int, *, hyper: int | None = None,
+                   block: int | None = None) -> int:
+    """Closed-form launch count of an n-element sort at the live
+    ``sort_hyper`` (default ``HYPER_ORDER``), as in the reference."""
     if block is None:
         _, _, block = _geometry()
+    if hyper is None:
+        hyper = _hyper_order()
     total = max(C.next_pow2(n), block)
     return network_launches(total, first_k=2, hyper=hyper, block=block)
 

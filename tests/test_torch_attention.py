@@ -88,3 +88,139 @@ def test_flash_refuses_mixed_dtypes_and_ungrouped_heads():
     with pytest.raises(TypeError, match="one dtype"):
         A.flash_attention(q[:, :, 0], k[:, :, 0].to(torch.bfloat16),
                           k[:, :, 0])
+
+
+# The GQA shapes of chip_smoke.py's phase 8 (name, B, Sq, Sk, H, KV, hd,
+# causal, dtype) and the path each takes on the card.
+PHASE8 = [
+    ("internlm2-1.8B prefill", 8, 256, 256, 16, 8, 128, True,
+     torch.bfloat16, "wgmma"),
+    ("granite-moe-1b prefill", 8, 256, 256, 16, 8, 64, True,
+     torch.bfloat16, "wgmma"),
+    ("long prefill", 1, 8192, 8192, 16, 8, 128, True, torch.bfloat16,
+     "wgmma"),
+    ("decode, ragged", 8, 1, 289, 16, 8, 128, False, torch.bfloat16,
+     "decode"),
+    ("yi-34b smoke prefill, hd 8", 2, 64, 64, 7, 1, 8, True,
+     torch.bfloat16, "simt"),
+    ("yi-34b smoke decode, hd 8", 2, 1, 64, 7, 1, 8, False, torch.bfloat16,
+     "decode"),
+    ("prefill, hd 80", 4, 300, 300, 16, 8, 80, True, torch.bfloat16,
+     "wgmma"),
+    ("prefill, hd 256", 2, 512, 512, 8, 4, 256, True, torch.bfloat16,
+     "wgmma"),
+    ("decode, hd 256, f32", 4, 1, 1000, 8, 4, 256, False, torch.float32,
+     "decode"),
+]
+
+
+@pytest.mark.parametrize("shape", PHASE8, ids=[s[0] for s in PHASE8])
+def test_attention_path_of_phase8_shapes(shape):
+    _, B, Sq, Sk, H, KV, hd, causal, dtype, want = shape
+    assert A.attention_path(B, Sq, Sk, H, KV, hd, dtype, causal) == want
+    # float32 never takes the tensor cores (TF32 cannot hold rtol 2e-4)
+    f32 = A.attention_path(B, Sq, Sk, H, KV, hd, torch.float32, causal)
+    assert f32 == ("decode" if want == "decode" else "simt")
+
+
+@pytest.mark.parametrize("hd", [8, 80, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_path_by_head_dim(hd, dtype):
+    """Every head dim in [1, 256] has a path; the tensor cores take bf16
+    at multiples of 16; decode takes G * Sq <= 16 rows at any width, and
+    only Sq = 1 where the tensor cores would take the call."""
+    tc = dtype == torch.bfloat16 and hd % 16 == 0
+    assert A.attention_path(2, 256, 256, 16, 8, hd, dtype, True) == (
+        "wgmma" if tc else "simt")
+    assert A.attention_path(2, 1, 256, 64, 8, hd, dtype, True) == "decode"
+    assert A.attention_path(2, 2, 256, 16, 8, hd, dtype, True) == (
+        "wgmma" if tc else "decode")
+    assert A.attention_path(2, 8, 256, 16, 8, hd, dtype, True) == (
+        "wgmma" if tc else "decode")
+    assert A.attention_path(2, 9, 256, 16, 8, hd, dtype, True) != "decode"
+    for bad in (0, 257):
+        with pytest.raises(ValueError, match="head dims"):
+            A.attention_path(2, 1, 8, 2, 2, bad, dtype, False)
+
+
+def test_head_dims_past_256_raise():
+    q = torch.zeros(1, 4, 2, 264)
+    with pytest.raises(ValueError, match="head dims 1 to 256"):
+        A.flash_attention_gqa(q, q, q)
+
+
+@pytest.mark.parametrize("hd", [8, 80])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_other_head_dims_match_reference_kernel(hd, causal):
+    """Head dims the port's kernels took only from this slice on: the
+    plain version against the reference's Pallas kernel (interpret mode),
+    which takes any hd."""
+    rng = np.random.default_rng(hd + causal)
+    BH, Sq, Sk = 3, 100, 300
+    q, k, v = (_normal(rng, (BH, s, hd)) for s in (Sq, Sk, Sk))
+    got = A.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), causal=causal)
+    want = RA.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,nsplit", [
+    (2, 1, 289, 16, 8, 128, False, None),   # the decode shape, 5 splits
+    (2, 1, 289, 16, 8, 128, False, 9),      # more splits than tiles
+    (1, 150, 300, 2, 2, 16, True, 3),       # early rows see no key of a split
+    (2, 100, 70, 4, 2, 32, True, None),     # Sq > Sk under causal
+    (2, 100, 70, 4, 2, 32, True, 4),
+    (1, 3, 200, 8, 2, 8, False, 3),         # Sk not a multiple of 64
+    (2, 2, 1000, 8, 1, 64, True, 2),        # causal: keys past Sq unseen
+])
+def test_split_k_merge_equals_the_reference(B, Sq, Sk, H, KV, hd, causal,
+                                            nsplit):
+    """The decode kernel's split-and-merge in plain torch: wholly masked
+    splits weigh nothing, and the merge equals ``flash_attention_ref`` at
+    the reference's tolerance (rtol 2e-4, atol 2e-5)."""
+    rng = np.random.default_rng(Sq * 31 + Sk)
+    q = torch.from_numpy(_normal(rng, (B, Sq, H, hd)))
+    k = torch.from_numpy(_normal(rng, (B, Sk, KV, hd)))
+    v = torch.from_numpy(_normal(rng, (B, Sk, KV, hd)))
+    got = A.flash_decode_split_ref(q, k, v, causal=causal, nsplit=nsplit)
+    G = H // KV
+    qf = q.permute(0, 2, 1, 3).reshape(B * H, Sq, hd)
+    kf = k.permute(0, 2, 1, 3).repeat_interleave(G, 1).reshape(B * H, Sk, hd)
+    vf = v.permute(0, 2, 1, 3).repeat_interleave(G, 1).reshape(B * H, Sk, hd)
+    want = KREF.flash_attention_ref(qf, kf, vf, causal=causal)
+    np.testing.assert_allclose(
+        got.numpy(), want.reshape(B, H, Sq, hd).permute(0, 2, 1, 3).numpy(),
+        **TOL)
+
+
+def test_p_hi_lo_error_bound_at_granite_prefill():
+    """A numpy model of the tensor-core kernel's P V at phase 8's smallest
+    tensor-core shape (granite-moe-1b's prefill: 8 x 256 x 256, 16/8 heads,
+    hd 64, causal, bf16 operands). P = bf16(P) + bf16(P - bf16(P)) holds P
+    to 2^-16 relative, so each output is within 2^-16 sum_j p_j |v_j| / l
+    of the exact P V / l, and the largest error stays under atol (2e-5).
+    P as one bf16 (2^-8) breaks the tolerance: why the kernel feeds two."""
+    import ml_dtypes
+    rng = np.random.default_rng(64)
+    B, S, H, KV, hd = 8, 256, 16, 8, 64
+    bf = ml_dtypes.bfloat16
+    q = _normal(rng, (B, H, S, hd)).astype(bf).astype(np.float64)
+    k = _normal(rng, (B, KV, S, hd)).astype(bf).astype(np.float64)
+    v = _normal(rng, (B, KV, S, hd)).astype(bf).astype(np.float64)
+    k, v = np.repeat(k, H // KV, 1), np.repeat(v, H // KV, 1)
+    s = np.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(hd)
+    s = np.where(np.tri(S, dtype=bool), s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True)).astype(np.float32)
+    p_hi = p.astype(bf).astype(np.float32)
+    p_lo = (p - p_hi).astype(bf).astype(np.float32)
+    assert np.all(p - p_hi == (p.astype(np.float64) - p_hi))  # exact in f32
+    rep = np.abs(p.astype(np.float64) - p_hi - p_lo)
+    assert np.all(rep <= 2.0 ** -16 * p)
+    p64, l = p.astype(np.float64), p.astype(np.float64).sum(-1)[..., None]
+    exact = p64 @ v / l
+    err = np.abs((p_hi.astype(np.float64) + p_lo) @ v / l - exact)
+    bound = 2.0 ** -16 * (p64 @ np.abs(v)) / l
+    assert np.all(err <= bound) and err.max() < 2e-5
+    single = np.abs(p_hi.astype(np.float64) @ v / l - exact)
+    assert np.any(single > 2e-4 * np.abs(exact) + 2e-5)

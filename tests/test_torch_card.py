@@ -2,7 +2,8 @@
 card: the sort path's (bitonic network, merge, histogram, search), the
 streaming path's (map, reduce, scan, segmented scan, segmented sort),
 the serving path's (the batched network, the nucleus mask, the page
-gather of one pool and of a K/V pair), the flash attention kernel, and
+gather of one pool and of a K/V pair), the fused sort window at every
+``sort_hyper``, the three flash attention kernels (each path), and
 the MoE FFN's grouped expert product against its per-expert loop.
 Every test here is marked ``cuda`` and skips without a CUDA device; on
 the GPU machine run ``PYTHONPATH=src:. python -m pytest -m cuda
@@ -101,6 +102,79 @@ def test_search_and_histogram_bitwise_vs_plain(gen, dtype):
         want = HK.minmax_histogram_plain(x, nbins, -1.0, 1.5)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+# the fused window: sizes on each side of a window boundary (with the
+# default 8192-key block a phase of 2^17 keys has 4 cross stages: one
+# window at m >= 4, two at m = 2, 3), and batched rows
+WINDOW_SIZES = [8193, 1 << 16, (1 << 16) + 1, 1 << 17, (1 << 19) + 3]
+
+
+@pytest.mark.parametrize("m", range(7))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_window_kernel_bitwise_vs_unfused_and_plain(gen, m, dtype):
+    """Every order m: the fused window of m stages equals the m unfused
+    cross launches and the plain stages bitwise (keys alone; key/value
+    with the tie-break off and on); whole networks at sizes on both sides
+    of a window boundary and on batched rows equal the plain network."""
+    n = 1 << 20
+    x = _keys(gen, n, dtype, hi=50)
+    v = torch.randint(0, 50, (n,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    k, jtop = n, n // 2
+    w = max(m, 1)
+    for vals, tie in ((None, False), (v, False), (v, True)):
+        fused = SK._run_window(x.clone(), None if vals is None
+                               else vals.clone(), k, jtop, w, tie, True)
+        plain = SK._run_window(x.clone(), None if vals is None
+                               else vals.clone(), k, jtop, w, tie, False)
+        ka, va = x.clone(), None if vals is None else vals.clone()
+        for s in range(w):
+            ka, va = SK._run_cross(ka, va, k, jtop >> s, tie, True)
+        for got in (plain, (ka, va)):
+            assert torch.equal(fused[0], got[0])
+            if vals is not None:
+                assert torch.equal(fused[1], got[1])
+    with C.tuning_scope(sort_hyper=m):
+        for nn in WINDOW_SIZES:
+            kk = _keys(gen, nn, dtype)
+            vv = torch.randint(0, 50, (nn,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+            C.reset_launch_count()
+            got = SK.bitonic_sort(kk)
+            torch.cuda.synchronize()
+            assert C.launch_count() == SK.cross_launches(nn, hyper=m)
+            assert torch.equal(got, SK.bitonic_sort(kk, plain=True))
+            for tie in (False, True):
+                got = SK.bitonic_sort_kv(kk, vv, tie_break=tie)
+                want = SK.bitonic_sort_kv(kk, vv, tie_break=tie, plain=True)
+                assert torch.equal(got[0], want[0])
+                assert torch.equal(got[1], want[1])
+        rows = _keys(gen, 3 * 40000, dtype).view(3, 40000)
+        assert torch.equal(SK.bitonic_sort_batched(rows),
+                           SK.bitonic_sort_batched(rows, plain=True))
+        assert torch.equal(SK.bitonic_argsort_batched(rows),
+                           SK.bitonic_argsort_batched(rows, plain=True))
+
+
+@pytest.mark.parametrize("m", range(7))
+def test_sort_hyper_reaches_the_card_with_closed_form_launches(gen, m):
+    """``tuning.set("sort", sort_hyper=m)`` reaches the CUDA network: the
+    window kernel launches for m >= 1, the unfused kernel for m = 0, and
+    the counted launches equal the closed form."""
+    x = _keys(gen, 1 << 18, torch.float32)
+    registry.tuning.set("sort", sort_hyper=m)
+    try:
+        C.reset_launch_count()
+        s = ak.merge_sort(x)
+        torch.cuda.synchronize()
+        kern = C.kernel_launches()
+    finally:
+        registry.tuning.reset("sort")
+    assert torch.equal(s, torch.sort(x).values)
+    assert sum(kern.values()) == SK.cross_launches(1 << 18, hyper=m)
+    assert ("bitonic_window" in kern) == (m >= 1)
+    assert ("bitonic_cross" in kern) == (m == 0)
 
 
 def test_auto_dispatch_launches_kernels(gen):
@@ -511,13 +585,14 @@ def test_flash_kernel_vs_plain(gen, dtype, sq, sk, causal):
     C.reset_launch_count()
     got = AK.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert C.kernel_launches() == {"flash_attention": 1}
+    path = AK.attention_path(BH, sq, sk, 1, 1, hd, dtype, causal)
+    assert C.kernel_launches() == {AK.PATH_KERNELS[path]: 1}
     assert got.dtype == dtype and got.shape == q.shape
     _assert_attention_close(got, KREF.flash_attention_ref(q, k, v,
                                                           causal=causal))
 
 
-@pytest.mark.parametrize("hd", AK.HEAD_DIMS)
+@pytest.mark.parametrize("hd", (16, 32, 64, 128))
 @pytest.mark.parametrize("shape", [(2, 100, 300, 8, 2, True),
                                    (8, 1, 289, 16, 8, False),
                                    (3, 70, 70, 4, 4, True)])
@@ -539,9 +614,84 @@ def test_flash_gqa_kernel_vs_plain_and_blockwise(gen, hd, shape):
 
 
 def test_flash_kernel_refuses_other_head_dims(gen):
-    q = torch.randn(1, 4, 2, 24, generator=gen, device="cuda")
+    q = torch.randn(1, 4, 2, 264, generator=gen, device="cuda")
     with pytest.raises(ValueError, match="head dims"):
         AK.flash_attention_gqa(q, q, q)
+
+
+FLASH_SQ = (1, 2, 7, 64, 65, 300)
+FLASH_SK = (1, 63, 64, 289, 1000)
+
+
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+@pytest.mark.parametrize("hd", (8, 64, 80, 128, 256))
+def test_flash_paths_vs_plain_over_the_grid(gen, hd, dtype):
+    """Every (Sq, Sk, causal, G) of the grid at this head dim and dtype
+    through the path ``attention_path`` picks, one launch counted under
+    that path's kernel, within the reference's tolerance."""
+    KV, B = 2, 2
+    seen = set()
+    for G in (1, 2, 4, 8):
+        H = KV * G
+        for Sq in FLASH_SQ:
+            for Sk in FLASH_SK:
+                q = torch.randn(B, Sq, H, hd, generator=gen,
+                                device="cuda").to(dtype)
+                k, v = (torch.randn(B, Sk, KV, hd, generator=gen,
+                                    device="cuda").to(dtype)
+                        for _ in range(2))
+                for causal in (True, False):
+                    path = AK.attention_path(B, Sq, Sk, H, KV, hd, dtype,
+                                             causal)
+                    seen.add(path)
+                    C.reset_launch_count()
+                    got = AK.flash_attention_gqa(q, k, v, causal=causal)
+                    torch.cuda.synchronize()
+                    assert C.kernel_launches() == {AK.PATH_KERNELS[path]: 1}
+                    _assert_attention_close(got, AK.flash_attention_gqa_ref(
+                        q, k, v, causal=causal))
+    assert "decode" in seen
+
+
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+def test_flash_decode_many_splits(gen, dtype):
+    """Past 256 tiles of keys a decode CTA walks several tiles (tps > 1)
+    and the last CTA merges up to 256 splits: still the plain result."""
+    for B, Sq, Sk, H, KV, hd, causal in ((2, 1, 20000, 4, 2, 128, False),
+                                         (1, 2, 17000, 8, 1, 64, False),
+                                         (1, 3, 20000, 2, 2, 80, True)):
+        q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(B, Sk, KV, hd, generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        assert AK.decode_split(Sq, Sk, causal)[1] >= (1 if causal else 2)
+        C.reset_launch_count()
+        got = AK.flash_attention_gqa(q, k, v, causal=causal, path="decode")
+        torch.cuda.synchronize()
+        assert C.kernel_launches() == {"flash_decode": 1}
+        _assert_attention_close(got, AK.flash_attention_gqa_ref(
+            q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("path", ("simt", "decode", "wgmma"))
+def test_flash_each_path_forced(gen, path):
+    """Each kernel forced on shapes the rule would give another path:
+    same results within the tolerance."""
+    cases = [(2, 7, 289, 4, 2, 64), (1, 65, 1000, 2, 2, 128),
+             (2, 1, 63, 16, 2, 256), (3, 300, 64, 8, 8, 80)]
+    for B, Sq, Sk, H, KV, hd in cases:
+        if path == "decode" and (H // KV) * Sq > AK.DECODE_ROWS:
+            continue
+        dtype = torch.bfloat16 if path == "wgmma" else torch.float32
+        q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(B, Sk, KV, hd, generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        for causal in (True, False):
+            C.reset_launch_count()
+            got = AK.flash_attention_gqa(q, k, v, causal=causal, path=path)
+            torch.cuda.synchronize()
+            assert C.kernel_launches() == {AK.PATH_KERNELS[path]: 1}
+            _assert_attention_close(got, AK.flash_attention_gqa_ref(
+                q, k, v, causal=causal))
 
 
 def test_grouped_mm_equals_the_expert_loop(gen):

@@ -11,10 +11,12 @@ import types
 import pytest
 import torch
 
+from repro.core import registry as jreg
 from repro_torch import core as ak
 from repro_torch.core import dispatch, registry
 from repro_torch.kernels import _build
 from repro_torch.kernels import common as KC
+from repro_torch.kernels import sort_kernel as SK
 from repro_torch.runtime import telemetry
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -129,18 +131,58 @@ def test_override_precedence():
     ("sort", {"switch_below": -1}, ValueError),
     ("sort", {"block_rows": 24}, ValueError),
     ("sort", {"block_cols": 100}, ValueError),
-    ("sort", {"sort_hyper": 3}, ValueError),
+    ("sort", {"sort_hyper": 7}, ValueError),
     ("searchsorted", {"sort_hyper": 0}, KeyError),
     ("searchsorted", {"block_rows": 8}, KeyError),
     ("minmax_histogram", {"block_cols": 128}, KeyError),
     ("bincount", {"switch_below": 1}, KeyError),
     ("mapreduce", {"block_rows": 8}, KeyError),
     ("segmented_scan", {"sort_hyper": 0}, KeyError),
-    ("segmented_sort", {"sort_hyper": 3}, ValueError),
+    ("segmented_sort", {"sort_hyper": 7}, ValueError),
 ])
 def test_tuning_validation(name, knobs, exc):
     with pytest.raises(exc):
         registry.tuning.set(name, **knobs)
+
+
+@pytest.mark.parametrize("value", [None, 0, 1, 2, 3, 4, 5, 6, 7, -1, True,
+                                   2.0, "3"])
+@pytest.mark.parametrize("name", ["sort", "sort_kv", "segmented_sort"])
+def test_sort_hyper_values_match_the_reference(name, value):
+    """``sort_hyper`` takes None or an int in [0, 6] and raises
+    ``ValueError`` otherwise, case for case as the reference does."""
+    outcome = []
+    for reg in (jreg, registry):
+        try:
+            reg.tuning.set(name, sort_hyper=value)
+            outcome.append("ok")
+        except ValueError:
+            outcome.append("ValueError")
+        finally:
+            reg.tuning.reset(name)
+    assert outcome[0] == outcome[1]
+    assert outcome[1] == ("ok" if value is None or (
+        type(value) is int and 0 <= value <= 6) else "ValueError")
+
+
+@pytest.mark.parametrize("m", range(1, 7))
+def test_sort_hyper_reaches_the_window_kernel(monkeypatch, m):
+    """Every order m >= 1 set through the registry reaches the network's
+    window launches (stubbed here: the CPU has no card), at most m stages
+    a window, and the sort stays right."""
+    seen = []
+    orig = SK._run_window
+    monkeypatch.setattr(SK, "_run_window", lambda k, v, kk, j, w, *a: (
+        seen.append(w), orig(k, v, kk, j, w, *a))[1])
+    x = torch.randn(40000)
+    registry.tuning.set("sort", sort_hyper=m)
+    try:
+        got = ak.merge_sort(x, backend="cuda")
+    finally:
+        registry.tuning.reset("sort")
+    assert torch.equal(got, torch.sort(x).values)
+    assert seen and max(seen) <= m and len(seen) == sum(
+        -(-i // m) for i in (1, 2, 3))
 
 
 def test_block_knobs_reach_the_network():

@@ -71,16 +71,19 @@ def test_batched_launch_set_closed_form_does_not_grow_with_rows():
     # the plain network runs the kernels' stages; their count is the
     # closed form of one row, whatever the number of rows
     calls = []
-    orig_in, orig_cx = SK._run_inblock, SK._run_cross
-    SK._run_inblock = lambda *a, **k: (calls.append(1), orig_in(*a, **k))[1]
-    SK._run_cross = lambda *a, **k: (calls.append(1), orig_cx(*a, **k))[1]
+    names = ("_run_inblock", "_run_cross", "_run_window")
+    orig = {n: getattr(SK, n) for n in names}
+    for n in names:
+        setattr(SK, n, lambda *a, _f=orig[n], **k: (calls.append(1),
+                                                    _f(*a, **k))[1])
     try:
         for rows in (1, 5):
             calls.clear()
             SK.bitonic_argsort_batched(torch.randn(rows, 20000))
             assert len(calls) == SK.cross_launches(20000)
     finally:
-        SK._run_inblock, SK._run_cross = orig_in, orig_cx
+        for n in names:
+            setattr(SK, n, orig[n])
 
 
 def _near_cut(lg, top_p, tol=1e-5):

@@ -20,6 +20,7 @@ import torch
 
 from repro import core as jak
 from repro.core import registry as jreg
+from repro.kernels import common as JKC
 from repro.kernels import sort_kernel as JSK
 from repro_torch import core as ak
 from repro_torch.core import registry as treg
@@ -118,36 +119,154 @@ def test_network_launches_equal_reference_unfused(total, first_k):
                                      (1 << 20, 4), (1 << 27, 4),
                                      (8 * 5000, 8)])
 def test_merge_and_cross_launches_equal_reference(n, nruns):
-    assert TMK.merge_launches(n, nruns) == JMK.merge_launches(
+    assert TMK.merge_launches(n, nruns, hyper=0) == JMK.merge_launches(
         n, nruns, hyper=0, block=8192)
-    assert TSK.cross_launches(n) == JSK.cross_launches(n, hyper=0,
-                                                       block=8192)
+    assert TSK.cross_launches(n, hyper=0) == JSK.cross_launches(
+        n, hyper=0, block=8192)
+    # at the default order: the reference's fused count plus the port's
+    # separate in-block finish, one per cross phase
+    m = TSK.HYPER_ORDER
+    phases = TSK.cross_launches(n, hyper=0) - JSK.cross_launches(
+        n, hyper=1, block=8192)
+    assert TSK.cross_launches(n) == JSK.cross_launches(
+        n, hyper=m, block=8192) + phases
 
 
-def test_main_path_closed_forms():
-    """The counts the card run is held to: 136 launches for a 2^28 sort,
-    105 for the 2^26 local sort, 29 (< 120) for the P=4 merge finish."""
-    assert TSK.cross_launches(1 << 28) == 136
-    assert TSK.cross_launches(1 << 26) == 105
-    assert TMK.merge_launches(1 << 27, 4) == 29
-    assert TSK.cross_launches(1 << 27) == 120
+@pytest.mark.parametrize("hyper,want", [
+    (0, (136, 105, 29, 120)),
+    (None, (43, 35, 8, 39)),
+])
+def test_main_path_closed_forms(hyper, want):
+    """The counts the card run is held to: a 2^28 sort, the 2^26 local kv
+    sort, the P=4 merge finish of 2^27 (below a re-sort of the 2^27
+    buffer); unfused (136 / 105 / 29 / 120) and at the default order."""
+    got = (TSK.cross_launches(1 << 28, hyper=hyper),
+           TSK.cross_launches(1 << 26, hyper=hyper),
+           TMK.merge_launches(1 << 27, 4, hyper=hyper),
+           TSK.cross_launches(1 << 27, hyper=hyper))
+    assert got == want and got[2] < got[3]
 
 
+@pytest.mark.parametrize("hyper", [0, None])
 @pytest.mark.parametrize("n,first_k", [(1 << 16, 2), (1 << 18, 2),
                                        (1 << 18, 1 << 15)])
-def test_network_issues_closed_form_launches(monkeypatch, n, first_k):
-    """The network loop calls its two kernels exactly as often as the
-    closed form says (kernels stubbed: this counts calls, not data)."""
+def test_network_issues_closed_form_launches(monkeypatch, n, first_k,
+                                             hyper):
+    """The network loop calls its kernels exactly as often as the closed
+    form says (kernels stubbed: this counts calls, not data)."""
     calls = []
-    monkeypatch.setattr(TSK, "_run_inblock",
-                        lambda k, v, *a: (calls.append("in"), (k, v))[1])
-    monkeypatch.setattr(TSK, "_run_cross",
-                        lambda k, v, *a: (calls.append("x"), (k, v))[1])
+    for name in ("_run_inblock", "_run_cross", "_run_window"):
+        monkeypatch.setattr(
+            TSK, name, lambda k, v, *a, _n=name: (calls.append(_n),
+                                                  (k, v))[1])
     dummy = torch.empty(0)
-    TSK._sort_network(dummy, None, n, False, block=8192, cuda=True,
-                      first_k=first_k)
-    assert len(calls) == TSK.network_launches(n, first_k=first_k, hyper=0,
+    with TC.tuning_scope(sort_hyper=hyper):
+        TSK._sort_network(dummy, None, n, False, block=8192, cuda=True,
+                          first_k=first_k)
+        m = TSK._hyper_order()
+    assert len(calls) == TSK.network_launches(n, first_k=first_k, hyper=m,
                                               block=8192)
+    assert ("_run_cross" in calls) == (m == 0)
+    assert ("_run_window" in calls) == (m > 0)
+
+
+SCHED_TOTALS = [1024, 1 << 13, 1 << 14, 1 << 17, 1 << 20, 1 << 28]
+
+
+def _stages(schedule, block):
+    """The (k, j) compare-exchange stages a schedule runs, in order."""
+    out = []
+    for item in schedule:
+        if item[0] == "inblock":
+            k = item[1]
+            while k <= item[2]:
+                out.extend(TSK._stages_upto_block(k, block))
+                k *= 2
+        elif item[0] == "cross":
+            out.append((item[1], item[2]))
+        else:
+            _, k, jtop, w = item
+            out.extend((k, jtop >> s) for s in range(w))
+    return out
+
+
+@pytest.mark.parametrize("hyper", range(7))
+@pytest.mark.parametrize("total", SCHED_TOTALS)
+def test_schedule_is_the_closed_form_and_the_unfused_stages(hyper, total):
+    """The pure schedule: its length is the closed form at every order,
+    every window fuses at most ``hyper`` consecutive halving cross stages
+    of one phase, and its windows cover exactly the stages of the unfused
+    sequence, in order."""
+    block = 1024
+    for first_k in (2, 64, 2048, 1 << 14):
+        if first_k > total:
+            continue
+        sched = TSK.network_schedule(total, first_k=first_k, hyper=hyper,
+                                     block=block)
+        assert len(sched) == TSK.network_launches(
+            total, first_k=first_k, hyper=hyper, block=block)
+        assert _stages(sched, block) == _stages(TSK.network_schedule(
+            total, first_k=first_k, hyper=0, block=block), block)
+        for item in sched:
+            if item[0] == "window":
+                assert 1 <= item[3] <= hyper
+                assert item[2] >> (item[3] - 1) >= block
+            assert item[0] != "cross" or hyper == 0
+
+
+FUSED_SIZES = [100, 1024, 7 * 1024, 9 * 1024]
+
+
+@pytest.mark.parametrize("hyper", [0, 1, 3, 6])
+@pytest.mark.parametrize("n", FUSED_SIZES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_window_plain_network_equals_np_sort(hyper, n, dtype):
+    """Under a shrunk 8 x 128 block the windows engage at test sizes; at
+    every order the plain network sorts keys as np.sort does and the kv
+    network with the tie-break gives the lexicographic order."""
+    rng = np.random.default_rng(n + hyper)
+    k, v = keys(rng, n, dtype), _payload(rng, n)
+    with TC.tuning_scope(block_rows=8, block_cols=128, sort_hyper=hyper):
+        got = TSK.bitonic_sort(t(k))
+        gk, gv = TSK.bitonic_sort_kv(t(k), t(v), tie_break=True)
+    kf = k.astype(np.float32)
+    assert_bitwise(got, k[np.argsort(kf, kind="stable")])
+    order = np.lexsort((v, kf))
+    assert_bitwise(gk, k[order])
+    assert_bitwise(gv, v[order])
+
+
+@pytest.mark.parametrize("hyper", [1, 3, 6])
+@pytest.mark.parametrize("n", [9 * 1024])
+def test_fused_window_network_bitwise_vs_reference(hyper, n):
+    """The port's plain network against the reference's ``_sort_network``
+    (Pallas, interpret mode) at the same order and shrunk block: keys and
+    the kv pair order with the tie-break off, which is the network's own."""
+    rng = np.random.default_rng(5 * hyper)
+    k, v = keys(rng, n, "i32"), _payload(rng, n)
+    with JKC.tuning_scope(block_rows=8, block_cols=128, sort_hyper=hyper):
+        wk, wv = JSK.bitonic_sort_kv(jnp.asarray(k), jnp.asarray(v))
+    with TC.tuning_scope(block_rows=8, block_cols=128, sort_hyper=hyper):
+        gk, gv = TSK.bitonic_sort_kv(t(k), t(v))
+    assert_bitwise(gk, np.asarray(wk))
+    assert_bitwise(gv, np.asarray(wv))
+
+
+@pytest.mark.parametrize("w", range(1, 7))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_top_window_on_a_bitonic_sequence_sorts_columns(w, dtype):
+    """The window of the last phase at distances n/2 .. n/2^w, applied to
+    a bitonic sequence (as the network feeds it), sorts each column of
+    view(2^w, -1): the same as one ``torch.sort`` along dim 0, which is
+    why ``chip_smoke.py`` times that call as the window's yardstick."""
+    n = 1 << 12
+    rng = np.random.default_rng(w)
+    k = keys(rng, n, dtype)
+    k = k[np.argsort(k.astype(np.float32), kind="stable")]
+    x = t(np.concatenate([k[: n // 2], k[n // 2:][::-1]]))
+    got = TSK._run_window(x.clone(), None, n, n // 2, w, False, False)[0]
+    want = torch.sort(x.view(1 << w, -1), dim=0).values.reshape(-1)
+    assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 def test_cpu_path_counts_no_launches():
