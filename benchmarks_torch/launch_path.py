@@ -63,9 +63,12 @@ SWEEP_NQ = (1, 3, 32, 300, 1024, 4096, 6144, 8192, 16384, 65536, 1 << 18,
             1 << 20)
 
 
-def device_us(fn, calls: int = CALLS) -> float:
+def device_us(fn, calls: int = CALLS, kernels: int = 0) -> float:
     """Device microseconds per call: every kernel ``fn`` launches, summed
-    over ``calls`` warm calls in a profiler trace, over ``calls``."""
+    over ``calls`` warm calls in a profiler trace, over ``calls``. Raises
+    when the trace holds fewer than ``kernels`` device events a call:
+    traces on an H100 have dropped kernels (one in 20 calls of the
+    single-pass max scan in every run), and would then read too short."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -73,12 +76,40 @@ def device_us(fn, calls: int = CALLS) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total, seen = 0.0, 0
     for evt in prof.key_averages():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             total += float(getattr(evt, "self_device_time_total", 0.0)
                            or getattr(evt, "self_cuda_time_total", 0.0))
+            seen += evt.count
+    if seen < calls * kernels:
+        raise RuntimeError(f"profiler trace holds {seen} device events for "
+                           f"{calls} calls of {kernels} kernel(s) each")
     return total / calls
+
+
+def queued_device_us(fn, calls: int = 20) -> float:
+    """Device microseconds per call by CUDA events alone: ``calls`` warm
+    calls queued behind a sleep kernel, so the host has launched them all
+    before the first starts and the events see the device's time (the
+    gaps between back-to-back kernels included). Lengthens the sleep
+    while the host is slower than it, and raises if ``fn`` waits on the
+    device (its calls can then not be queued)."""
+    fn()
+    torch.cuda.synchronize()
+    for cycles in (1 << 25, 1 << 27, 1 << 29):  # ~17 ms to ~0.3 s
+        torch.cuda._sleep(cycles)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        queued = not start.query()  # the sleep still runs
+        end.record()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) * 1e3 / calls
+    raise RuntimeError("the calls could not be queued behind the sleep")
 
 
 def row(fns: dict, rounds: int = 9, calls: int = 2000) -> dict:

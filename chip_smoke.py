@@ -50,7 +50,9 @@ on full-width internlm2-1.8B. Phases:
      where it is not, within the bodies' conditioning for RBF/LJG), the
      launches against the closed forms, ``portable_calls == 0``, and
      timings beside the plain versions, a PyTorch call where one computes
-     the same function, and the bounds;
+     the same function, and the bounds; the reduce's and the scan's
+     device time (CUDA events around calls queued behind a sleep kernel,
+     ``benchmarks_torch.launch_path.queued_device_us``);
   7. the serving path (``benchmarks_torch/serving.py``): internlm2-1.8B at
      full width (random bf16 weights from the seed), ``Engine(paged=True)``
      with 8 slots serving 16 requests of 256 prompt tokens and 64 new
@@ -66,7 +68,8 @@ on full-width internlm2-1.8B. Phases:
      CLI once on the smoke config; tokens/s, TTFT, kernel timings and where
      one decode step's device time goes;
   8. flash attention through its entry points at the serving shapes, the
-     head dims 8, 80 and 256 and the reference test file's float32 grid:
+     head dims 8, 80, 256 and 320 and the reference test file's float32
+     grid:
      one launch a call under the kernel ``attention_path`` picks (decode,
      tensor-core or CUDA-core), each against its plain version (rtol 2e-4
      / atol 2e-5, + 1 bf16 ulp), timed beside SDPA, ``blockwise_attention``
@@ -122,9 +125,11 @@ def sum_rtol(n: int) -> tuple[float, int]:
     each thread folds n / (1024 CTAs x 256 threads) terms in sequence
     (1024 at 2^28), then 8 tree levels in its CTA; the last CTA folds 4
     partials per thread, 8 levels more, and init: d = 1045 and rtol =
-    1.93e-6 at 2^28. The scan kernel's chains are shorter (16 terms and 9
-    levels in each of its three passes, and the 4 carries of pass 2's walk
-    over 2^15 tile aggregates)."""
+    1.93e-6 at 2^28. The scan's single pass is shorter: 16 terms of a
+    thread's run, 5 + 5 levels of the warp scans, 9 of the group fold
+    (tests/torch_scan_model.py), one hop of the E chain per 128-tile
+    group before (255 at 2^28) and 4 seed applications: d <= 294 at
+    2^28."""
     d = n // (1024 * 256) + 21
     return math.sqrt(d) * 2.0 ** -24, d
 
@@ -544,6 +549,7 @@ def phase_streaming(ak, registry, C, errs, seed: int) -> dict:
     segmented primitives at full size; returns counts, checks, timings."""
     from benchmarks_torch import arithmetic as AR
     from benchmarks_torch import streaming_inputs as SI
+    from benchmarks_torch.launch_path import queued_device_us
     from repro_torch.kernels import map_kernel as MAPK
     from repro_torch.kernels import ref as KREF
     from repro_torch.kernels import reduce_kernel as RK
@@ -597,17 +603,18 @@ def phase_streaming(ak, registry, C, errs, seed: int) -> dict:
     for name, st in stats.items():
         check(st["portable_calls"] == 0,
               f"{name}: {st['portable_calls']} portable calls on the path")
-    scan3 = SCK.scan_launches(STREAM_N)
+    scan1 = SCK.scan_launches(STREAM_N)
+    seg3 = SGK.segmented_scan_launches(STREAM_N)
     sort_l = (SGK.segmented_sort_launches(SORT_N)
               + SGK.segmented_sort_launches(SORT_N, payload=True))
     want = {"map": 2 * MAPK.map_launches(MAP_N),
             "mapreduce": 4 * RK.reduce_launches(STREAM_N),
-            "accumulate": 3 * scan3, "segmented_reduce": 2 * scan3,
-            "segmented_scan": 2 * scan3, "segmented_sort": sort_l}
+            "accumulate": 3 * scan1, "segmented_reduce": 2 * seg3,
+            "segmented_scan": 2 * seg3, "segmented_sort": sort_l}
     check(counts == want, f"streaming launches {counts} != closed forms "
                           f"{want}")
-    check(kernels.get("segmented_scan") == 4 * scan3 == 12
-          and kernels.get("scan") == 3 * scan3 == 9
+    check(kernels.get("segmented_scan") == 4 * seg3 == 12
+          and kernels.get("scan") == 3 * scan1 == 3
           and kernels.get("reduce") == 4 and kernels.get("map") == 2,
           f"per-kernel launches {kernels}")
     log(f"streaming path: {out['path_s']:.2f} s, launches {counts} (closed "
@@ -735,15 +742,21 @@ def phase_streaming(ak, registry, C, errs, seed: int) -> dict:
     off64 = off.long()
     rows = {}
 
-    def row(name, fn, plain, lib, nbytes, ops, lib_note=None):
+    def row(name, fn, plain, lib, nbytes, ops, lib_note=None,
+            device=False):
         r = {"ms": cuda_ms(fn), "plain_ms": cuda_ms(plain, reps=3),
              "library_ms": cuda_ms(lib) if lib else None,
              "library": lib_note}
         r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
+        if device:  # the reduce's and the scan's device time alone
+            r["device_us"] = queued_device_us(fn)
+            r["library_device_us"] = queued_device_us(lib)
         rows[name] = r
         log(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
             f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']})")
+            f"{r['bound_by']})" + (
+                f"; device {r['device_us']:.2f} us (library "
+                f"{r['library_device_us']:.2f})" if device else ""))
 
     row("map_rbf", lambda: AR.rbf_kernel(v),
         lambda: KREF.map_ref(MAPK.rbf, *v), None, 4 * MAP_N * 4,
@@ -762,20 +775,21 @@ def phase_streaming(ak, registry, C, errs, seed: int) -> dict:
         row(name, lambda op=op, unit=unit: ak.reduce(op, x, init=unit),
             lambda op=op, unit=unit: KREF.reduce_ref(MAPK.identity, op, x,
                                                      unit=unit),
-            lambda lib=lib: lib(x), nb, STREAM_N, lib.__name__)
+            lambda lib=lib: lib(x), nb, STREAM_N, lib.__name__, device=True)
     row("accumulate_add", lambda: ak.accumulate(torch.add, x, init=0.0),
         lambda: KREF.scan_ref(torch.add, x, unit=0.0),
-        lambda: torch.cumsum(x, 0), 2 * nb, STREAM_N, "torch.cumsum")
+        lambda: torch.cumsum(x, 0), 2 * nb, STREAM_N, "torch.cumsum",
+        device=True)
     row("accumulate_max",
         lambda: ak.accumulate(torch.maximum, x, init=-inf),
         lambda: KREF.scan_ref(torch.maximum, x, unit=-inf),
         lambda: torch.cummax(x, 0), 2 * nb, STREAM_N,
-        "torch.cummax (also writes int64 indices)")
+        "torch.cummax (also writes int64 indices)", device=True)
     row("accumulate_excl_int32",
         lambda: ak.accumulate(torch.add, xi, init=0, inclusive=False),
         lambda: KREF.scan_ref(torch.add, xi, unit=0, exclusive=True),
         lambda: torch.cumsum(xi, 0, dtype=torch.int32), 2 * nb, STREAM_N,
-        "torch.cumsum (inclusive)")
+        "torch.cumsum (inclusive)", device=True)
     seg_bytes = 2 * nb + 4 * (S + 1)
     row("segmented_reduce_add",
         lambda: ak.segmented_reduce(torch.add, x, off, init=0.0),
@@ -1091,6 +1105,8 @@ ATTN_SHAPES = (
     ("prefill, hd 80", 4, 300, 300, 16, 8, 80, True, torch.bfloat16),
     ("prefill, hd 256", 2, 512, 512, 8, 4, 256, True, torch.bfloat16),
     ("decode, hd 256, f32", 4, 1, 1000, 8, 4, 256, False, torch.float32),
+    ("prefill, hd 320", 2, 256, 256, 8, 4, 320, True, torch.bfloat16),
+    ("prefill, hd 320, f32", 2, 256, 256, 8, 4, 320, True, torch.float32),
 )
 # (Sq, Sk) of tests/test_attention_kernel.py's grid: BH 4, hd 64, float32
 ATTN_GRID = ((128, 512), (128, 1024), (256, 512), (100, 300), (1, 512))
@@ -1130,14 +1146,15 @@ def attention_err(got, want, what) -> float:
 def phase_attention(C, errs) -> dict:
     """Phase 8: flash attention through its own entry points
     (``flash_attention_gqa`` at the serving shapes and the head dims 8,
-    80, 256, ``flash_attention`` on the JAX test file's grid), counted:
+    80, 256 and 320 (above 256: the CUDA-core kernel in column slices),
+    ``flash_attention`` on the JAX test file's grid), counted:
     one launch per call under the kernel ``attention_path`` picks. Then
     each result against its plain version, timings beside the port's
     ``blockwise_attention`` (what the models run), SDPA (the library
     yardstick) and the bound (bf16 at the tensor-core rate). The table
     behind the path rule is ``benchmarks_torch/attention_paths.py``."""
     import torch.nn.functional as F
-    from benchmarks_torch.launch_path import device_us
+    from benchmarks_torch.launch_path import queued_device_us
     from repro_torch.kernels import attention_kernel as AK
     from repro_torch.kernels import ref as KREF
     from repro_torch.models import layers as L
@@ -1212,6 +1229,8 @@ def phase_attention(C, errs) -> dict:
         b, by = bound(nbytes, ops, BF16_OPS_PER_S
                       if q.dtype == torch.bfloat16 else F32_OPS_PER_S)
         reps = 3 if c["Sq"] > 4096 else 10
+        dev = queued_device_us(lambda: kernel(c))
+        lib_dev = queued_device_us(lambda: sdpa(c))
         rows.append({
             "shape": c["name"], "q": list(q.shape), "k": list(k.shape),
             "dtype": str(q.dtype), "causal": c["causal"], "path": c["path"],
@@ -1221,15 +1240,14 @@ def phase_attention(C, errs) -> dict:
             "plain_ms": cuda_ms(lambda: plain(c), reps=reps),
             "blockwise_ms": cuda_ms(lambda: blockwise(c), reps=reps),
             "library_ms": cuda_ms(lambda: sdpa(c), reps=reps),
-            "device_us": device_us(lambda: kernel(c), calls=20),
-            "library_device_us": device_us(lambda: sdpa(c), calls=20),
+            "device_us": dev, "library_device_us": lib_dev,
             "bound_ms": b, "bound_by": by})
         r = rows[-1]
         log(f"  flash {r['shape']} {r['dtype']} [{c['path']}]: "
             f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, blockwise "
             f"{r['blockwise_ms']:.4f}, sdpa {r['library_ms']:.4f}, bound "
-            f"{b:.4f} ms by {by}); device {r['device_us']:.2f} us (sdpa "
-            f"{r['library_device_us']:.2f}); max |kernel - plain| {err:.3g}")
+            f"{b:.4f} ms by {by}); device {dev:.2f} us (sdpa "
+            f"{lib_dev:.2f}); max |kernel - plain| {err:.3g}")
     del outs
     torch.cuda.empty_cache()
     return {"kernel_launches": kern, "rows": rows}
@@ -1668,6 +1686,9 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b,
             "bound_by": by, "library_ms": r["library_ms"],
         })
+        for f in ("device_us", "library_device_us"):
+            if f in r:  # the reduce's and the scan's rows
+                kernels[-1][f] = r[f]
     log(f"phase 6 done in {time.perf_counter() - t0:.1f} s; comparisons "
         f"per kernel " + json.dumps(errs.cases))
 
@@ -1707,7 +1728,8 @@ def main() -> int:
             "max_abs_err": errs.err[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"]})
+            "shape": r["shape"], "device_us": r["device_us"],
+            "library_device_us": r["library_device_us"]})
     log(f"phase 8 done in {time.perf_counter() - t0:.1f} s")
 
     # -- 9. granite-moe-1b through the serving engine ------------------------

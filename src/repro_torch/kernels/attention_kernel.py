@@ -23,11 +23,13 @@ per path. ``attention_path`` picks the path from the shape alone:
     sizes the splits);
   * ``"wgmma"`` for bfloat16 with hd a multiple of 16: the tensor-core
     prefill kernel (TMA ring, ``wgmma``, P fed as bf16 hi + lo);
-  * ``"simt"`` otherwise (float32, or other head dims): the CUDA-core
-    kernel, every product an IEEE float32 fma.
+  * ``"simt"`` otherwise (float32, other head dims, and every head dim
+    above ``HEAD_DIM_MAX``): the CUDA-core kernel, every product an IEEE
+    float32 fma; above 256 it walks the output columns in slices of 256
+    along its grid's z axis.
 
-Every head dim from 1 to 256 runs; above 256 the wrapper raises (the
-reference takes any). A call is one launch, counted under its path's
+Every head dim from 1 up runs, as in the reference; below 1 the wrapper
+raises. A call is one launch, counted under its path's
 kernel name (``PATH_KERNELS``). The bound is operations at prefill shapes
 (bf16 at the tensor-core rate, float32 at the CUDA-core rate) and bytes at
 decode shapes (``chip_smoke.py`` computes both).
@@ -48,7 +50,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import common as C
 from repro_torch.kernels.ref import flash_attention_ref, full_f32_matmul
 
-#: largest head dim the kernels take
+#: largest head dim the decode and tensor-core kernels take (the
+#: CUDA-core kernel takes any)
 HEAD_DIM_MAX = 256
 #: rows (G * Sq) one decode CTA holds: ``attention_path`` takes the
 #: decode kernel up to there
@@ -88,7 +91,8 @@ def attention_path(B: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
                    dtype: torch.dtype, causal: bool) -> str:
     """The kernel a call of this shape takes on the card: ``"decode"``,
     ``"wgmma"`` or ``"simt"`` (a pure function of the shape; see the
-    module note). Raises for a head dim outside [1, 256].
+    module note): ``"simt"`` for every head dim above ``HEAD_DIM_MAX``.
+    Raises for a head dim below 1.
 
     At Sq = 1 the rule keeps decode even where the tensor-core kernel
     was measured 2-9% faster (B 8, KV 8, G 2: its B * H = 128 CTAs fill
@@ -96,9 +100,11 @@ def attention_path(B: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
     waves) decode won by 6-40% (``benchmarks_torch/attention_paths.py``,
     NVIDIA H100 80GB HBM3, 700.00 W). That margin turns on B * H against
     the SM count, which this rule does not read."""
-    if not 1 <= hd <= HEAD_DIM_MAX:
-        raise ValueError(f"the flash kernels take head dims 1 to "
-                         f"{HEAD_DIM_MAX}, got {hd}")
+    if hd < 1:
+        raise ValueError(f"the flash kernels take head dims from 1, got "
+                         f"{hd}")
+    if hd > HEAD_DIM_MAX:
+        return "simt"
     tc = dtype == torch.bfloat16 and hd % 16 == 0
     if (H // KV) * Sq <= DECODE_ROWS and (not tc or Sq <= DECODE_MAX_SQ_TC):
         return "decode"
@@ -218,10 +224,13 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
 
 def _resolve(path, B, Sq, Sk, H, KV, hd, dtype, causal) -> str:
     """``path`` if the caller forced one the shape allows, else the rule's
-    (``attention_path`` also refuses head dims outside [1, 256])."""
+    (``attention_path`` also refuses head dims below 1)."""
     want = attention_path(B, Sq, Sk, H, KV, hd, dtype, causal)
     if path is None or path == want:
         return want
+    if path in ("wgmma", "decode") and hd > HEAD_DIM_MAX:
+        raise ValueError(f"the {path} kernel takes head dims 1 to "
+                         f"{HEAD_DIM_MAX}, got {hd}")
     if path == "wgmma" and not (dtype == torch.bfloat16 and hd % 16 == 0):
         raise ValueError(f"the tensor-core kernel takes bfloat16 with hd a "
                          f"multiple of 16, got {dtype} hd {hd}")

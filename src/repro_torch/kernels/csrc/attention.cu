@@ -23,10 +23,16 @@
 //    registers: thread (ty, tx) = (tid / 16, tid % 16) holds rows 4 ty ..
 //    4 ty + 3, score columns tx + 16 j (j < 4) and output columns tx + 16 c
 //    (c < HDP / 16). HDP is hd rounded up to 16, 32, 64, 128, 192 or 256;
-//    the columns past hd load as 0 and are not stored. Every product is an
-//    IEEE float32 fma on the CUDA cores (TF32's 10-bit mantissa cannot hold
-//    rtol 2e-4). Bound: operations (4 BH Sq Sk hd flops, half of it under
-//    the causal mask, over the card's 67 TFLOP/s float32 rate).
+//    the columns past hd load as 0 and are not stored. Above 256 (CHUNK)
+//    the grid's z axis walks the output columns in slices of 256: each CTA
+//    accumulates S = Q K^T over the whole head dim, staging Q and K through
+//    the same shared memory 256 columns at a time (the fma chain runs over
+//    d in order, as below 256), then applies the online softmax and
+//    accumulates P V for its own 256 output columns only; every slice's CTA
+//    recomputes the same S. Every product is an IEEE float32 fma on the
+//    CUDA cores (TF32's 10-bit mantissa cannot hold rtol 2e-4). Bound:
+//    operations (4 BH Sq Sk hd flops, half of it under the causal mask,
+//    over the card's 67 TFLOP/s float32 rate).
 //
 // 2. decode_kernel (path "decode": G * Sq <= 16 rows share a KV head, any
 //    dtype and hd). The 64-row CTA of the simt kernel would leave all but
@@ -129,7 +135,9 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
-template <typename T, int HDP>
+// CHUNK (hd > 256, HDP = 256): this CTA stores output columns
+// [256 z, 256 z + 256) and stages Q and K in 256-column slices.
+template <typename T, int HDP, bool CHUNK>
 __global__ void __launch_bounds__(THREADS, HDP <= 128 ? 2 : 1)
 simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, T* __restrict__ out, Args a) {
@@ -147,18 +155,23 @@ simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long b = bh / a.H, h = bh % a.H;
   const long long kvh = h / (a.H / a.KV);
   const long long q0 = (long long)blockIdx.y * BQ;
+  const int c0 = CHUNK ? (int)blockIdx.z * HDP : 0;  // first output column
   const T* qp = q + b * a.qb + h * a.qh;
   const T* kp = k + b * a.kb + kvh * a.kh;
   const T* vp = v + b * a.vb + kvh * a.vh;
   T* op = out + b * a.ob + h * a.oh;
   const float NEG_INF = neg_inf();
 
-  for (int i = tid; i < BQ * HDP; i += THREADS) {
-    const int r = i / HDP, c = i % HDP;
-    const long long pos = q0 + r;
-    Qs[i] = pos < a.Sq && c < hd ? ak_to_float(qp[pos * a.qs + c]) * a.scale
-                                 : 0.f;
-  }
+  // Q's columns [d0, d0 + HDP), scaled; zero past Sq and past hd
+  auto stage_q = [&](int d0) {
+    for (int i = tid; i < BQ * HDP; i += THREADS) {
+      const int r = i / HDP, c = d0 + i % HDP;
+      const long long pos = q0 + r;
+      Qs[i] = pos < a.Sq && c < hd
+                  ? ak_to_float(qp[pos * a.qs + c]) * a.scale : 0.f;
+    }
+  };
+  if (!CHUNK) stage_q(0);
 
   float acc[4][CW];
   float m[4], l[4];
@@ -179,32 +192,39 @@ simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (long long t = 0; t < ntiles; ++t) {
     const long long k0 = t * BK;
-    __syncthreads();  // Q written; the previous tile's K, V, P read
-    for (int i = tid; i < BK * HDP; i += THREADS) {
-      const int r = i / HDP, c = i % HDP;
-      const long long pos = k0 + r;
-      const bool ok = pos < a.Sk && c < hd;
-      Ks[r * KS + c] = ok ? ak_to_float(kp[pos * a.ks + c]) : 0.f;
-      Vs[i] = ok ? ak_to_float(vp[pos * a.vs + c]) : 0.f;
-    }
-    __syncthreads();
-
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    // one slice of HDP columns below 256; hd / 256 rounded up above
+    for (int d0 = 0; d0 < (CHUNK ? hd : 1); d0 += HDP) {
+      __syncthreads();  // Q written; the previous slice's or tile's Q, K,
+                        // V, P read
+      if (CHUNK) stage_q(d0);
+      for (int i = tid; i < BK * HDP; i += THREADS) {
+        const int r = i / HDP, c = i % HDP;
+        const long long pos = k0 + r;
+        Ks[r * KS + c] = pos < a.Sk && d0 + c < hd
+                             ? ak_to_float(kp[pos * a.ks + d0 + c]) : 0.f;
+        if (d0 == 0)  // V: this CTA's output columns
+          Vs[i] = pos < a.Sk && c0 + c < hd
+                      ? ak_to_float(vp[pos * a.vs + c0 + c]) : 0.f;
+      }
+      __syncthreads();
+
 #pragma unroll 8
-    for (int d = 0; d < HDP; ++d) {
-      float qv[4], kv[4];
+      for (int d = 0; d < HDP; ++d) {
+        float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * HDP + d];
+        for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * HDP + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * KS + d];
+        for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * KS + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
     }
 
 #pragma unroll
@@ -258,26 +278,27 @@ simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < CW; ++c) {
-      const int col = tx + 16 * c;
+      const int col = c0 + tx + 16 * c;
       if (col < hd) op[qpos * a.os + col] = from_float<T>(acc[i][c] / denom);
     }
   }
 }
 
-template <typename T, int HDP>
+template <typename T, int HDP, bool CHUNK = false>
 int launch_simt(const void* q, const void* k, const void* v, void* out,
                 long long BH, const Args& a, cudaStream_t stream) {
   constexpr size_t bytes = simt_smem_bytes<HDP>();
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        simt_kernel<T, HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        simt_kernel<T, HDP, CHUNK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const dim3 grid((unsigned int)BH, (unsigned int)((a.Sq + BQ - 1) / BQ));
-  simt_kernel<T, HDP><<<grid, THREADS, bytes, stream>>>(
+  const dim3 grid((unsigned int)BH, (unsigned int)((a.Sq + BQ - 1) / BQ),
+                  CHUNK ? (unsigned int)((a.hd + HDP - 1) / HDP) : 1u);
+  simt_kernel<T, HDP, CHUNK><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), a);
   return (int)cudaGetLastError();
@@ -293,7 +314,7 @@ int dispatch_simt(const void* q, const void* k, const void* v, void* out,
   if (hd <= 128) return launch_simt<T, 128>(q, k, v, out, BH, a, s);
   if (hd <= 192) return launch_simt<T, 192>(q, k, v, out, BH, a, s);
   if (hd <= 256) return launch_simt<T, 256>(q, k, v, out, BH, a, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_simt<T, 256, true>(q, k, v, out, BH, a, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -981,8 +1002,9 @@ int dispatch_tc(const void* q, const void* k, const void* v, void* out,
 
 // q: B x H heads of Sq rows, k and v: B x KV heads of Sk rows, out like q;
 // each addressed by element strides of (b, head, row) with the head dim
-// contiguous. dtype: AK_F32 or AK_BF16 for all four; 1 <= hd <= 256; H a
-// multiple of KV. path: 0 the CUDA-core kernel, 1 the split-K decode kernel
+// contiguous. dtype: AK_F32 or AK_BF16 for all four; hd >= 1 (at most 256
+// on paths 1 and 2); H a multiple of KV. path: 0 the CUDA-core kernel (any
+// hd), 1 the split-K decode kernel
 // (G * Sq <= 16 rows; nsplit CTAs per (b, KV head) of tps 64-key tiles
 // each; part_acc, part_ml scratch of B * KV * nsplit * G * Sq * (hd, 2)
 // floats; tickets B * KV zeros, zeros again on exit), 2 the tensor-core
@@ -997,7 +1019,7 @@ AK_EXPORT int ak_flash_attention(
     int causal, int nsplit, int tps, void* part_acc, void* part_ml,
     void* tickets, int split_p, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
-  if (hd < 1 || hd > 256 || KV <= 0 || H % KV)
+  if (hd < 1 || (path != 0 && hd > 256) || KV <= 0 || H % KV)
     return (int)cudaErrorInvalidValue;
   const Args a{H, KV, Sq, Sk, qb, qh, qs, kb, kh, ks,
                vb, vh, vs, ob, oh, os, scale, causal, (int)hd};

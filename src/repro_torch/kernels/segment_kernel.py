@@ -191,8 +191,12 @@ def segmented_sort_blocks(values, offsets, payload=None):
 
 
 def segmented_scan_launches(n: int) -> int:
-    """Launches of a segmented scan or reduce: the scan kernel's passes."""
-    return SC.scan_launches(n)
+    """Launches of a segmented scan or reduce: the scan kernel's passes
+    (``scan_passes``): none for an empty input, one for at most one tile,
+    else three."""
+    if n == 0:
+        return 0
+    return 1 if n <= SC.TILE else 3
 
 
 def segmented_sort_launches(n: int, *, payload: bool = False) -> int:

@@ -111,6 +111,10 @@ PHASE8 = [
      "wgmma"),
     ("decode, hd 256, f32", 4, 1, 1000, 8, 4, 256, False, torch.float32,
      "decode"),
+    ("prefill, hd 320", 2, 256, 256, 8, 4, 320, True, torch.bfloat16,
+     "simt"),
+    ("prefill, hd 320, f32", 2, 256, 256, 8, 4, 320, True, torch.float32,
+     "simt"),
 ]
 
 
@@ -128,7 +132,8 @@ def test_attention_path_of_phase8_shapes(shape):
 def test_attention_path_by_head_dim(hd, dtype):
     """Every head dim in [1, 256] has a path; the tensor cores take bf16
     at multiples of 16; decode takes G * Sq <= 16 rows at any width, and
-    only Sq = 1 where the tensor cores would take the call."""
+    only Sq = 1 where the tensor cores would take the call; a head dim
+    below 1 raises, one above 256 takes the CUDA-core kernel."""
     tc = dtype == torch.bfloat16 and hd % 16 == 0
     assert A.attention_path(2, 256, 256, 16, 8, hd, dtype, True) == (
         "wgmma" if tc else "simt")
@@ -138,15 +143,57 @@ def test_attention_path_by_head_dim(hd, dtype):
     assert A.attention_path(2, 8, 256, 16, 8, hd, dtype, True) == (
         "wgmma" if tc else "decode")
     assert A.attention_path(2, 9, 256, 16, 8, hd, dtype, True) != "decode"
-    for bad in (0, 257):
+    for bad in (0, -3):
         with pytest.raises(ValueError, match="head dims"):
             A.attention_path(2, 1, 8, 2, 2, bad, dtype, False)
+    assert A.attention_path(2, 1, 8, 2, 2, hd + 257, dtype, False) == "simt"
+
+
+@pytest.mark.parametrize("hd", [257, 320, 1000])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal", [
+    (2, 256, 256, 16, 8, True),    # a prefill the tensor cores take below
+    (8, 1, 289, 16, 8, False),     # a decode shape
+    (1, 2, 64, 8, 8, True)])
+def test_attention_path_above_256_is_simt(hd, dtype, B, Sq, Sk, H, KV,
+                                          causal):
+    """Above 256 every shape and dtype takes the CUDA-core kernel, which
+    walks the output columns in slices of 256."""
+    assert A.attention_path(B, Sq, Sk, H, KV, hd, dtype, causal) == "simt"
 
 
 def test_head_dims_past_256_raise():
+    """Past 256 only a forced decode or tensor-core path raises; the rule
+    sends such head dims to the CUDA-core kernel (the plain version on
+    CPU tensors), and a head dim below 1 raises."""
     q = torch.zeros(1, 4, 2, 264)
-    with pytest.raises(ValueError, match="head dims 1 to 256"):
-        A.flash_attention_gqa(q, q, q)
+    for path, t in (("decode", q), ("wgmma", q.bfloat16())):
+        with pytest.raises(ValueError, match="head dims 1 to 256"):
+            A.flash_attention_gqa(t, t, t, path=path)
+    out = A.flash_attention_gqa(q, q, q)
+    assert out.shape == q.shape and bool((out == 0).all())
+    assert A.flash_attention_gqa(q, q, q, path="simt").shape == q.shape
+    e = torch.zeros(1, 4, 2, 0)
+    with pytest.raises(ValueError, match="head dims from 1"):
+        A.flash_attention_gqa(e, e, e)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_gqa_hd_320_matches_reference_kernel(causal):
+    """hd 320 (two column slices of the CUDA-core kernel on the card): the
+    port's plain ``flash_attention_gqa`` against the reference's Pallas
+    kernel in interpret mode, at the reference's tolerance (rtol 2e-4,
+    atol 2e-5), on a small GQA shape with a ragged key tile."""
+    rng = np.random.default_rng(320 + causal)
+    B, Sq, Sk, H, KV, hd = 1, 70, 150, 4, 2, 320
+    q = _normal(rng, (B, Sq, H, hd))
+    k, v = _normal(rng, (B, Sk, KV, hd)), _normal(rng, (B, Sk, KV, hd))
+    got = A.flash_attention_gqa(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), causal=causal)
+    want = RA.flash_attention_gqa(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal)
+    assert got.shape == (B, Sq, H, hd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("hd", [8, 80])

@@ -34,6 +34,8 @@ from repro_torch.kernels import segment_kernel as SGK
 from repro_torch.kernels import sort_kernel as SK
 from repro_torch.models import moe as MOE
 
+from torch_scan_model import scan_model
+
 pytestmark = pytest.mark.cuda
 
 DTYPES = (torch.float32, torch.int32, torch.bfloat16)
@@ -269,6 +271,165 @@ def test_scan_kernel_vs_plain_and_closed_form(gen, dtype):
     got = SCK.scan_blocks(torch.add, x, unit=0.0).double()
     want = torch.cumsum(x.double(), 0)
     assert float((got - want).abs().max()) <= 2e-3 * float(want.abs().max())
+
+
+REDUCE_SIZES = [0, 1, 4095, (1 << 20) + 3]
+# points whose RBF and LJG values multiply to a finite, nonzero product
+# (a product of thousands of them overflows or underflows)
+MUL_POINTS = 8
+
+
+def _close_or_equal(got, want, rtol):
+    """Equal, or (floats summed or multiplied in another order) within
+    ``rtol`` of each other; a NaN on either side fails."""
+    if torch.equal(got, want):
+        return True
+    g, w = got.double(), want.double()
+    return bool(torch.isclose(g, w, rtol=rtol, atol=0.0))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_reduce_every_body_dtype_and_operator(gen, dtype):
+    """The reduce over every body of the catalogue (identity and square at
+    every dtype; RBF and LJG in float32) and every operator (add, mul, min,
+    max; and, or into bool) at n in {0, 1, 4095, 2^20 + 3}: bitwise
+    against the plain version where the arithmetic is exact (int, min/max,
+    logical, float add/mul of {-1, 0, 1}); RBF and LJG against the plain
+    reduce of the map kernel's output (the same body arithmetic): bitwise
+    for min/max and logical, float add within 1e-4 (a sum of up to 2^20
+    roundings in another order), float mul within 1e-4 over at most
+    MUL_POINTS points, where the product is finite and nonzero."""
+    from benchmarks_torch import arithmetic as AR
+    for n in REDUCE_SIZES:
+        x = _keys(gen, n, dtype)
+        for body in (MAPK.identity, MAPK.square):
+            for name, (op, _) in OPS.items():
+                unit = _unit(name, dtype)
+                exact = name in ("min", "max") or dtype == torch.int32
+                data = x if exact else _exact(gen, n, dtype)
+                if name == "mul":
+                    data = torch.where(data == 0, torch.ones_like(data),
+                                       data)
+                C.reset_launch_count()
+                got = RK.reduce_blocks(body, op, data, unit=unit)
+                assert C.kernel_launches() == {"reduce": 1}
+                want = KREF.reduce_ref(body, op, data, unit=unit)
+                assert torch.equal(got, want), (body.name, name, dtype, n)
+            for op, unit in ((torch.logical_or, False),
+                             (torch.logical_and, True)):
+                got = RK.reduce_blocks(body, op, x, unit=unit,
+                                       out_dtype=torch.bool)
+                want = KREF.reduce_ref(body, op, x, unit=unit,
+                                       out_dtype=torch.bool)
+                assert torch.equal(got, want), (body.name, op, dtype, n)
+        if dtype != torch.float32:
+            continue
+        v, p2 = AR.points(n, seed=n)
+        for body, args in ((MAPK.rbf, (*v,)),
+                           (MAPK.ljg_body(), (*v, *p2))):
+            vals = MAPK.map_blocks(body, *args)
+            for name, (op, _) in OPS.items():
+                unit = _unit(name, dtype)
+                a, va = args, vals
+                if name == "mul" and n > MUL_POINTS:
+                    mv, mp = AR.points(MUL_POINTS, seed=MUL_POINTS)
+                    a = (*mv,) if body is MAPK.rbf else (*mv, *mp)
+                    va = MAPK.map_blocks(body, *a)
+                got = RK.reduce_blocks(body, op, *a, unit=unit)
+                want = KREF.reduce_ref(MAPK.identity, op, va, unit=unit)
+                if name == "mul":
+                    assert bool(torch.isfinite(want)) and float(want) != 0
+                if name in ("min", "max"):
+                    assert torch.equal(got, want), (body.name, name, n)
+                else:
+                    assert _close_or_equal(got, want, 1e-4), (
+                        body.name, name, n, float(got), float(want))
+            for op, unit in ((torch.logical_or, False),
+                             (torch.logical_and, True)):
+                got = RK.reduce_blocks(body, op, *args, unit=unit,
+                                       out_dtype=torch.bool)
+                assert torch.equal(got, KREF.reduce_ref(
+                    MAPK.identity, op, vals, unit=unit,
+                    out_dtype=torch.bool))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_reduce_on_misaligned_views(gen, dtype, offset):
+    """Views offset by 1, 2, 3 elements (no 16-byte aligned base), in one
+    launch, bitwise against the plain version; and operands of different
+    alignments (RBF over rows offset by 1, 2 and 3)."""
+    m = (1 << 20) + 64
+    base = _exact(gen, m, dtype)
+    keys = _keys(gen, m, dtype)
+    for n in (1, 5, 4095, (1 << 20) + 3):
+        x, k = base[offset:offset + n], keys[offset:offset + n]
+        assert x.data_ptr() % 16 != 0
+        for name, data in (("add", x), ("max", k), ("min", k)):
+            op, unit = OPS[name][0], _unit(name, dtype)
+            C.reset_launch_count()
+            got = RK.reduce_blocks(MAPK.identity, op, data, unit=unit)
+            assert C.kernel_launches() == {"reduce": 1}
+            assert torch.equal(got, KREF.reduce_ref(
+                MAPK.identity, op, data, unit=unit)), (name, n)
+        got = RK.reduce_blocks(MAPK.square, torch.add, x, unit=0)
+        assert torch.equal(got, KREF.reduce_ref(MAPK.square, torch.add, x,
+                                                unit=0))
+    if dtype == torch.float32:
+        pts = torch.rand(m, generator=gen, device="cuda") * 3.5 + 0.5
+        n = (1 << 20) + 3
+        rows = [pts[o + offset - 1:o + offset - 1 + n] for o in (1, 2, 3)]
+        vals = MAPK.map_blocks(MAPK.rbf, *rows)
+        for name in ("max", "min"):
+            op, unit = OPS[name][0], _unit(name, dtype)
+            assert torch.equal(
+                RK.reduce_blocks(MAPK.rbf, op, *rows, unit=unit),
+                KREF.reduce_ref(MAPK.identity, op, vals, unit=unit))
+
+
+SCAN_SIZES = [1, SCK.TILE, SCK.TILE + 1, SCK.GROUP * SCK.TILE - 1,
+              SCK.GROUP * SCK.TILE + 1, (1 << 22) + 5]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_single_pass_scan_vs_plain_and_model(gen, dtype):
+    """The single-pass scan, inclusive and exclusive, at n in {1, TILE,
+    TILE + 1, GROUP * TILE +- 1, 2^22 + 5}: one launch; bitwise against
+    the plain version for int32 add, min and max; every result, float add
+    included, bitwise against the numpy model of the kernel's association
+    (tests/torch_scan_model.py; bfloat16 accumulates in float32)."""
+    for n in SCAN_SIZES:
+        for name in ("add", "min", "max"):
+            op = OPS[name][0]
+            x = _keys(gen, n, dtype)
+            unit = _unit(name, dtype)
+            host = (x.float() if dtype == torch.bfloat16 else x).cpu()
+            for exclusive in (False, True):
+                C.reset_launch_count()
+                got = SCK.scan_blocks(op, x, unit=unit, exclusive=exclusive)
+                torch.cuda.synchronize()
+                assert C.kernel_launches() == {"scan": 1}
+                if name != "add" or dtype == torch.int32:
+                    assert torch.equal(got, KREF.scan_ref(
+                        op, x, unit=unit, exclusive=exclusive)), (
+                        name, dtype, n, exclusive)
+                model = torch.from_numpy(scan_model(
+                    name, host.numpy(), unit, exclusive)).to(dtype)
+                assert torch.equal(got.cpu(), model), (name, dtype, n,
+                                                       exclusive)
+
+
+def test_float_add_repeats_bitwise_over_20_runs(gen):
+    """The reduce's grid and the scan's association depend on n and the
+    card alone: 20 float32 sums and scans of the same 2^26 + 3 values
+    are bitwise equal."""
+    x = torch.randn((1 << 26) + 3, generator=gen, device="cuda")
+    r0 = RK.reduce_blocks(MAPK.identity, torch.add, x, unit=0.0)
+    s0 = SCK.scan_blocks(torch.add, x, unit=0.0)
+    for _ in range(19):
+        assert torch.equal(RK.reduce_blocks(MAPK.identity, torch.add, x,
+                                            unit=0.0), r0)
+        assert torch.equal(SCK.scan_blocks(torch.add, x, unit=0.0), s0)
 
 
 def _csr(gen, nseg, total, *, empty_ends=False):
@@ -614,9 +775,43 @@ def test_flash_gqa_kernel_vs_plain_and_blockwise(gen, hd, shape):
 
 
 def test_flash_kernel_refuses_other_head_dims(gen):
-    q = torch.randn(1, 4, 2, 264, generator=gen, device="cuda")
+    """Below 1 every path raises; above 256 the decode and tensor-core
+    kernels raise when forced (the rule sends such head dims to the
+    CUDA-core kernel)."""
+    e = torch.randn(1, 4, 2, 0, generator=gen, device="cuda")
     with pytest.raises(ValueError, match="head dims"):
-        AK.flash_attention_gqa(q, q, q)
+        AK.flash_attention_gqa(e, e, e)
+    q = torch.randn(1, 4, 2, 264, generator=gen, device="cuda")
+    for path, t in (("decode", q), ("wgmma", q.bfloat16())):
+        with pytest.raises(ValueError, match="head dims 1 to 256"):
+            AK.flash_attention_gqa(t, t, t, path=path)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("hd", (320, 1000))
+def test_flash_above_head_dim_256_vs_plain(gen, hd, dtype):
+    """Head dims above 256 on the CUDA-core kernel (output columns in
+    slices of 256 along the grid's z axis): prefill, decode and a ragged
+    key tile, GQA and head-flattened, one launch under ``flash_simt``,
+    within rtol 2e-4 / atol 2e-5 (+1 bf16 ulp)."""
+    for B, Sq, Sk, H, KV, causal in ((2, 100, 300, 8, 2, True),
+                                     (2, 1, 289, 4, 2, False),
+                                     (1, 65, 64, 2, 2, False)):
+        q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(B, Sk, KV, hd, generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        assert AK.attention_path(B, Sq, Sk, H, KV, hd, dtype,
+                                 causal) == "simt"
+        C.reset_launch_count()
+        got = AK.flash_attention_gqa(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert C.kernel_launches() == {"flash_simt": 1}
+        _assert_attention_close(got, AK.flash_attention_gqa_ref(
+            q, k, v, causal=causal))
+    q, k, v = (torch.randn(3, s, hd, generator=gen, device="cuda").to(dtype)
+               for s in (70, 150, 150))
+    _assert_attention_close(AK.flash_attention(q, k, v),
+                            KREF.flash_attention_ref(q, k, v))
 
 
 FLASH_SQ = (1, 2, 7, 64, 65, 300)

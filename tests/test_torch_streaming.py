@@ -27,6 +27,9 @@ from repro_torch.kernels import reduce_kernel as TRK
 from repro_torch.kernels import scan_kernel as TSC
 
 from torch_parity import assert_bitwise, keys, t
+from torch_scan_model import GROUP as MODEL_GROUP
+from torch_scan_model import TILE as MODEL_TILE
+from torch_scan_model import chain_depth, scan_model
 
 SIZES = [1, 5, 1024, 8193, 20000]
 INTERPRET_SIZES = [5, 8193]
@@ -251,7 +254,84 @@ def test_launch_closed_forms():
     assert TMK.map_launches(0) == 0 and TMK.map_launches(7) == 1
     assert TRK.reduce_launches(1 << 28) == 1
     assert [TSC.scan_launches(n) for n in (0, 1, 8192, 8193, 1 << 28)] == [
-        0, 1, 1, 3, 3]
+        0, 1, 1, 1, 1]
     TC.reset_launch_count()
     ak.accumulate(torch.add, torch.randn(20000), init=0.0, backend="cuda")
     assert TC.launch_count() == 0  # the plain version launches nothing
+
+
+# tile and group edges of the single-pass scan: one tile, the first
+# single-pass size, and each side of the first group boundary
+MODEL_SIZES = [1, TSC.TILE, TSC.TILE + 1, TSC.GROUP * TSC.TILE - 1,
+               TSC.GROUP * TSC.TILE + 1]
+
+
+def test_scan_model_has_the_kernels_tile_and_group():
+    assert (MODEL_TILE, MODEL_GROUP) == (TSC.TILE, TSC.GROUP)
+
+
+def _float_add_within_bound(got, x, exclusive, depth):
+    """``got`` within ``depth * 2^-24 * sum |x|`` (first order) of the
+    float64 scan of ``x`` at every element."""
+    x64 = x.astype(np.float64)
+    exact, mass = np.cumsum(x64), np.cumsum(np.abs(x64))
+    if exclusive:
+        exact = np.concatenate([[0.0], exact[:-1]])
+        mass = np.concatenate([[0.0], mass[:-1]])
+    err = np.abs(got.astype(np.float64) - exact)
+    assert bool((err <= depth * 2.0 ** -24 * mass * 1.0001).all()), (
+        float((err - depth * 2.0 ** -24 * mass).max()))
+
+
+@pytest.mark.parametrize("n", MODEL_SIZES)
+def test_single_pass_association_model_vs_pallas_interpret(n):
+    """The single-pass kernel's association (the numpy model of
+    tests/torch_scan_model.py) against the reference's ``accumulate``
+    (Pallas in interpret mode) and the port's plain version: bitwise for
+    int32 add and float32 / bfloat16 min and max; float32 add within the
+    model's first-order float64 bound and the reference's tolerance."""
+    rng = np.random.default_rng(n)
+    x, xi = keys(rng, n, "f32"), keys(rng, n, "i32")
+    xb = keys(rng, n, "bf16")
+    cases = [("add", jnp.add, torch.add, xi, 0),
+             ("min", jnp.minimum, torch.minimum, x, np.inf),
+             ("max", jnp.maximum, torch.maximum, x, -np.inf),
+             ("max", jnp.maximum, torch.maximum, xb, -np.inf)]
+    for name, jop, top, xx, unit in cases:
+        for exclusive in (False, True):
+            want = np.asarray(jak.accumulate(
+                jop, jnp.asarray(xx), init=unit, inclusive=not exclusive,
+                backend="pallas"))
+            # bfloat16 accumulates in float32, as the kernel does
+            acc = xx.astype(np.float32) if xx.dtype == xb.dtype else xx
+            got = scan_model(name, acc, unit, exclusive).astype(xx.dtype)
+            assert_bitwise(got, want)
+            assert_bitwise(ak.accumulate(top, t(xx), init=unit,
+                                         inclusive=not exclusive,
+                                         backend="cuda"), got)
+    for exclusive in (False, True):
+        got = scan_model("add", x, 0.0, exclusive)
+        _float_add_within_bound(got, x, exclusive, chain_depth(n))
+        want = jak.accumulate(jnp.add, jnp.asarray(x), init=0.0,
+                              inclusive=not exclusive, backend="pallas")
+        _close(torch.from_numpy(got), np.asarray(want), 2e-3, 2e-3)
+
+
+@pytest.mark.parametrize("group", [1, 2, 3])
+def test_single_pass_model_e_chain_over_many_groups(group):
+    """The model's E chain over several groups (groups of 1-3 tiles, so a
+    few tiles make many hops): bitwise equal to the reference's Pallas
+    scan for int32 add and float32 max, with a non-identity init; float32
+    add within the first-order bound of the longer chain."""
+    n = 7 * TSC.TILE + 5
+    rng = np.random.default_rng(group)
+    x, xi = keys(rng, n, "f32"), keys(rng, n, "i32")
+    for name, jop, xx, unit in (("add", jnp.add, xi, 7),
+                                ("max", jnp.maximum, x, -1.5)):
+        for exclusive in (False, True):
+            want = jak.accumulate(jop, jnp.asarray(xx), init=unit,
+                                  inclusive=not exclusive, backend="pallas")
+            assert_bitwise(scan_model(name, xx, unit, exclusive,
+                                      group=group), np.asarray(want))
+    got = scan_model("add", x, 0.0, group=group)
+    _float_add_within_bound(got, x, False, chain_depth(n, group=group))
