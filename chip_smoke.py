@@ -10,11 +10,13 @@ rank), then the streaming and segmented primitives, then the serving path
 on full-width internlm2-1.8B. Phases:
 
   1. environment: card name and power limit, torch / CUDA / nvcc
-     versions, kernel build time, ptxas's register and spill lines, and
+     versions, kernel build time, ptxas's registers and spills a kernel, and
      the HGMMA (wgmma) instructions in the attention library's SASS;
   2. every kernel held bitwise against its plain PyTorch version on the
-     card (sort network, the fused window at every ``sort_hyper`` m = 1..6
-     against its plain stages and the unfused kernel, k-way merge,
+     card (sort network; the in-block kernel at blocks of 2^10, 2^13 and
+     2^15 keys on keys with NaN, -0.0 and ties; the fused window at every
+     ``sort_hyper`` m = 1..6 against its plain stages and against windows
+     of one stage, k-way merge,
      histogram, search: a warp per query below ``THREAD_QUERIES_FROM``
      queries, a thread per query from it);
   3. ``merge_sort`` and ``sortperm`` of 2^28 float32 keys, checked against
@@ -29,10 +31,14 @@ on full-width internlm2-1.8B. Phases:
      merge) and the histogram and search of a 2^26-key shard; then
      timings (CUDA events, median of 5 after a warm-up) of each kernel at
      those shapes beside its plain version, a PyTorch call that computes
-     the same function, and its bound; and a sweep of the sort and merge
+     the same function, and its bound (the in-block kernel's initial
+     launch and one finish, each also by device time: CUDA events around
+     20 calls queued behind a sleep kernel; the histogram's too); and a
+     sweep of the sort and merge
      primitives over 2^8..2^16 keys, kernels against the portable path,
      which gives the size from which the kernels win (``switch_below``);
-     and the ``sort_hyper`` sweep m = 0..6 (m = 0: the unfused kernel) of
+     and the ``sort_hyper`` sweep m = 0..6 (m = 0: unfused, windows of one
+     stage) of
      ``merge_sort``, ``sortperm``, the 2^26-key kv sort and the P = 4
      merge, bitwise across m, launches against the closed form at each m,
      timed;
@@ -50,8 +56,9 @@ on full-width internlm2-1.8B. Phases:
      where it is not, within the bodies' conditioning for RBF/LJG), the
      launches against the closed forms, ``portable_calls == 0``, and
      timings beside the plain versions, a PyTorch call where one computes
-     the same function, and the bounds; the reduce's and the scan's
-     device time (CUDA events around calls queued behind a sleep kernel,
+     the same function, and the bounds; the device time of the map, the
+     reduce, the scan and the segmented scan and reduce (CUDA events
+     around calls queued behind a sleep kernel,
      ``benchmarks_torch.launch_path.queued_device_us``);
   7. the serving path (``benchmarks_torch/serving.py``): internlm2-1.8B at
      full width (random bf16 weights from the seed), ``Engine(paged=True)``
@@ -79,7 +86,9 @@ on full-width internlm2-1.8B. Phases:
 
 Launch counters are set to 0 just before phases 3, 4, 6, 7, 8 and 9 and
 before each run of the ``sort_hyper`` sweep, and read just after; the
-kernels' ``launches`` are the sum of those runs' counts. The last line of
+kernels' ``launches`` are the sum of those runs' counts; the in-block,
+window and scan kernels' entries also carry ptxas's registers and spilled
+bytes over their instantiations (``ptxas``). The last line of
 standard output is ``{"ok": true, "device": {...}}``; it is printed only
 when every phase passed. Without a CUDA device, or without the repo's
 ``src/`` beside it, the script exits non-zero and prints no result.
@@ -91,6 +100,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -136,17 +146,13 @@ def sum_rtol(n: int) -> tuple[float, int]:
 SORT_KERNELS = ("bitonic_inblock", "bitonic_window", "minmax_histogram",
                 "searchsorted")
 FLASH_KERNELS = ("flash_simt", "flash_decode", "flash_wgmma")
-# kernels whose first launch comes after phase 6 (the unfused cross kernel:
-# in phase 5's sort_hyper sweep, whose m = 0 pass is the main path run with
-# sort_hyper=0)
+# kernels whose first launch comes after phase 6
 LATER_KERNELS = ("nucleus_mask", "page_gather", *FLASH_KERNELS)
 REPLACES = {
     "bitonic_inblock": ("src/repro_torch/kernels/csrc/bitonic.cu",
                         "src/repro/kernels/sort_kernel.py:289"),
     "bitonic_window": ("src/repro_torch/kernels/csrc/bitonic.cu",
                        "src/repro/kernels/sort_kernel.py:323"),
-    "bitonic_cross": ("src/repro_torch/kernels/csrc/bitonic.cu",
-                      "src/repro/kernels/sort_kernel.py:323"),
     "minmax_histogram": ("src/repro_torch/kernels/csrc/hist.cu",
                          "src/repro/kernels/hist_kernel.py:84"),
     "searchsorted": ("src/repro_torch/kernels/csrc/search.cu",
@@ -173,8 +179,55 @@ REPLACES = {
 SORT_CLOSED = {"default": (43, 35, 8, 39), "unfused": (136, 105, 29, 120)}
 
 
+# the kernel instantiations behind each entry of the kernels line: (library,
+# substrings of the mangled names; "Lb1E" is a template argument `true`)
+PTXAS_OF = {
+    "bitonic_inblock": ("bitonic", ("inblock_kernel",)),
+    "bitonic_window": ("bitonic", ("window_kernel",)),
+    "scan": ("scan", ("onepass_kernel", "Lb0E")),
+    "segmented_scan": ("scan", ("onepass_kernel", "Lb1E")),
+}
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def ptxas_functions(text: str) -> dict:
+    """{mangled kernel: {registers, spill_stores, spill_loads}} from the
+    ``nvcc -Xptxas -v`` report of one library."""
+    out, fn = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[fn]["spill_stores"] = int(m.group(1))
+            out[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def ptxas_summary(ptx: dict, name: str) -> dict | None:
+    """Instantiations, registers (least, most) and the most spilled bytes
+    of one entry's kernels."""
+    lib, parts = PTXAS_OF.get(name, (None, ()))
+    fns = [v for k, v in ptx.get(lib, {}).items()
+           if all(p in k for p in parts)]
+    if not fns:
+        return None
+    regs = [f.get("registers", 0) for f in fns]
+    return {"instantiations": len(fns), "registers": [min(regs), max(regs)],
+            "spill_bytes": max(f.get("spill_stores", 0)
+                               + f.get("spill_loads", 0) for f in fns)}
 
 
 def check(cond, what):
@@ -269,6 +322,22 @@ def keys_on(gen, n, dtype, dist="normal"):
     return torch.randn(n, generator=gen, device="cuda").to(dtype)
 
 
+def awkward_keys(gen, n, dtype):
+    """Keys in [-4, 4) (many ties); floats with -0.0 beside 0.0 and NaN."""
+    x = torch.randint(-4, 4, (n,), generator=gen, device="cuda",
+                      dtype=torch.int32).to(dtype)
+    if dtype.is_floating_point:
+        u = torch.rand(n, generator=gen, device="cuda")
+        x = torch.where(u < 0.1, torch.full_like(x, -0.0), x)
+        x = torch.where(u > 0.97, torch.full_like(x, math.nan), x)
+    return x
+
+
+def as_bits(x):
+    """The raw bits of x as integers (NaN and -0.0 compare as bits)."""
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
 def phase_parity(SK, MK, HK, SE, C) -> Errors:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = Errors()
@@ -290,11 +359,33 @@ def phase_parity(SK, MK, HK, SE, C) -> Errors:
         a, _ = SK._run_inblock(x.clone(), None, 2, 8192, 8192, False, True)
         b, _ = SK._run_inblock(x.clone(), None, 2, 8192, 8192, False, False)
         errs.same(["bitonic_inblock"], [a], [b], f"inblock {dtype}")
-        a, _ = SK._run_cross(x.clone(), None, 1 << 20, 1 << 16, False, True)
-        b, _ = SK._run_cross(x.clone(), None, 1 << 20, 1 << 16, False, False)
-        errs.same(["bitonic_cross"], [a], [b], f"cross {dtype}")
-        # the fused window at every order: against the plain stages and the
-        # unfused kernel, keys alone and kv with the tie-break off and on
+        # the in-block kernel at three blocks, the initial phases and a
+        # finish, keys with NaN, -0.0 and ties (compared as bits), alone
+        # and with an int32 payload and the tie-break
+        for block in (1 << 10, 1 << 13, 1 << 15):
+            xa = awkward_keys(gen, 1 << 17, dtype)
+            va = torch.randint(0, 50, (1 << 17,), generator=gen,
+                               device="cuda", dtype=torch.int32)
+            for vv, tie in ((None, False), (va, True)):
+                if block * (xa.element_size() + (0 if vv is None else 4)) \
+                        > SK.MAX_SMEM:
+                    continue
+                for k_lo, k_hi in ((2, block), (1 << 17, 1 << 17)):
+                    got = SK._run_inblock(
+                        xa.clone(), None if vv is None else vv.clone(),
+                        k_lo, k_hi, block, tie, True)
+                    want = SK._run_inblock(
+                        xa.clone(), None if vv is None else vv.clone(),
+                        k_lo, k_hi, block, tie, False)
+                    nk = 1 + (vv is not None)
+                    errs.same(["bitonic_inblock"], [as_bits(g) for g in
+                                                    got[:nk]],
+                              [as_bits(w) for w in want[:nk]],
+                              f"inblock {dtype} block {block} phases "
+                              f"{k_lo}..{k_hi} kv={vv is not None}")
+        # the fused window at every order: against the plain stages and
+        # windows of one stage (unfused), keys alone and kv with the
+        # tie-break off and on
         v20 = torch.randint(0, 50, (1 << 20,), generator=gen, device="cuda",
                             dtype=torch.int32)
         for m in range(1, SK.MAX_HYPER + 1):
@@ -305,8 +396,8 @@ def phase_parity(SK, MK, HK, SE, C) -> Errors:
                 want = SK._run_window(*cp(), 1 << 20, 1 << 19, m, tie, False)
                 ka, va = cp()
                 for st in range(m):
-                    ka, va = SK._run_cross(ka, va, 1 << 20, (1 << 19) >> st,
-                                           tie, True)
+                    ka, va = SK._run_window(ka, va, 1 << 20,
+                                            (1 << 19) >> st, 1, tie, True)
                 errs.same(["bitonic_window"], got[:1 + (vv is not None)],
                           want[:1 + (vv is not None)],
                           f"window m={m} {dtype} kv={vv is not None} "
@@ -376,7 +467,8 @@ def phase_main_parity(SK, MK, HK, SE, errs, x, gx, gp, cap, shard, lo, hi,
     both = ("bitonic_inblock", "bitonic_window")
     for name, run, args in (
             ("bitonic_inblock", SK._run_inblock, (2, 8192, 8192, False)),
-            ("bitonic_cross", SK._run_cross, (MAIN_N, MAIN_N // 2, False)),
+            ("bitonic_inblock", SK._run_inblock,
+             (MAIN_N, MAIN_N, 8192, False)),
             *(("bitonic_window", SK._run_window,
                (MAIN_N, MAIN_N // 2, m, False))
               for m in range(1, SK.MAX_HYPER + 1))):
@@ -426,7 +518,8 @@ def phase_hyper_sweep(ak, registry, SK, MK, C, errs, x, gx, gp, cap
     """``merge_sort`` and ``sortperm`` of the 2^28 float32 keys, the
     2^26-key kv sort and the P = 4 merge finish of phase 4, through the
     registry at every ``sort_hyper`` m = 0..6 (m = 0 is the unfused
-    kernel): each bitwise equal across m and to ``torch.sort`` or the
+    network, windows of one stage): each bitwise equal across m and to
+    ``torch.sort`` or the
     plain network, its counted launches equal to the closed form at m,
     then timed (CUDA events, median of 5). The runs at every m are the
     main path with that knob: their launches add to the kernels' counts."""
@@ -477,8 +570,8 @@ def phase_hyper_sweep(ak, registry, SK, MK, C, errs, x, gx, gp, cap
                       f"{name} at sort_hyper={m}: {launches} launches, "
                       f"closed form {closed[name](m)}")
                 got = list(got) if isinstance(got, tuple) else [got]
-                errs.same(("bitonic_inblock", "bitonic_window" if m
-                           else "bitonic_cross"), got, want[name],
+                errs.same(("bitonic_inblock", "bitonic_window"), got,
+                          want[name],
                           f"{name} at sort_hyper={m}")
                 del got
                 row[f"{name}_launches"] = launches
@@ -604,16 +697,16 @@ def phase_streaming(ak, registry, C, errs, seed: int) -> dict:
         check(st["portable_calls"] == 0,
               f"{name}: {st['portable_calls']} portable calls on the path")
     scan1 = SCK.scan_launches(STREAM_N)
-    seg3 = SGK.segmented_scan_launches(STREAM_N)
+    seg1 = SGK.segmented_scan_launches(STREAM_N)
     sort_l = (SGK.segmented_sort_launches(SORT_N)
               + SGK.segmented_sort_launches(SORT_N, payload=True))
     want = {"map": 2 * MAPK.map_launches(MAP_N),
             "mapreduce": 4 * RK.reduce_launches(STREAM_N),
-            "accumulate": 3 * scan1, "segmented_reduce": 2 * seg3,
-            "segmented_scan": 2 * seg3, "segmented_sort": sort_l}
+            "accumulate": 3 * scan1, "segmented_reduce": 2 * seg1,
+            "segmented_scan": 2 * seg1, "segmented_sort": sort_l}
     check(counts == want, f"streaming launches {counts} != closed forms "
                           f"{want}")
-    check(kernels.get("segmented_scan") == 4 * seg3 == 12
+    check(kernels.get("segmented_scan") == 4 * seg1 == 4
           and kernels.get("scan") == 3 * scan1 == 3
           and kernels.get("reduce") == 4 and kernels.get("map") == 2,
           f"per-kernel launches {kernels}")
@@ -722,7 +815,7 @@ def phase_streaming(ak, registry, C, errs, seed: int) -> dict:
     # the segmented sort: the network against its plain version, and the
     # result against the plain stable-sort formulation
     ids = SGK.segment_ids(soff, SORT_N)
-    both = ("bitonic_inblock", "bitonic_cross")
+    both = ("bitonic_inblock", "bitonic_window")
     errs.same(both, SK.bitonic_sort_kv(ids, sv, tie_break=True),
               SK.bitonic_sort_kv(ids, sv, tie_break=True, plain=True),
               "segmented sort network (ids, f32 values), 2^26")
@@ -748,22 +841,23 @@ def phase_streaming(ak, registry, C, errs, seed: int) -> dict:
              "library_ms": cuda_ms(lib) if lib else None,
              "library": lib_note}
         r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
-        if device:  # the reduce's and the scan's device time alone
+        if device:  # device time alone, by queued events
             r["device_us"] = queued_device_us(fn)
-            r["library_device_us"] = queued_device_us(lib)
+            r["library_device_us"] = queued_device_us(lib) if lib else None
         rows[name] = r
         log(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
             f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']})" + (
                 f"; device {r['device_us']:.2f} us (library "
-                f"{r['library_device_us']:.2f})" if device else ""))
+                f"{r['library_device_us']})" if device else ""))
 
     row("map_rbf", lambda: AR.rbf_kernel(v),
         lambda: KREF.map_ref(MAPK.rbf, *v), None, 4 * MAP_N * 4,
         10 * MAP_N, "no single PyTorch call computes the RBF body")
     row("map_ljg", lambda: AR.ljg_kernel(v, p2),
         lambda: KREF.map_ref(ljg, *v, *p2), None, 7 * MAP_N * 4,
-        25 * MAP_N, "no single PyTorch call computes the LJG body")
+        25 * MAP_N, "no single PyTorch call computes the LJG body",
+        device=True)
     row("mapreduce_energy",
         lambda: ak.mapreduce(MAPK.identity, torch.add, e_ljg, init=0.0),
         lambda: KREF.reduce_ref(MAPK.identity, torch.add, e_ljg, unit=0.0),
@@ -796,26 +890,26 @@ def phase_streaming(ak, registry, C, errs, seed: int) -> dict:
         lambda: SGK.segmented_reduce_ref(torch.add, x, off, init=0.0),
         lambda: torch.segment_reduce(x, "sum", offsets=off64),
         nb + 4 * (S + 1) + 4 * S, STREAM_N,
-        "torch.segment_reduce(sum, offsets)")
+        "torch.segment_reduce(sum, offsets)", device=True)
     row("segmented_reduce_max",
         lambda: ak.segmented_reduce(torch.maximum, x, off, init=-inf),
         lambda: SGK.segmented_reduce_ref(torch.maximum, x, off, init=-inf),
         lambda: torch.segment_reduce(x, "max", offsets=off64,
                                      initial=-inf),
         nb + 4 * (S + 1) + 4 * S, STREAM_N,
-        "torch.segment_reduce(max, offsets)")
+        "torch.segment_reduce(max, offsets)", device=True)
     row("segmented_scan_incl",
         lambda: ak.segmented_scan(torch.add, x, off, init=0.0),
         lambda: SGK.segmented_scan_ref(torch.add, x, off, unit=0.0),
         None, seg_bytes, STREAM_N,
-        "no single PyTorch call computes a segmented scan")
+        "no single PyTorch call computes a segmented scan", device=True)
     row("segmented_scan_excl",
         lambda: ak.segmented_scan(torch.add, x, off, init=0.0,
                                   inclusive=False),
         lambda: SGK.segmented_scan_ref(torch.add, x, off, unit=0.0,
                                        exclusive=True),
         None, seg_bytes, STREAM_N,
-        "no single PyTorch call computes a segmented scan")
+        "no single PyTorch call computes a segmented scan", device=True)
     row("segmented_sort", lambda: ak.segmented_sort(sv, soff),
         lambda: SGK.segmented_sort_ref(sv, soff), None,
         SORT_N * 4 * 2 + 4 * (SI.SORT_SEGS + 1), 0,
@@ -990,7 +1084,7 @@ def phase_serving(registry, C, errs, seed: int) -> dict:
     top_p = kw["top_p"]
     neg, perm = NK.sorted_rows(lg, cuda=True)
     pneg, pperm = NK.sorted_rows(lg, cuda=False)
-    errs.same(["bitonic_inblock", "bitonic_cross"], [neg, perm],
+    errs.same(["bitonic_inblock", "bitonic_window"], [neg, perm],
               [pneg, pperm], "batched sort network of the nucleus mask")
     check(torch.equal(perm[:, :V].long(),
                       torch.sort(-(lg + 0.0), dim=1, stable=True).indices),
@@ -1436,10 +1530,10 @@ def main() -> int:
         "nvidia_smi": smi, "torch": torch.__version__,
         "cuda": torch.version.cuda, "nvcc": nvcc[-1] if nvcc else None,
         "device": torch.cuda.get_device_name(0), "build_s": build_s,
-        "ptxas": {s: [ln for ln in p.with_suffix(".log").read_text()
-                      .splitlines() if "registers" in ln or "spill" in ln]
+        "ptxas": {s: ptxas_functions(p.with_suffix(".log").read_text())
                   for s, p in libs.items()},
     }
+    ptx = report["env"]["ptxas"]
     # the tensor-core kernel's SASS: wgmma appears as HGMMA
     sass = subprocess.run(
         [os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump"), "-sass",
@@ -1589,14 +1683,33 @@ def main() -> int:
             "library_ms": lib_ms,
         })
 
-    stages = sum(range(1, 14))  # k = 2 .. 8192: 1 + 2 + ... + 13 stages
-    entry("bitonic_inblock",
-          cuda_ms(lambda k: SK._run_inblock(k, None, 2, 8192, 8192, False,
-                                            True), fresh),
-          cuda_ms(lambda k: SK._run_inblock(k, None, 2, 8192, 8192, False,
-                                            False), fresh, reps=3),
-          cuda_ms(lambda: torch.sort(x.view(-1, 8192), dim=1)),
-          2 * nb, MAIN_N // 2 * stages)
+    # The in-block kernel: the initial launch (phases 2 .. 8192, 91 stages)
+    # and one finish (phase 2^28, its 13 in-block stages), one launch each
+    # over the 2^28 keys. Device us: 20 calls queued behind a sleep kernel,
+    # in place on one buffer (the network is oblivious: its time does not
+    # depend on the keys). The yardstick is torch.sort of the 8192-key
+    # rows, which the finish computes on the network's own input (blocks
+    # that are bitonic sequences).
+    from benchmarks_torch.launch_path import queued_device_us
+    lib_rows = lambda: torch.sort(x.view(-1, 8192), dim=1)  # noqa: E731
+    work = x.clone()
+    for label, k_lo, k_hi, stages in (("initial", 2, 8192, sum(range(1, 14))),
+                                      ("finish", MAIN_N, MAIN_N, 13)):
+        run = (lambda k, c, k_lo=k_lo, k_hi=k_hi: SK._run_inblock(
+            k, None, k_lo, k_hi, 8192, False, c))
+        b, by = bound(2 * nb, MAIN_N // 2 * stages)
+        row = {"ms": cuda_ms(lambda k: run(k, True), fresh),
+               "plain_ms": cuda_ms(lambda k: run(k, False), fresh, reps=3),
+               "library_ms": cuda_ms(lib_rows), "bound_ms": b,
+               "bound_by": by,
+               "device_us": queued_device_us(lambda: run(work, True))}
+        if label == "initial":
+            entry("bitonic_inblock", row["ms"], row["plain_ms"],
+                  row["library_ms"], 2 * nb, MAIN_N // 2 * stages)
+            kernels[-1]["device_us"] = row["device_us"]
+        else:
+            kernels[-1]["finish"] = row
+    del work
     # The top window of the last phase (k = N, distances N/2 .. N/2^w) on
     # a bitonic sequence, which is what the network feeds it: its groups
     # are the columns of view(2^w, -1), each bitonic, so the window sorts
@@ -1609,9 +1722,7 @@ def main() -> int:
     w = SK.HYPER_ORDER
     for name, run, width in (
             ("bitonic_window", lambda k, c: SK._run_window(
-                k, None, MAIN_N, half, w, False, c), w),
-            ("bitonic_cross", lambda k, c: SK._run_cross(
-                k, None, MAIN_N, half, False, c), 1)):
+                k, None, MAIN_N, half, w, False, c), w),):
         lib = lambda: torch.sort(xb.view(1 << width, -1), dim=0)  # noqa: E731
         got = run(xb.clone(), True)[0]
         check(torch.equal(got, lib().values.reshape(-1)),
@@ -1632,6 +1743,8 @@ def main() -> int:
           cuda_ms(lambda: (torch.aminmax(shard),
                            torch.histc(shard, 256, lo, hi))),
           RANK_N * 4 + 256 * 4 + 8, 2 * RANK_N)
+    kernels[-1]["device_us"] = queued_device_us(
+        lambda: HK.minmax_histogram_blocks(shard, 256, lo, hi))
     probes = math.ceil(math.log2(RANK_N + 1))
     entry("searchsorted",
           cuda_ms(lambda: SE.searchsorted_blocks(shard, q, side="right")),
@@ -1687,7 +1800,7 @@ def main() -> int:
             "bound_by": by, "library_ms": r["library_ms"],
         })
         for f in ("device_us", "library_device_us"):
-            if f in r:  # the reduce's and the scan's rows
+            if f in r:  # rows timed by queued events
                 kernels[-1][f] = r[f]
     log(f"phase 6 done in {time.perf_counter() - t0:.1f} s; comparisons "
         f"per kernel " + json.dumps(errs.cases))
@@ -1744,6 +1857,10 @@ def main() -> int:
     for k in kernels:  # earlier kernels' launches now include phases 6-9
         k["launches"] = main_kernels[k["name"]]
     log(f"phase 9 done in {time.perf_counter() - t0:.1f} s")
+    for k in kernels:  # the new kernels' registers and spills
+        summary = ptxas_summary(ptx, k["name"])
+        if summary is not None:
+            k["ptxas"] = summary
     report["float64"] = errs.float64
     log(f"float add against float64, bound {stream['sum_rtol']:.4g} * "
         f"sum |x| (depth {stream['sum_depth']}): " + json.dumps(errs.float64))

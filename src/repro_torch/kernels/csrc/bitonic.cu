@@ -1,5 +1,5 @@
-// Bitonic sorting network for Hopper (sm_90a): the in-block kernel, the
-// fused cross-stage window kernel and the unfused cross-stage kernel.
+// Bitonic sorting network for Hopper (sm_90a): the in-block kernel and the
+// fused cross-stage window kernel.
 //
 // Replaces repro/kernels/sort_kernel.py: _inblock_body (run by
 // _run_inblock) and _hyper_body (run by _run_hyper). The network, its
@@ -9,7 +9,10 @@
 // computes it. The payload V is int32, float32 or bfloat16; with the
 // tie-break on, equal keys are ordered by `av > bv` in the payload's own
 // type, as the reference's _cx/_swap_blocks compare them (so -0.0 and 0.0
-// are equal and keep the network's order).
+// are equal and keep the network's order). Every compare-exchange swaps a
+// pair only where ak_lt says the later key is smaller (or, descending, not
+// smaller), so the output is a permutation of the input whatever it holds:
+// NaN and -0.0 are moved, never duplicated or rewritten.
 //
 // Rows: the keys may hold R rows of `row` keys each (a power of two), laid
 // end to end; every row is one network (the reference vmaps the 1-D network
@@ -19,112 +22,355 @@
 // ((low index) & k & (row - 1)) == 0. A 1-D sort is the case R = 1. One
 // launch set then sorts the whole batch: launches do not grow with R.
 //
-// Bound: bytes. Each cross pass streams the whole array once (read and
-// write) through device memory; the in-block kernel reads and writes each
-// block once and runs all its stages in shared memory (8192 keys = 32 KiB,
-// 64 KiB with a 4-byte payload). A sort of n = 2^m keys with 2^13-key
-// blocks has (m-13)(m-12)/2 cross stages. The window kernel runs up to W
-// consecutive ones in one pass (W = sort_hyper): the stages j >= block of
-// one window only ever pair element x with x ^ j, so the 2^W elements
-// base + t * jlow (t < 2^W, jlow the window's smallest distance) form a
-// group closed under the whole window, and all share one direction bit
-// (the window's bits lie below log2 k). The reference held 2^W whole
-// 8192-key blocks in VMEM per grid step; at W = 3 that is 256 KiB of
-// float32 keys, more than a CTA's 227 KB of shared memory. Here one thread
-// holds one group in registers instead: thread e of a warp takes offset e
-// in every member block, so each of its 2^W loads is one coalesced warp
-// access, runs the W-stage butterfly in registers and stores the group
-// back. A pass moves the bytes of one unfused pass, so cross passes drop
-// from sum(i) to sum(ceil(i / W)) per sort. At W = 6 a thread holds 64 keys
-// and 64 payloads (128 32-bit registers; bfloat16 takes one register per
-// element too): ptxas's report for window_kernel is kept in
-// build/kernels/libbitonic-*.log (chip_smoke.py copies its spill lines).
-// The in-block finish (j < block) of each phase stays its own in-block
-// launch: a window's lane slice does not hold whole blocks.
+// The in-block kernel (stages j < block) holds one block of 2^lb keys a
+// CTA and runs its stages in registers. Each thread holds kSlots = 16 keys
+// (and payloads) of the block; the 4 bits of a key's index that tell the
+// 16 apart are the thread's register bits, [c, c + 4) for a layout c, the
+// other index bits name the thread. A stage at distance 2^p with p in
+// [c, c + 4) pairs two of a thread's own keys, so consecutive stages whose
+// bits lie in one window run in registers with no shared-memory traffic and
+// no barrier: a run. Between runs the block goes through shared memory
+// once (each thread stores its 16 keys, one __syncthreads(), each thread
+// loads the 16 keys of the next layout): a transpose. A run starts at the
+// top stage p of a phase with c = max(p - 3, 0) and lasts while the stage
+// bits stay in [c, c + 4); runs at c = 0 carry on into the next phase while
+// its top bit is below 4, so phases k <= 16 are one run straight after the
+// load. The initial sort of an 8192-key block (phases 2 .. 8192, 91
+// stages) takes 25 runs and 24 transposes; a phase's finish (13 stages) 4
+// runs and 3 transposes, against one shared-memory pass and one barrier a
+// stage before. Shared memory is addressed through an XOR swizzle within
+// each row of 32 elements (swz below) under which no two lanes of a warp
+// touch two different words of one bank, in every layout, for 4-byte and
+// 2-byte elements alike (tests/torch_inblock_model.py checks it).
+// The last run of a launch always has c = 0, so a thread stores its 16
+// consecutive keys as 16-byte vectors; the first run loads them so where
+// it has c = 0 (every initial sort), else as 16 scalar loads of which each
+// warp instruction reads 32 consecutive elements (a finish's first run
+// has c = lb - 4: the top bits). A CTA has 128 or 256 threads (64
+// registers a thread), each holding several groups of 16 keys ("virtual
+// threads") in turn, whatever the block (2^10 .. 2^16 keys). What the
+// measurements taught (PERF.md, Findings), each a step of the initial launch
+// of 2^28 keys from 9.9 ms down: the compare-exchange is written as
+// selects (a branch on the data cost 13% keys alone, 42% with a payload);
+// the 16 shared-memory offsets of a layout cost one XOR each in Gray-code
+// order (swz is linear) instead of a swizzle a slot; a stage whose
+// direction is a register bit knows it at compile time and any other has
+// one direction for all of a thread's pairs; a run within one phase is
+// unrolled, with no dispatch a stage.
+//
+// Bound: the in-block kernel reads and writes each block once; with its
+// 91 stages it is bound by the compare-exchanges and the shared-memory
+// transposes, not by bytes. The window kernel runs up to W consecutive
+// cross stages (j >= block) of one phase in one pass (W = sort_hyper; at
+// sort_hyper = 0, W = 1: one stage a launch): the stages j >= block of one
+// window only ever pair element x with x ^ j, so the 2^W elements base + t
+// * jlow (t < 2^W, jlow the window's smallest distance) form a group closed
+// under the whole window, and all share one direction bit (the window's
+// bits lie below log2 k). The reference held 2^W whole 8192-key blocks in
+// VMEM per grid step; at W = 3 that is 256 KiB of float32 keys, more than
+// a CTA's 227 KB of shared memory. Here one thread holds one group in
+// registers instead: thread e of a warp takes offset e in every member
+// block, so each of its 2^W loads is one coalesced warp access, runs the
+// W-stage butterfly in registers and stores the group back. A pass moves
+// the bytes of one unfused pass, so cross passes drop from sum(i) to
+// sum(ceil(i / W)) per sort. At W = 6 a thread holds 64 keys and 64
+// payloads (128 32-bit registers; bfloat16 takes one register per element
+// too). ptxas's report for both kernels is kept in
+// build/kernels/libbitonic-*.log (chip_smoke.py lists registers and
+// spills). The in-block finish (j < block) of each phase stays its own
+// in-block launch: a window's lane slice does not hold whole blocks.
 
 #include "ak_stream.cuh"
 
 namespace {
 
+// Swaps (ka, va) and (kb, vb) where ak_lt(kb, ka) (or, with the
+// tie-break, equal keys and ak_lt(vb, va)) ascending, where not
+// descending; written as selects, so a warp never branches on the data.
 template <typename K, typename V, bool KV, bool TIE>
 __device__ __forceinline__ void compare_exchange(K& ka, K& kb, V& va, V& vb,
                                                  bool asc, bool& swapped) {
   bool gt = ak_lt(kb, ka);
-  if (TIE) gt = gt || (ak_eq(ka, kb) && ak_lt(vb, va));
-  swapped = asc ? gt : !gt;
-  if (swapped) {
-    K t = ka; ka = kb; kb = t;
-    if (KV) { V u = va; va = vb; vb = u; }
+  if (TIE) gt = gt | (ak_eq(ka, kb) & ak_lt(vb, va));
+  swapped = gt == asc;
+  const K a = ka, b = kb;
+  ka = swapped ? b : a;
+  kb = swapped ? a : b;
+  if (KV) {
+    const V x = va, y = vb;
+    va = swapped ? y : x;
+    vb = swapped ? x : y;
   }
 }
 
-// One CTA per block of `block` keys (a power of two). Runs every stage
-// (k, j) for k = k_lo, 2 k_lo, ..., k_hi and j = min(k/2, block/2), ..., 1
-// on the block held in dynamic shared memory, then writes it back.
+// ---------------------------------------------------------------------------
+// The in-block kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kSlotBits = 4;                // index bits a thread holds
+constexpr int kSlots = 1 << kSlotBits;      // keys (and payloads) a thread
+constexpr int kInblockThreads = 256;        // most threads of a CTA
+constexpr int kInblockCtasPerSm = 4;        // 64 registers a thread
+static_assert(kSlotBits == 4, "run_stage and run_down dispatch 4 bits");
+
+// Shared-memory slot of block element i: i with its low 5 bits XORed by
+// u ^ (u << 1), u = i >> 5 (a permutation of each 32-element row). The map
+// is linear over XOR, so swz(a | b) = swz(a) ^ swz(b) for disjoint bits.
+__device__ __forceinline__ int swz(int i) {
+  const int u = i >> 5;
+  return i ^ ((u ^ (u << 1)) & 31);
+}
+
+// The top stage bit of phase k in a block of 2^lb keys: log2(min(k, 2^lb)) - 1.
+__device__ __forceinline__ int top_bit(long long k, int lb) {
+  const int q = 63 - __clzll(k);
+  return (q < lb ? q : lb) - 1;
+}
+
+// Direction of phase k for virtual thread vt under layout c: the bit
+// log2(k & rmask) of a pair's global index, which is a block bit (per
+// CTA), a thread bit (per virtual thread) or a register bit (per slot).
+// Returns that register bit in the last case; else -1, with desc set where
+// the pairs sort descending.
+__device__ __forceinline__ int direction(long long k, long long rmask,
+                                         long long base, int lb, int c,
+                                         int vt, bool& desc) {
+  const long long kk = k & rmask;
+  desc = false;
+  if (kk == 0) return -1;
+  const int q = 63 - __clzll(kk);
+  if (q >= lb) {
+    desc = (base >> q) & 1;
+    return -1;
+  }
+  if (q >= c && q < c + kSlotBits) return q - c;
+  desc = ((q < c ? vt >> q : vt >> (q - kSlotBits)) & 1) != 0;
+  return -1;
+}
+
+// One stage at register bit R: slot s against slot s | 2^R, for every s
+// with bit R clear. The pair sorts descending where bit RQ of s is set
+// (RQ >= 0: a direction known at compile time), else where desc is.
+template <int R, int RQ, typename K, typename V, bool KV, bool TIE>
+__device__ __forceinline__ void register_stage(K (&kk)[kSlots],
+                                               V (&vv)[kSlots], bool desc) {
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    if (s & (1 << R)) continue;
+    const bool d = RQ >= 0 ? ((s >> (RQ > 0 ? RQ : 0)) & 1) != 0 : desc;
+    bool swapped;
+    compare_exchange<K, V, KV, TIE>(kk[s], kk[s | (1 << R)], vv[s],
+                                    vv[s | (1 << R)], !d, swapped);
+  }
+}
+
+// The stage at register bit r with the direction of direction(): rq, the
+// direction's register bit (always above r) or -1, and desc.
 template <typename K, typename V, bool KV, bool TIE>
-__global__ void inblock_kernel(K* __restrict__ keys, V* __restrict__ vals,
-                               int block, long long k_lo, long long k_hi,
-                               long long rmask) {
+__device__ __forceinline__ void run_stage(int r, int rq, K (&kk)[kSlots],
+                                          V (&vv)[kSlots], bool desc) {
+#define AK_STAGE(R, RQ) \
+  case R * 8 + RQ + 1: \
+    register_stage<R, RQ, K, V, KV, TIE>(kk, vv, desc); \
+    break;
+  switch (r * 8 + rq + 1) {
+    AK_STAGE(0, -1) AK_STAGE(0, 1) AK_STAGE(0, 2) AK_STAGE(0, 3)
+    AK_STAGE(1, -1) AK_STAGE(1, 2) AK_STAGE(1, 3)
+    AK_STAGE(2, -1) AK_STAGE(2, 3)
+    AK_STAGE(3, -1)
+  }
+#undef AK_STAGE
+}
+
+// The stages at register bits TOP, TOP - 1, ..., 0, all with one
+// direction for all of a thread's pairs (desc): a whole run within one
+// phase, unrolled (no dispatch a stage).
+template <int TOP, typename K, typename V, bool KV, bool TIE>
+__device__ __forceinline__ void register_run(K (&kk)[kSlots],
+                                             V (&vv)[kSlots], bool desc) {
+  register_stage<TOP, -1, K, V, KV, TIE>(kk, vv, desc);
+  if constexpr (TOP > 0) register_run<TOP - 1, K, V, KV, TIE>(kk, vv, desc);
+}
+
+template <typename K, typename V, bool KV, bool TIE>
+__device__ __forceinline__ void run_down(int top, K (&kk)[kSlots],
+                                         V (&vv)[kSlots], bool desc) {
+  switch (top) {
+    case 0: register_run<0, K, V, KV, TIE>(kk, vv, desc); break;
+    case 1: register_run<1, K, V, KV, TIE>(kk, vv, desc); break;
+    case 2: register_run<2, K, V, KV, TIE>(kk, vv, desc); break;
+    default: register_run<3, K, V, KV, TIE>(kk, vv, desc); break;
+  }
+}
+
+__host__ __device__ constexpr int lowest_bit(int s) {
+  return (s & 1) ? 0 : 1 + lowest_bit(s >> 1);
+}
+
+// A virtual thread's keys (and payloads) to or from shared memory under the
+// layout whose register bits have swizzled slots d, its thread bits at
+// swizzled slot p. By linearity slot s sits at p XORed with d of each bit
+// of s; the slots are visited in Gray-code order, so each next offset is
+// the last one XORed with one d.
+template <typename T, bool STORE>
+__device__ __forceinline__ void shared_walk(unsigned char* base, int p,
+                                            const int (&d)[kSlotBits],
+                                            T (&r)[kSlots]) {
+  int o = p * (int)sizeof(T);
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i) {
+    if (i) o ^= d[lowest_bit(i)] * (int)sizeof(T);
+    T* a = reinterpret_cast<T*>(base + o);
+    const int s = i ^ (i >> 1);
+    if (STORE) *a = r[s];
+    else r[s] = *a;
+  }
+}
+
+template <typename K, typename V, bool KV, bool STORE>
+__device__ __forceinline__ void shared_slots(unsigned char* sk,
+                                             unsigned char* sv, int p,
+                                             const int (&d)[kSlotBits],
+                                             K (&kk)[kSlots],
+                                             V (&vv)[kSlots]) {
+  shared_walk<K, STORE>(sk, p, d, kk);
+  if (KV) shared_walk<V, STORE>(sv, p, d, vv);
+}
+
+// The 16 consecutive elements at p (16-byte aligned) to or from registers,
+// as 16-byte vectors.
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p,
+                                         T (&r)[kSlots]) {
+  constexpr int kPer = 16 / sizeof(T);
+#pragma unroll
+  for (int q = 0; q < kSlots / kPer; ++q) {
+    const uint4 w = reinterpret_cast<const uint4*>(p)[q];
+    const T* e = reinterpret_cast<const T*>(&w);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) r[q * kPer + i] = e[i];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_vec(T* __restrict__ p,
+                                          const T (&r)[kSlots]) {
+  constexpr int kPer = 16 / sizeof(T);
+#pragma unroll
+  for (int q = 0; q < kSlots / kPer; ++q) {
+    uint4 w;
+    T* e = reinterpret_cast<T*>(&w);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) e[i] = r[q * kPer + i];
+    reinterpret_cast<uint4*>(p)[q] = w;
+  }
+}
+
+// One CTA per block of 2^lb keys: every stage (k, j) for k = k_lo, 2 k_lo,
+// ..., k_hi and j = min(k/2, block/2), ..., 1, in runs of register stages
+// between shared-memory transposes (the note at the top of the file). vec:
+// keys (and vals) are 16-byte aligned, so a run at c = 0 moves them to and
+// from device memory as vectors.
+template <typename K, typename V, bool KV, bool TIE>
+__global__ void __launch_bounds__(kInblockThreads, kInblockCtasPerSm)
+inblock_kernel(K* __restrict__ keys, V* __restrict__ vals, int lb,
+               long long k_lo, long long k_hi, long long rmask, int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
-  K* sk = reinterpret_cast<K*>(smem);
-  V* sv = reinterpret_cast<V*>(smem + (size_t)block * sizeof(K));
-  const long long base = (long long)blockIdx.x * block;
+  const int block = 1 << lb;
+  unsigned char* sk = smem;
+  unsigned char* sv = smem + (size_t)block * sizeof(K);
+  const long long base = (long long)blockIdx.x << lb;
   K* gk = keys + base;
   V* gv = KV ? vals + base : nullptr;
-  for (int i = threadIdx.x; i < block; i += blockDim.x) {
-    sk[i] = gk[i];
-    if (KV) sv[i] = gv[i];
-  }
-  __syncthreads();
-  const int half = block >> 1;
-  for (long long k = k_lo; k <= k_hi; k <<= 1) {
-    int j = (int)((k >> 1) < half ? (k >> 1) : half);
-    for (; j >= 1; j >>= 1) {
-      const int lj = __ffs(j) - 1;
-      for (int p = threadIdx.x; p < half; p += blockDim.x) {
-        const int lo = ((p >> lj) << (lj + 1)) | (p & (j - 1));
-        const int hi = lo + j;
-        const bool asc = ((base + lo) & k & rmask) == 0;
-        K ka = sk[lo], kb = sk[hi];
-        V va{}, vb{};
-        if (KV) { va = sv[lo]; vb = sv[hi]; }
-        bool swapped;
-        compare_exchange<K, V, KV, TIE>(ka, kb, va, vb, asc, swapped);
-        if (swapped) {
-          sk[lo] = ka; sk[hi] = kb;
-          if (KV) { sv[lo] = va; sv[hi] = vb; }
+  const int nvt = block >> kSlotBits;  // virtual threads of the block
+
+  long long k = k_lo;
+  int p = top_bit(k, lb);
+  bool first = true;
+  while (k <= k_hi) {
+    // the run: stages (k, p) onwards while the stage bit is in [c, c + 4)
+    const int c = p - kSlotBits + 1 > 0 ? p - kSlotBits + 1 : 0;
+    long long k_end = k;
+    int p_end = p, stages = 0;
+    while (k_end <= k_hi && p_end >= c) {
+      ++stages;
+      if (p_end > 0) {
+        --p_end;
+      } else {
+        k_end <<= 1;
+        p_end = top_bit(k_end, lb);
+        if (p_end >= c + kSlotBits) break;
+      }
+    }
+    const bool last = k_end > k_hi;
+    // swizzled slots of the register bits: slot s of a virtual thread is
+    // at swz(its thread bits) ^ (XOR of d[r] over the bits r of s)
+    int d[kSlotBits];
+#pragma unroll
+    for (int r = 0; r < kSlotBits; ++r) d[r] = swz(1 << (c + r));
+    const int lowmask = (1 << c) - 1;
+
+    for (int vt = threadIdx.x; vt < nvt; vt += blockDim.x) {
+      const int tbits = ((vt >> c) << (c + kSlotBits)) | (vt & lowmask);
+      const int pbase = swz(tbits);
+      K kk[kSlots];
+      V vv[kSlots];
+      if (!first) {
+        shared_slots<K, V, KV, false>(sk, sv, pbase, d, kk, vv);
+      } else if (c == 0 && vec) {
+        load_vec(gk + tbits, kk);
+        if (KV) load_vec(gv + tbits, vv);
+      } else {
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s) {
+          kk[s] = gk[tbits | (s << c)];
+          if (KV) vv[s] = gv[tbits | (s << c)];
         }
       }
-      __syncthreads();
+
+      long long kq = k;
+      int pq = p;
+      bool desc;
+      int rq = direction(kq, rmask, base, lb, c, vt, desc);
+      if (stages == p - c + 1 && rq < 0) {
+        // the run is one phase's stages p .. c, one direction a thread
+        run_down<K, V, KV, TIE>(p - c, kk, vv, desc);
+      } else {
+        for (int i = 0; i < stages; ++i) {
+          run_stage<K, V, KV, TIE>(pq - c, rq, kk, vv, desc);
+          if (pq > 0) {
+            --pq;
+          } else {
+            kq <<= 1;
+            pq = top_bit(kq, lb);
+            rq = direction(kq, rmask, base, lb, c, vt, desc);
+          }
+        }
+      }
+
+      if (!last) {
+        shared_slots<K, V, KV, true>(sk, sv, pbase, d, kk, vv);
+      } else if (c == 0 && vec) {
+        store_vec(gk + tbits, kk);
+        if (KV) store_vec(gv + tbits, vv);
+      } else {
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s) {
+          gk[tbits | (s << c)] = kk[s];
+          if (KV) gv[tbits | (s << c)] = vv[s];
+        }
+      }
     }
-  }
-  for (int i = threadIdx.x; i < block; i += blockDim.x) {
-    gk[i] = sk[i];
-    if (KV) gv[i] = sv[i];
+    if (!last) __syncthreads();
+    first = false;
+    k = k_end;
+    p = p_end;
   }
 }
 
-// One thread per compare-exchange pair of a cross stage (k, j), j >= block,
-// in device memory: the reference's one-launch-per-stage layout.
-template <typename K, typename V, bool KV, bool TIE>
-__global__ void cross_kernel(K* __restrict__ keys, V* __restrict__ vals,
-                             long long npairs, long long k, long long j,
-                             int lj, long long rmask) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= npairs) return;
-  const long long lo = ((p >> lj) << (lj + 1)) | (p & (j - 1));
-  const long long hi = lo + j;
-  const bool asc = (lo & k & rmask) == 0;
-  K ka = keys[lo], kb = keys[hi];
-  V va{}, vb{};
-  if (KV) { va = vals[lo]; vb = vals[hi]; }
-  bool swapped;
-  compare_exchange<K, V, KV, TIE>(ka, kb, va, vb, asc, swapped);
-  if (swapped) {
-    keys[lo] = ka; keys[hi] = kb;
-    if (KV) { vals[lo] = va; vals[hi] = vb; }
-  }
-}
+// ---------------------------------------------------------------------------
+// The window kernel
+// ---------------------------------------------------------------------------
 
 // One thread per group of a fused window of W cross stages of phase k:
 // distances jtop, jtop/2, ..., jlow = jtop >> (W-1), all >= block. Group g
@@ -148,8 +394,7 @@ window_kernel(K* __restrict__ keys, V* __restrict__ vals, long long ngroups,
     kk[t] = keys[base + t * jlow];
     if (KV) vv[t] = vals[base + t * jlow];
   }
-  // bit t: member t moved (only moved members are stored, as the unfused
-  // kernel stores only swapped pairs)
+  // bit t: member t moved (only moved members are stored)
   unsigned long long moved = 0;
 #pragma unroll
   for (int s = H >> 1; s >= 1; s >>= 1) {
@@ -175,30 +420,27 @@ window_kernel(K* __restrict__ keys, V* __restrict__ vals, long long ngroups,
 }
 
 template <typename K, typename V, bool KV, bool TIE>
-int launch_inblock(void* keys, void* vals, long long total, int block,
+int launch_inblock(void* keys, void* vals, long long total, int lb,
                    long long k_lo, long long k_hi, long long rmask,
                    cudaStream_t stream) {
+  const long long block = 1ll << lb;
   const size_t smem = (size_t)block * (sizeof(K) + (KV ? sizeof(V) : 0));
   auto kern = inblock_kernel<K, V, KV, TIE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int threads = block / 2 < 1024 ? block / 2 : 1024;
-  const long long nblocks = total / block;
-  kern<<<(unsigned int)nblocks, threads, smem, stream>>>(
-      static_cast<K*>(keys), static_cast<V*>(vals), block, k_lo, k_hi, rmask);
-  return (int)cudaGetLastError();
-}
-
-template <typename K, typename V, bool KV, bool TIE>
-int launch_cross(void* keys, void* vals, long long total, long long k,
-                 long long j, long long rmask, cudaStream_t stream) {
-  const long long npairs = total / 2;
-  const int threads = 256;
-  const long long grid = (npairs + threads - 1) / threads;
-  const int lj = __builtin_ctzll((unsigned long long)j);
-  cross_kernel<K, V, KV, TIE><<<(unsigned int)grid, threads, 0, stream>>>(
-      static_cast<K*>(keys), static_cast<V*>(vals), npairs, k, j, lj, rmask);
+  // 128 threads a CTA where its shared memory lets seven CTAs share an SM
+  // (keys alone at 8192), else 256 (three CTAs an SM with a 4-byte
+  // payload): enough warps an SM either way, and small CTAs where many fit
+  // (measured, PERF.md)
+  const long long nvt = block >> kSlotBits;
+  const long long cap = smem <= 32768 ? 128 : kInblockThreads;
+  const int threads = (int)(nvt < cap ? nvt : cap);
+  const int vec = ((reinterpret_cast<uintptr_t>(keys) |
+                    reinterpret_cast<uintptr_t>(vals)) & 15) == 0;
+  kern<<<(unsigned int)(total >> lb), threads, smem, stream>>>(
+      static_cast<K*>(keys), static_cast<V*>(vals), lb, k_lo, k_hi, rmask,
+      vec);
   return (int)cudaGetLastError();
 }
 
@@ -227,20 +469,11 @@ int launch_window(void* keys, void* vals, long long total, long long k,
 
 template <typename K, typename V>
 int dispatch_inblock(void* keys, void* vals, int tie, long long total,
-                     int block, long long k_lo, long long k_hi,
+                     int lb, long long k_lo, long long k_hi,
                      long long rmask, cudaStream_t s) {
-  if (vals == nullptr) return launch_inblock<K, int32_t, false, false>(keys, vals, total, block, k_lo, k_hi, rmask, s);
-  if (tie) return launch_inblock<K, V, true, true>(keys, vals, total, block, k_lo, k_hi, rmask, s);
-  return launch_inblock<K, V, true, false>(keys, vals, total, block, k_lo, k_hi, rmask, s);
-}
-
-template <typename K, typename V>
-int dispatch_cross(void* keys, void* vals, int tie, long long total,
-                   long long k, long long j, long long rmask,
-                   cudaStream_t s) {
-  if (vals == nullptr) return launch_cross<K, int32_t, false, false>(keys, vals, total, k, j, rmask, s);
-  if (tie) return launch_cross<K, V, true, true>(keys, vals, total, k, j, rmask, s);
-  return launch_cross<K, V, true, false>(keys, vals, total, k, j, rmask, s);
+  if (vals == nullptr) return launch_inblock<K, int32_t, false, false>(keys, vals, total, lb, k_lo, k_hi, rmask, s);
+  if (tie) return launch_inblock<K, V, true, true>(keys, vals, total, lb, k_lo, k_hi, rmask, s);
+  return launch_inblock<K, V, true, false>(keys, vals, total, lb, k_lo, k_hi, rmask, s);
 }
 
 template <typename K, typename V>
@@ -275,31 +508,23 @@ int with_types(int kdtype, int vdtype, bool kv, F&& f) {
 }  // namespace
 
 // In place on keys[total] (and vals[total] when not null), rows of
-// rmask + 1 keys: every in-block stage of phases k_lo..k_hi on each block
-// of `block` keys.
+// rmask + 1 keys: every in-block stage of phases k_lo..k_hi (powers of two,
+// 2 <= k_lo) on each block of `block` keys (a power of two in 2^9 ..
+// 2^16 dividing total).
 AK_EXPORT int ak_bitonic_inblock(void* keys, void* vals, int dtype,
                                  int vdtype, int tie_break, long long total,
                                  int block, long long k_lo, long long k_hi,
                                  long long rmask, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (block < 512 || block > 65536 || (block & (block - 1)) ||
+      total % block || k_lo < 2 || (k_lo & (k_lo - 1)))
+    return (int)cudaErrorInvalidValue;
+  const int lb = __builtin_ctz((unsigned)block);
   return with_types(dtype, vdtype, vals != nullptr, [&](auto kt, auto vt) {
     typedef typename decltype(kt)::type K;
     typedef typename decltype(vt)::type V;
-    return dispatch_inblock<K, V>(keys, vals, tie_break, total, block, k_lo,
+    return dispatch_inblock<K, V>(keys, vals, tie_break, total, lb, k_lo,
                                   k_hi, rmask, s);
-  });
-}
-
-// In place: one cross stage (k, j) over keys[total] (and vals[total]),
-// rows of rmask + 1 keys.
-AK_EXPORT int ak_bitonic_cross(void* keys, void* vals, int dtype, int vdtype,
-                               int tie_break, long long total, long long k,
-                               long long j, long long rmask, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_types(dtype, vdtype, vals != nullptr, [&](auto kt, auto vt) {
-    typedef typename decltype(kt)::type K;
-    typedef typename decltype(vt)::type V;
-    return dispatch_cross<K, V>(keys, vals, tie_break, total, k, j, rmask, s);
   });
 }
 

@@ -6,50 +6,55 @@
 // carried the running prefix in VMEM from one grid step to the next, which
 // works because a TensorCore runs its grid in order. CTAs run in no order.
 //
-// Bound: bytes. The input is read once and the output written once.
+// Bound: bytes. The input (and the head flags) is read once and the output
+// written once.
 //
-// The dense scan over more than one tile (onepass_kernel) is AK.jl's own
-// single pass (Merrill and Garland's decoupled look-back), with an
-// association that does not depend on timing. A CTA takes the next tile id
-// from an atomic counter, so it waits only on tiles that started before it
-// (forward progress; the CTA that takes the last id sets the counter back
-// to 0). It scans its tile locally, publishes the tile's aggregate in a
-// status word, and then needs the inclusive value before its tile. Tiles
+// One kernel, onepass_kernel, scans the dense and the segmented input:
+// AK.jl's own single pass (Merrill and Garland's decoupled look-back), with
+// an association that does not depend on timing. A CTA takes the next tile
+// id from an atomic counter, so it waits only on tiles that started before
+// it (forward progress; the CTA that takes the last id sets the counter
+// back to 0). It scans its tile locally, publishes the tile's aggregate in
+// a status word, and then needs the inclusive value before its tile. Tiles
 // form groups of kGroup; tile p of group g takes
-//   seed = op(E_g, fold of the aggregates of tiles (g, 0 .. p-1)),
+//   seed = E_g + (fold of the aggregates of tiles (g, 0 .. p-1)),
 // the fold a fixed tree (kSlots aggregates a lane in order, then a warp
-// fold), and E_0 = init. The group's last tile publishes
-//   E_{g+1} = op(its seed, its aggregate).
+// fold that keeps the lanes in order where the operator needs it), and
+// E_0 = init. The group's last tile publishes
+//   E_{g+1} = seed + its aggregate.
 // Classic look-back would fold predecessors' aggregates back to whichever
 // tile had already published its inclusive prefix, so a float sum would
 // change from run to run; here every seed is the same function of the
 // input whatever the timing, and results repeat bitwise. Only the E chain
 // is serial, one hop a group: a group carries kGroup tiles (4 MiB of
-// float32 in, 4 MiB out), more than the card streams during one hop.
-// Status words are 64 bits, written and read whole: the value (32 bits:
-// float32, int32, or float32 for bf16) and the call's epoch, which the
-// wrapper counts up per call, so a word of an earlier call never reads as
-// published and no memset precedes a call.
+// float32 in, 4 MiB out), more than the card streams during one hop. An
+// input of one tile is seeded with init alone.
 //
-// An input of at most one tile, and every pass of the segmented scan, run
-// scan_kernel, which reads no status: seeded with init (one tile), or in
-// three passes over tiles of kTile elements (segmented):
-//   1. AGG:  each CTA folds one tile into its aggregate;
-//   2. one CTA scans the aggregates (exclusive, seeded with init), walking
-//      them in chunks of kTile with a running carry;
-//   3. each CTA scans its tile again, seeded with its tile's prefix.
+// Segmented (SEG): every element carries a head flag (1 at the first
+// element of each non-empty segment) and "+" above is the flagged monoid
+// (fa, va) + (fb, vb) = (fa | fb, fb ? vb : op(va, vb)), which is
+// associative, so the fixed association carries over unchanged: a tile
+// aggregate keeps its flag, the fold combines flags, and a seed or E_{g+1}
+// is the later operand's value where that holds a head. E needs no flag:
+// it only ever stands on the left. init is folded in once per segment, at
+// its head (op(init, x_head)), and once globally as E_0, so out =
+// op(init, x_0 .. x_i) per segment.
+//
+// Status words are 64 bits, written and read whole: the value in the low
+// 32 bits (float32, int32, or float32 for bf16) and above it the call's
+// epoch (dense: 32 bits), or the flag and a 31-bit epoch (segmented: bit
+// 32 the flag, bits 33..63 the epoch). The wrapper counts the epoch up per
+// call on a buffer of its own for each mode, so a word of an earlier call
+// never reads as published and no memset precedes a call.
 //
 // Within a tile, staged through shared memory (coalesced rows in and out),
 // thread t owns kItems consecutive elements and scans them sequentially in
 // registers; the threads' totals are scanned across each warp by shuffles
 // (a Hillis-Steele tree over the lanes) and the warps' totals by warp 0.
-//
-// Segmented (SEG): every element carries a head flag (1 at the first
-// element of each non-empty segment) and the operator is the flagged
-// monoid (fa, va) + (fb, vb) = (fa | fb, fb ? vb : op(va, vb)), carried
-// through all three passes (the tile aggregates keep their flag). init is
-// folded in once per segment, at its head (op(init, x_head)), and once
-// globally as the seed, so out = op(init, x_0 .. x_i) per segment.
+// A thread's run waits in shared memory for the seed, which keeps a
+// thread to 32 registers and four CTAs on an SM (three segmented): a
+// tile's look-back is latency with no bytes in flight, and only more tiles
+// resident at once keep the memory busy meanwhile.
 
 #include "ak_stream.cuh"
 
@@ -61,9 +66,12 @@ constexpr int kItems = 16;
 constexpr int kTile = kThreads * kItems;  // 8192
 constexpr int kGroup = 128;               // tiles of a look-back group
 constexpr int kSlots = kGroup / 32;       // group aggregates a lane folds
-constexpr int kOnepassCtasPerSm = 4;      // 2048 threads: the SM's limit
+// CTAs an SM: 4 dense (2048 threads, the SM's limit; 32 registers a
+// thread), 3 segmented (the flags' bookkeeping needs up to 40 registers)
+template <bool SEG>
+constexpr int kOnepassCtasPerSm = SEG ? 3 : 4;
 
-enum ScanMode { kIncl = 0, kExcl = 1, kExclSeg = 2, kAgg = 3 };
+enum ScanMode { kIncl = 0, kExcl = 1, kExclSeg = 2 };
 
 // Inclusive scan of (flag, value) pairs across the lanes of a warp.
 template <int OP, bool SEG, typename A>
@@ -89,7 +97,6 @@ __device__ __forceinline__ int slot(int i) { return i + (i >> 5); }
 template <typename A, bool SEG>
 struct TileShared {
   A v[kTile + kTile / 32];
-  __align__(16) uint8_t f[SEG ? kTile : 16];
   A wv[kWarps];    // warps' inclusive totals
   int wf[kWarps];
   A pre[kWarps];   // exclusive scan of the warps' totals (no seed)
@@ -99,48 +106,54 @@ struct TileShared {
 };
 
 // What a thread keeps from the tile's local scan to its output. Its run's
-// inclusive values stay in registers (REGS), or wait in its own slots of
-// TileShared::v, which frees the registers, and so lets an SM hold more
-// CTAs, for the single pass's wait on the seed.
-template <typename A, bool REGS>
+// inclusive values wait in its own slots of TileShared::v, which frees the
+// registers for more CTAs on an SM (the note at the top of the file).
+template <typename A>
 struct ThreadRun {
-  A v[REGS ? kItems : 1];
   unsigned own;    // bit j: head flag of element j
-  unsigned acc;    // bit j: a head at or before element j in the run
   A ev;            // exclusive prefix of this thread within its warp
   int ef;
 };
 
 // The local scan of the tile at base (identity past n): stage, scan each
-// thread's run in registers (keeping its inclusive values as ThreadRun
-// says), scan the runs' totals across the warp and the warps' totals in
-// warp 0.
+// thread's run in registers (its inclusive values back to its slots), scan
+// the runs' totals across the warp and the warps' totals in warp 0. SEG
+// folds init into each head element; a thread reads its run's 16 flags
+// straight from device memory, as one 16-byte load where fvec (flags
+// 16-byte aligned) and the tile is whole.
 // Leaves s.pre/pf and s.tot/totf; ends synchronised.
-template <typename In, int OP, bool SEG, typename A, bool REGS>
+template <typename In, int OP, bool SEG, typename A>
 __device__ __forceinline__ void tile_scan(
     const In* __restrict__ x, const uint8_t* __restrict__ flags, long long n,
-    long long base, A ident, A init, int transform, TileShared<A, SEG>& s,
-    ThreadRun<A, REGS>& r) {
+    long long base, A ident, A init, int fvec, TileShared<A, SEG>& s,
+    ThreadRun<A>& r) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // this thread's head flags (issued before the tile's values)
+  r.own = 0;
+  if (SEG) {
+    uint4 fw;
+    uint8_t* fb = reinterpret_cast<uint8_t*>(&fw);
+    const long long first = base + (long long)tid * kItems;
+    if (fvec && base + kTile <= n) {
+      fw = reinterpret_cast<const uint4*>(flags + base)[tid];
+    } else {
+#pragma unroll
+      for (int j = 0; j < kItems; ++j)
+        fb[j] = first + j < n ? flags[first + j] : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) r.own |= (unsigned)(fb[j] != 0) << j;
+  }
   // stage the tile: coalesced rows in, padding past n with the identity
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const int i = k * kThreads + tid;
     const long long g = base + i;
     s.v[slot(i)] = g < n ? ak_cast<A, In>(x[g]) : ident;
-    if (SEG) s.f[i] = g < n ? flags[g] : 0;
   }
   __syncthreads();
 
   // this thread's run, scanned in registers
-  r.own = 0;
-  r.acc = 0;
-  if (SEG) {
-    const uint4 fw = reinterpret_cast<const uint4*>(s.f)[tid];
-    const uint8_t* fb = reinterpret_cast<const uint8_t*>(&fw);
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) r.own |= (unsigned)(fb[j] != 0) << j;
-  }
   A run = ident;
   int rf = 0;
 #pragma unroll
@@ -148,16 +161,12 @@ __device__ __forceinline__ void tile_scan(
     const int k = slot(tid * kItems + j);
     A e = s.v[k];
     if (SEG && ((r.own >> j) & 1)) {
-      run = transform ? AkOpF<OP>::apply(init, e) : e;
+      run = AkOpF<OP>::apply(init, e);
       rf = 1;
     } else {
       run = AkOpF<OP>::apply(run, e);
     }
-    if constexpr (REGS)
-      r.v[j] = run;
-    else
-      s.v[k] = run;
-    if (SEG) r.acc |= (unsigned)rf << j;
+    s.v[k] = run;
   }
 
   // exclusive prefix of this thread within its warp
@@ -202,10 +211,10 @@ __device__ __forceinline__ void tile_scan(
 // The tile's output (mode kIncl, kExcl or kExclSeg), seeded with seed: the
 // inclusive value before the tile. Staged back through shared memory and
 // written in coalesced rows.
-template <typename In, int OP, bool SEG, typename A, bool REGS>
+template <typename In, int OP, bool SEG, typename A>
 __device__ __forceinline__ void tile_store(
     In* __restrict__ out, long long n, long long base, A seed, A init,
-    int mode, TileShared<A, SEG>& s, const ThreadRun<A, REGS>& r) {
+    int mode, TileShared<A, SEG>& s, const ThreadRun<A>& r) {
   const int tid = threadIdx.x, warp = tid >> 5;
   const A pw = (SEG && s.pf[warp]) ? s.pre[warp]
                                    : AkOpF<OP>::apply(seed, s.pre[warp]);
@@ -215,12 +224,10 @@ __device__ __forceinline__ void tile_store(
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
     const int k = slot(tid * kItems + j);
-    A v;
-    if constexpr (REGS)
-      v = r.v[j];
-    else
-      v = s.v[k];
-    const A inc = (SEG && ((r.acc >> j) & 1)) ? v : AkOpF<OP>::apply(p, v);
+    const A v = s.v[k];
+    // a head at or before element j of the run: v holds no seed
+    const bool acc = SEG && (r.own & ((2u << j) - 1)) != 0;
+    const A inc = acc ? v : AkOpF<OP>::apply(p, v);
     A o = mode == kIncl ? inc : last;
     if (SEG && mode == kExclSeg && ((r.own >> j) & 1)) o = init;
     last = inc;
@@ -235,45 +242,16 @@ __device__ __forceinline__ void tile_store(
   }
 }
 
-// In = Out = the element type for passes 1 and 3, the accumulator type for
-// pass 2. A CTA scans tiles_per_cta consecutive tiles, seeded with
-// prefix[blockIdx.x] (or `seed` when prefix is null).
-template <typename In, int OP, bool SEG>
-__global__ void __launch_bounds__(kThreads)
-scan_kernel(const In* __restrict__ x, const uint8_t* __restrict__ flags,
-            long long n, int tiles_per_cta,
-            const typename AkAcc<In>::type* __restrict__ prefix,
-            double seed_d, double ident_d, double init_d, int mode,
-            int transform, In* __restrict__ out,
-            typename AkAcc<In>::type* __restrict__ agg_v,
-            uint8_t* __restrict__ agg_f) {
-  typedef typename AkAcc<In>::type A;
-  __shared__ TileShared<A, SEG> s;
-  const A ident = ak_from_double<A>(ident_d);
-  const A init = ak_from_double<A>(init_d);
-  A seed = prefix ? prefix[blockIdx.x] : ak_from_double<A>(seed_d);
-
-  for (int t = 0; t < tiles_per_cta; ++t) {
-    const long long tile = (long long)blockIdx.x * tiles_per_cta + t;
-    const long long base = tile * kTile;
-    if (base >= n) break;  // uniform across the CTA
-    ThreadRun<A, true> r;
-    tile_scan<In, OP, SEG>(x, flags, n, base, ident, init, transform, s, r);
-    if (mode == kAgg) {
-      if (threadIdx.x == 0) {
-        agg_v[tile] = s.tot;
-        if (SEG) agg_f[tile] = (uint8_t)s.totf;
-      }
-    } else {
-      tile_store<In, OP, SEG>(out, n, base, seed, init, mode, s, r);
-    }
-    seed = (SEG && s.totf) ? s.tot : AkOpF<OP>::apply(seed, s.tot);
-    __syncthreads();
-  }
+// (fa, va) + (fb, vb) into (fa, va): the flagged monoid under SEG, op
+// alone otherwise.
+template <int OP, bool SEG, typename A>
+__device__ __forceinline__ void combine(A& va, int& fa, A vb, int fb) {
+  va = (SEG && fb) ? vb : AkOpF<OP>::apply(va, vb);
+  if (SEG) fa |= fb;
 }
 
 // ---------------------------------------------------------------------------
-// The single pass: status words
+// Status words
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ unsigned long long ld_status(
@@ -290,12 +268,21 @@ __device__ __forceinline__ void st_status(unsigned long long* p,
                :: "l"(p), "l"(w) : "memory");
 }
 
-template <typename A>
-__device__ __forceinline__ unsigned long long pack(A v, unsigned epoch) {
+// The epoch a word carries: bits 32..63 (dense) or 33..63 (segmented).
+template <bool SEG>
+__device__ __forceinline__ unsigned epoch_of(unsigned long long w) {
+  return (unsigned)(w >> (SEG ? 33 : 32));
+}
+
+template <bool SEG, typename A>
+__device__ __forceinline__ unsigned long long pack(A v, int f,
+                                                   unsigned epoch) {
   unsigned bits;
   if constexpr (std::is_same<A, float>::value) bits = __float_as_uint(v);
   else bits = (unsigned)v;
-  return ((unsigned long long)epoch << 32) | bits;
+  const unsigned long long hi =
+      SEG ? ((unsigned long long)epoch << 1) | (unsigned)(f != 0) : epoch;
+  return (hi << 32) | bits;
 }
 
 template <typename A>
@@ -306,14 +293,19 @@ __device__ __forceinline__ A unpack(unsigned long long w) {
     return (A)(unsigned)w;
 }
 
+__device__ __forceinline__ int unpack_flag(unsigned long long w) {
+  return (int)((w >> 32) & 1);
+}
+
 // The word at p once this call (epoch) has published it. Every word a
 // tile waits on belongs to a tile that started before it, so the wait
 // ends; should it not (a fault elsewhere), the kernel traps after some
 // 2^24 polls (seconds) and the launch fails instead of holding the card.
+template <bool SEG>
 __device__ __forceinline__ unsigned long long wait_status(
     const unsigned long long* p, unsigned epoch) {
   unsigned long long w = ld_status(p);
-  for (unsigned polls = 0; (unsigned)(w >> 32) != epoch; ++polls) {
+  for (unsigned polls = 0; epoch_of<SEG>(w) != epoch; ++polls) {
     if (polls == (1u << 24)) __trap();
     __nanosleep(32);
     w = ld_status(p);
@@ -321,20 +313,21 @@ __device__ __forceinline__ unsigned long long wait_status(
   return w;
 }
 
+// ---------------------------------------------------------------------------
+// The single pass
+// ---------------------------------------------------------------------------
+
 // status: [counter (low 32 bits), aggregate of each of `tiles` tiles, E_g
-// of each group g >= 1 (at index g of the last block)]. Four CTAs an SM
-// (32 registers a thread; the runs wait in shared memory): a tile's
-// look-back is latency with no bytes in flight, and only more tiles
-// resident at once keep the memory busy meanwhile (PERF.md has the times
-// at two CTAs an SM and at four).
-template <typename In, int OP>
-__global__ void __launch_bounds__(kThreads, kOnepassCtasPerSm)
-onepass_kernel(const In* __restrict__ x, long long n, long long tiles,
-               double ident_d, double init_d, int mode,
-               In* __restrict__ out, unsigned long long* status,
-               unsigned epoch) {
+// of each group g >= 1 (at index g of the last block)]. flags: the head
+// flags under SEG (else unused).
+template <typename In, int OP, bool SEG>
+__global__ void __launch_bounds__(kThreads, kOnepassCtasPerSm<SEG>)
+onepass_kernel(const In* __restrict__ x, const uint8_t* __restrict__ flags,
+               long long n, long long tiles, double ident_d, double init_d,
+               int mode, int fvec, In* __restrict__ out,
+               unsigned long long* status, unsigned epoch) {
   typedef typename AkAcc<In>::type A;
-  __shared__ TileShared<A, false> s;
+  __shared__ TileShared<A, SEG> s;
   __shared__ long long sh_tile;
   __shared__ A sh_seed;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -351,12 +344,13 @@ onepass_kernel(const In* __restrict__ x, long long n, long long tiles,
   }
   __syncthreads();
   const long long tile = sh_tile, base = tile * kTile;
-  ThreadRun<A, false> r;
-  tile_scan<In, OP, false>(x, nullptr, n, base, ident, init, 0, s, r);
+  ThreadRun<A> r;
+  tile_scan<In, OP, SEG>(x, flags, n, base, ident, init, fvec, s, r);
 
   if (warp == 0) {
     const A tot = s.tot;
-    if (lane == 0) st_status(agg + tile, pack(tot, epoch));
+    const int totf = SEG ? s.totf : 0;
+    if (lane == 0) st_status(agg + tile, pack<SEG>(tot, totf, epoch));
     const long long g = tile / kGroup;
     const int p = (int)(tile % kGroup);
     const unsigned long long* ga = agg + g * kGroup;
@@ -367,111 +361,102 @@ onepass_kernel(const In* __restrict__ x, long long n, long long tiles,
       w[i] = k < p ? ld_status(ga + k) : 0ull;
     }
     A a = ident;
+    int af = 0;
 #pragma unroll
     for (int i = 0; i < kSlots; ++i) {
       const int k = lane * kSlots + i;
       A v = ident;
+      int vf = 0;
       if (k < p) {
-        if ((unsigned)(w[i] >> 32) != epoch) w[i] = wait_status(ga + k, epoch);
+        if (epoch_of<SEG>(w[i]) != epoch)
+          w[i] = wait_status<SEG>(ga + k, epoch);
         v = unpack<A>(w[i]);
+        vf = SEG ? unpack_flag(w[i]) : 0;
       }
-      a = AkOpF<OP>::apply(a, v);
+      combine<OP, SEG>(a, af, v, vf);
     }
-    a = ak_warp_fold<OP>(a);
+    // fold of the 32 lanes into lane 0, a fixed shuffle-down tree: at
+    // distances 16 .. 1 (dense, as ak_warp_fold), or 1 .. 16 under SEG,
+    // which keeps the lanes in order (the flagged monoid does not commute)
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      const int d = SEG ? 1 << i : 16 >> i;
+      const A pv = __shfl_down_sync(kAkFullMask, a, d);
+      const int pf = SEG ? __shfl_down_sync(kAkFullMask, af, d) : 0;
+      combine<OP, SEG>(a, af, pv, pf);
+    }
     if (lane == 0) {
-      const A e = g == 0 ? init : unpack<A>(wait_status(grp + g, epoch));
-      const A seed = AkOpF<OP>::apply(e, a);
-      if (p == kGroup - 1 && tile + 1 < tiles)
-        st_status(grp + g + 1, pack(AkOpF<OP>::apply(seed, tot), epoch));
+      A seed = init;
+      if (tiles > 1) {
+        seed = g == 0 ? init
+                      : unpack<A>(wait_status<SEG>(grp + g, epoch));
+        int sf = 0;
+        combine<OP, SEG>(seed, sf, a, af);
+      }
+      if (p == kGroup - 1 && tile + 1 < tiles) {
+        A e = seed;
+        int ef = 0;
+        combine<OP, SEG>(e, ef, tot, totf);
+        st_status(grp + g + 1, pack<SEG>(e, 0, epoch));
+      }
       sh_seed = seed;
     }
   }
   __syncthreads();
-  tile_store<In, OP, false>(out, n, base, sh_seed, init, mode, s, r);
+  tile_store<In, OP, SEG>(out, n, base, sh_seed, init, mode, s, r);
 }
 
 template <typename In, int OP>
-int launch(const void* x, const void* flags, long long n, int grid,
-           int tiles_per_cta, const void* prefix, double seed, double ident,
-           double init, int mode, int transform, void* out, void* agg_v,
-           void* agg_f, cudaStream_t s) {
-  typedef typename AkAcc<In>::type A;
-  if (flags) {
-    scan_kernel<In, OP, true><<<grid, kThreads, 0, s>>>(
-        static_cast<const In*>(x), static_cast<const uint8_t*>(flags), n,
-        tiles_per_cta, static_cast<const A*>(prefix), seed, ident, init,
-        mode, transform, static_cast<In*>(out), static_cast<A*>(agg_v),
-        static_cast<uint8_t*>(agg_f));
-  } else {
-    scan_kernel<In, OP, false><<<grid, kThreads, 0, s>>>(
-        static_cast<const In*>(x), nullptr, n, tiles_per_cta,
-        static_cast<const A*>(prefix), seed, ident, init, mode, transform,
-        static_cast<In*>(out), static_cast<A*>(agg_v), nullptr);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <typename In, int OP>
-int launch_onepass(const void* x, long long n, double ident, double init,
-                   int mode, void* out, void* status, unsigned epoch,
-                   cudaStream_t s) {
+int launch_onepass(const void* x, const void* flags, long long n,
+                   double ident, double init, int mode, void* out,
+                   void* status, unsigned epoch, cudaStream_t s) {
   const long long tiles = (n + kTile - 1) / kTile;
-  onepass_kernel<In, OP><<<(unsigned int)tiles, kThreads, 0, s>>>(
-      static_cast<const In*>(x), n, tiles, ident, init, mode,
-      static_cast<In*>(out), static_cast<unsigned long long*>(status),
-      epoch);
+  const unsigned int grid = (unsigned int)tiles;
+  unsigned long long* st = static_cast<unsigned long long*>(status);
+  if (flags) {
+    const int fvec = (reinterpret_cast<uintptr_t>(flags) & 15) == 0;
+    onepass_kernel<In, OP, true><<<grid, kThreads, 0, s>>>(
+        static_cast<const In*>(x), static_cast<const uint8_t*>(flags), n,
+        tiles, ident, init, mode, fvec, static_cast<In*>(out), st, epoch);
+  } else {
+    onepass_kernel<In, OP, false><<<grid, kThreads, 0, s>>>(
+        static_cast<const In*>(x), nullptr, n, tiles, ident, init, mode, 0,
+        static_cast<In*>(out), st, epoch);
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One pass of the scan over x[n] (dtype), flags[n] (uint8, null for the
-// dense scan). mode: 0 inclusive, 1 exclusive, 2 exclusive with heads set
-// to init (segmented), 3 tile aggregates into agg_v/agg_f (accumulator
-// type; float for bfloat16). transform: fold init into each head element.
-AK_EXPORT int ak_scan_pass(const void* x, const void* flags, int dtype,
-                           int op, long long n, int grid, int tiles_per_cta,
-                           const void* prefix, double seed, double ident,
-                           double init, int mode, int transform, void* out,
-                           void* agg_v, void* agg_f, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return ak_with_type(dtype, [&](auto tt) {
-    typedef typename decltype(tt)::type T;
-    switch (op) {
-      case AK_ADD: return launch<T, AK_ADD>(x, flags, n, grid, tiles_per_cta, prefix, seed, ident, init, mode, transform, out, agg_v, agg_f, s);
-      case AK_MUL: return launch<T, AK_MUL>(x, flags, n, grid, tiles_per_cta, prefix, seed, ident, init, mode, transform, out, agg_v, agg_f, s);
-      case AK_MIN: return launch<T, AK_MIN>(x, flags, n, grid, tiles_per_cta, prefix, seed, ident, init, mode, transform, out, agg_v, agg_f, s);
-      case AK_MAX: return launch<T, AK_MAX>(x, flags, n, grid, tiles_per_cta, prefix, seed, ident, init, mode, transform, out, agg_v, agg_f, s);
-    }
-    return (int)cudaErrorInvalidValue;
-  });
-}
-
-// The dense scan of x[n] (dtype; n > one tile) in one launch. mode: 0
-// inclusive, 1 exclusive. status: at least 1 + tiles + groups words of 64
-// bits (tiles = n / kTile, groups = tiles / kGroup, both rounded up), its
-// first word 0 on entry (0 again on exit; zeros at first use); epoch: nonzero, and differs from that of every earlier call on
-// this buffer that a word may still hold.
-AK_EXPORT int ak_scan_onepass(const void* x, int dtype, int op, long long n,
-                              double ident, double init, int mode, void* out,
-                              void* status, unsigned int epoch,
-                              void* stream) {
-  if (n <= 0 || epoch == 0 || (mode != kIncl && mode != kExcl))
+// The scan of x[n] (dtype; n > 0) in one launch: dense when flags is null,
+// else segmented by the uint8 head flags[n]. mode: 0 inclusive, 1
+// exclusive, 2 exclusive with heads set to init (segmented only). status:
+// at least 1 + tiles + groups words of 64 bits (tiles = n / kTile, groups
+// = tiles / kGroup, both rounded up), its first word 0 on entry (0 again
+// on exit; zeros at first use), used by calls of one mode only; epoch:
+// nonzero, below 2^31 when segmented, and different from that of every
+// earlier call on this buffer that a word may still hold.
+AK_EXPORT int ak_scan_onepass(const void* x, const void* flags, int dtype,
+                              int op, long long n, double ident, double init,
+                              int mode, void* out, void* status,
+                              unsigned int epoch, void* stream) {
+  if (n <= 0 || epoch == 0 || mode < kIncl || mode > kExclSeg ||
+      (mode == kExclSeg && !flags) || (flags && epoch >= (1u << 31)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return ak_with_type(dtype, [&](auto tt) {
     typedef typename decltype(tt)::type T;
     switch (op) {
-      case AK_ADD: return launch_onepass<T, AK_ADD>(x, n, ident, init, mode, out, status, epoch, s);
-      case AK_MUL: return launch_onepass<T, AK_MUL>(x, n, ident, init, mode, out, status, epoch, s);
-      case AK_MIN: return launch_onepass<T, AK_MIN>(x, n, ident, init, mode, out, status, epoch, s);
-      case AK_MAX: return launch_onepass<T, AK_MAX>(x, n, ident, init, mode, out, status, epoch, s);
+      case AK_ADD: return launch_onepass<T, AK_ADD>(x, flags, n, ident, init, mode, out, status, epoch, s);
+      case AK_MUL: return launch_onepass<T, AK_MUL>(x, flags, n, ident, init, mode, out, status, epoch, s);
+      case AK_MIN: return launch_onepass<T, AK_MIN>(x, flags, n, ident, init, mode, out, status, epoch, s);
+      case AK_MAX: return launch_onepass<T, AK_MAX>(x, flags, n, ident, init, mode, out, status, epoch, s);
     }
     return (int)cudaErrorInvalidValue;
   });
 }
 
-// Elements per tile (one CTA's share in passes 1 and 3).
+// Elements per tile (one CTA's share).
 AK_EXPORT int ak_scan_tile() { return kTile; }
 // Tiles of a look-back group of the single pass.
 AK_EXPORT int ak_scan_group() { return kGroup; }

@@ -7,10 +7,11 @@ empty segments are legal anywhere.
 
   * ``segmented_scan_blocks`` replaces the TPU kernel of the same name
     (``_segscan_body``, ``_segscan_block``, ``_flagged_row_scan``): the scan
-    kernel's three passes (``scan_kernel.scan_passes``, ``csrc/scan.cu``)
+    kernel's single pass (``scan_kernel.scan_onepass``, ``csrc/scan.cu``)
     under the flagged operator (fa, va) + (fb, vb) = (fa | fb,
     fb ? vb : op(va, vb)), with a uint8 head flag beside every value and
-    beside every tile aggregate. ``init`` is folded in once per segment.
+    beside every tile aggregate in its status word; one launch, reading
+    values and flags once. ``init`` is folded in once per segment.
   * ``segmented_reduce_blocks`` is that scan plus the segment-end gather in
     torch (empty segments give ``init``), as in the reference, whose gather
     has no kernel either.
@@ -48,12 +49,13 @@ def segment_ids(offsets: torch.Tensor, n: int) -> torch.Tensor:
 
 def head_mask(offsets: torch.Tensor, n: int) -> torch.Tensor:
     """uint8 (n,): 1 at the first element of each non-empty segment (a
-    scatter of ones at the non-empty segments' starts)."""
+    scatter of ones at the non-empty segments' starts; ``scatter_``, which
+    unlike an indexed assignment does not wait on the device)."""
     flags = torch.zeros(n + 1, dtype=torch.uint8, device=offsets.device)
     if n > 0 and offsets.shape[0] > 1:
         starts = offsets[:-1].to(torch.int64)
         nonempty = offsets[1:] > offsets[:-1]
-        flags[torch.where(nonempty, starts, n)] = 1
+        flags.scatter_(0, torch.where(nonempty, starts, n), 1)
     return flags[:n]
 
 
@@ -152,14 +154,14 @@ def segmented_scan_flags(op, values, flags, *, unit, exclusive=False):
                                 exclusive=exclusive)
     if values.numel() == 0:
         return values.clone()
-    return SC.scan_passes(
+    return SC.scan_onepass(
         op, values.contiguous(), flags.contiguous(), unit=unit,
         mode=SC.EXCLUSIVE_SEGMENTED if exclusive else SC.INCLUSIVE,
         kernel="segmented_scan")
 
 
 def segmented_scan_blocks(op, values, offsets, *, unit, exclusive=False):
-    """Per-segment prefix scan of 1-D ``values``: three kernel passes."""
+    """Per-segment prefix scan of 1-D ``values``: one kernel launch."""
     return segmented_scan_flags(op, values,
                                 head_mask(offsets, values.shape[0]),
                                 unit=unit, exclusive=exclusive)
@@ -191,12 +193,9 @@ def segmented_sort_blocks(values, offsets, payload=None):
 
 
 def segmented_scan_launches(n: int) -> int:
-    """Launches of a segmented scan or reduce: the scan kernel's passes
-    (``scan_passes``): none for an empty input, one for at most one tile,
-    else three."""
-    if n == 0:
-        return 0
-    return 1 if n <= SC.TILE else 3
+    """Launches of a segmented scan or reduce: none for an empty input,
+    else one (the single pass)."""
+    return 0 if n == 0 else 1
 
 
 def segmented_sort_launches(n: int, *, payload: bool = False) -> int:

@@ -5,23 +5,25 @@ Replaces the TPU kernels ``_inblock_body`` (run by ``_run_inblock``) and
 ``_hyper_body`` (run by ``_run_hyper``) of ``sort_kernel.py``:
 
   * **in-block kernel** (``csrc/bitonic.cu`` ``inblock_kernel``): one CTA
-    per block of ``block_rows() * block_cols()`` keys (8192 by default)
-    held in dynamic shared memory; it runs every stage (k, j) with
-    j < block of the phases it is given.
+    per block of ``block_rows() * block_cols()`` keys (8192 by default);
+    it runs every stage (k, j) with j < block of the phases it is given.
+    Each thread holds 16 keys (and payloads) in registers and runs the
+    stages whose distance bits are its register bits there; between such
+    runs the block is re-laid through shared memory once (a transpose),
+    so a block's 91 initial stages cost 24 transposes and a phase's 13
+    finishing stages 3.
   * **window kernel** (``window_kernel``): the fused hyper-block window,
     up to ``m = sort_hyper`` consecutive cross stages j >= block of one
-    phase in one pass over device memory. One thread holds the 2^w
-    elements that the window's stages exchange (stride the window's
-    smallest distance) in registers.
-  * **cross-stage kernel** (``cross_kernel``): one launch per cross stage,
-    one thread per compare-exchange pair: the ``sort_hyper=0`` layout.
+    phase in one pass over device memory (one stage a pass at
+    ``sort_hyper = 0``). One thread holds the 2^w elements that the
+    window's stages exchange (stride the window's smallest distance) in
+    registers.
 
-What bounds them on an H100 is device-memory bandwidth: every cross pass
-reads and writes the whole padded array once. A sort of 2^m keys has
-(m-13)(m-12)/2 cross stages; windows of up to ``m`` of them cut the
-passes to sum(ceil(i/m)). The design keeps every stage below the block
-size in shared memory (one read and one write per block per phase), as
-the TPU kernel did in VMEM.
+Every cross pass reads and writes the whole padded array once, so device
+memory bounds the window kernel. A sort of 2^m keys has (m-13)(m-12)/2
+cross stages; windows of up to ``m`` of them cut the passes to
+sum(ceil(i/m)). The in-block stages never leave the CTA (one read and one
+write per block per launch), as the TPU kernel kept them in VMEM.
 
 One difference from the reference's schedule is left: the reference's
 last window of a phase absorbs the in-block finish (its VMEM held whole
@@ -31,10 +33,14 @@ costs ``ceil(i/m) + 1`` launches against the reference's ``ceil(i/m)``
 
 Padding (type-max to ``max(next_pow2(n), block)``), the stage sequence and
 the direction rule ``((global low index) & k) == 0`` are the reference's,
-and the network is oblivious, so kernel, plain version and the JAX Pallas
-path agree bitwise on NaN-free keys without mixed signed zeros, including
-the pair order of equal keys when ``tie_break`` is off, whatever the
-window order.
+and the network is oblivious. Every compare-exchange, in the kernels and
+in the plain version alike, swaps a pair only where the later key compares
+smaller (``a > b``; descending: not greater), so kernels and plain version
+agree bitwise on every input, NaN and signed zeros included, and the
+output is a permutation of the input. The JAX Pallas path agrees with
+both on NaN-free keys without mixed signed zeros (its key-only stages take
+``minimum``/``maximum``), including the pair order of equal keys when
+``tie_break`` is off, whatever the window order.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernels or raises. The CUDA kernels write in place
@@ -57,7 +63,7 @@ SORT_BLOCK = SORT_ROWS * SORT_COLS
 # window launch fuses up to m cross stages. Chosen from a sweep of m = 0..6
 # of ``merge_sort`` at 2^28 float32 keys on the card (``chip_smoke.py``,
 # PERF.md); the reference's 3 was a choice for the TPU's VMEM. 0 selects
-# the unfused one-launch-per-stage layout.
+# the unfused layout: windows of one stage, one launch a stage.
 HYPER_ORDER = 6
 MAX_HYPER = 6
 
@@ -68,11 +74,6 @@ _SIGNATURES = {
     "ak_bitonic_inblock": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-    ],
-    "ak_bitonic_cross": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ],
     "ak_bitonic_window": [
@@ -122,24 +123,26 @@ def _cx_plain(keys, vals, k: int, j: int, tie_break: bool, row: int):
     """One compare-exchange stage at distance ``j`` over the whole array
     of rows of ``row`` keys. Pairs are (g·2j + t, g·2j + t + j); the
     direction depends only on g because t < j <= k/2, and never on the
-    row index (``& (row - 1)``)."""
+    row index (``& (row - 1)``). A pair swaps where ``a > b`` (with the
+    tie-break: or equal keys and ``av > bv``) ascending, where not
+    descending: the kernels' ``compare_exchange``, so NaN and -0.0 move
+    as they do on the card."""
     total = keys.shape[0]
     groups = total // (2 * j)
     g = torch.arange(groups, dtype=torch.int64, device=keys.device)
     asc = (((g * (2 * j)) & k & (row - 1)) == 0).reshape(groups, 1)
     yk = keys.reshape(groups, 2, j)
     a, b = yk[:, 0], yk[:, 1]
-    if vals is None:
-        lo, hi = torch.minimum(a, b), torch.maximum(a, b)
-        na, nb = torch.where(asc, lo, hi), torch.where(asc, hi, lo)
-        return torch.stack([na, nb], dim=1).reshape(total), None
-    yv = vals.reshape(groups, 2, j)
-    av, bv = yv[:, 0], yv[:, 1]
     gt = a > b
-    if tie_break:
-        gt = gt | ((a == b) & (av > bv))
+    if vals is not None:
+        yv = vals.reshape(groups, 2, j)
+        av, bv = yv[:, 0], yv[:, 1]
+        if tie_break:
+            gt = gt | ((a == b) & (av > bv))
     swap = torch.where(asc, gt, ~gt)
     nk = torch.stack([torch.where(swap, b, a), torch.where(swap, a, b)], 1)
+    if vals is None:
+        return nk.reshape(total), None
     nv = torch.stack([torch.where(swap, bv, av), torch.where(swap, av, bv)],
                      1)
     return nk.reshape(total), nv.reshape(total)
@@ -182,23 +185,6 @@ def _run_inblock(keys, vals, k_lo: int, k_hi: int, block: int,
     return keys, vals
 
 
-def _run_cross(keys, vals, k: int, j: int, tie_break: bool, cuda: bool,
-               row: int | None = None):
-    """One cross stage (k, j), j >= block, over rows of ``row`` keys."""
-    row = keys.shape[0] if row is None else row
-    if not cuda:
-        return _cx_plain(keys, vals, k, j, tie_break, row)
-    lib = _lib()
-    err = lib.ak_bitonic_cross(
-        _ptr(keys), _ptr(vals), *_codes(keys, vals),
-        int(tie_break), keys.shape[0], k, j, row - 1,
-        _build.stream_handle(keys.device),
-    )
-    _build.check(lib, err, "bitonic cross-stage kernel")
-    C.count_launch("bitonic_cross")
-    return keys, vals
-
-
 def _run_window(keys, vals, k: int, jtop: int, w: int, tie_break: bool,
                 cuda: bool, row: int | None = None):
     """One fused window of phase k: the w cross stages at distances jtop,
@@ -224,11 +210,11 @@ def network_schedule(total: int, *, first_k: int = 2, hyper: int,
                      block: int) -> list[tuple]:
     """The launches of ``_sort_network`` in order, as a pure function of
     the shape: ``("inblock", k_lo, k_hi)`` runs every in-block stage of
-    phases k_lo..k_hi; ``("cross", k, j)`` one cross stage (hyper 0);
-    ``("window", k, jtop, w)`` the w cross stages jtop .. jtop >> (w-1)
-    of phase k. Per cross phase k > block: its ``i = log2(k/block)``
-    stages in windows of up to ``hyper`` (largest distance first), then
-    the in-block finish."""
+    phases k_lo..k_hi; ``("window", k, jtop, w)`` the w cross stages
+    jtop .. jtop >> (w-1) of phase k. Per cross phase k > block: its
+    ``i = log2(k/block)`` stages in windows of up to ``max(hyper, 1)``
+    (largest distance first; hyper 0 is the unfused layout, one stage a
+    window), then the in-block finish."""
     if hyper < 0 or hyper > MAX_HYPER:
         raise ValueError(f"hyper must be in [0, {MAX_HYPER}], got {hyper}")
     out = []
@@ -242,11 +228,7 @@ def network_schedule(total: int, *, first_k: int = 2, hyper: int,
     while k <= total:
         j = k // 2
         while j >= block:
-            if hyper == 0:
-                out.append(("cross", k, j))
-                j //= 2
-                continue
-            w = min(hyper, (j // block).bit_length())
+            w = min(max(hyper, 1), (j // block).bit_length())
             out.append(("window", k, j, w))
             j >>= w
         out.append(("inblock", k, k))
@@ -267,9 +249,6 @@ def _sort_network(keys, vals, total: int, tie_break: bool, *, block: int,
         if item[0] == "inblock":
             keys, vals = _run_inblock(keys, vals, item[1], item[2], block,
                                       tie_break, cuda, total)
-        elif item[0] == "cross":
-            keys, vals = _run_cross(keys, vals, item[1], item[2], tie_break,
-                                    cuda, total)
         else:
             keys, vals = _run_window(keys, vals, item[1], item[2], item[3],
                                      tie_break, cuda, total)
@@ -382,8 +361,8 @@ def network_launches(total: int, *, first_k: int = 2, hyper: int,
                      block: int) -> int:
     """Closed-form launch count of ``_sort_network(total, first_k=…)``
     (the length of ``network_schedule``): one in-block launch if any
-    phase fits a block, then per cross phase ``i + 1`` launches unfused
-    (hyper 0) or ``ceil(i/m) + 1`` fused, for ``i = log₂(k/block)``. The
+    phase fits a block, then per cross phase ``ceil(i/m) + 1`` launches
+    for ``i = log₂(k/block)`` (``i + 1`` unfused, m = 0 or 1). The
     reference's fused count is ``ceil(i/m)``: its last window absorbs the
     in-block finish."""
     launches = 0
@@ -394,7 +373,7 @@ def network_launches(total: int, *, first_k: int = 2, hyper: int,
             k *= 2
     while k <= total:
         i = (k // block).bit_length() - 1
-        launches += (i if hyper <= 0 else -(-i // hyper)) + 1
+        launches += -(-i // max(hyper, 1)) + 1
         k *= 2
     return launches
 

@@ -115,8 +115,8 @@ WINDOW_SIZES = [8193, 1 << 16, (1 << 16) + 1, 1 << 17, (1 << 19) + 3]
 @pytest.mark.parametrize("m", range(7))
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_window_kernel_bitwise_vs_unfused_and_plain(gen, m, dtype):
-    """Every order m: the fused window of m stages equals the m unfused
-    cross launches and the plain stages bitwise (keys alone; key/value
+    """Every order m: the fused window of m stages equals m windows of one
+    stage and the plain stages bitwise (keys alone; key/value
     with the tie-break off and on); whole networks at sizes on both sides
     of a window boundary and on batched rows equal the plain network."""
     n = 1 << 20
@@ -131,8 +131,8 @@ def test_window_kernel_bitwise_vs_unfused_and_plain(gen, m, dtype):
         plain = SK._run_window(x.clone(), None if vals is None
                                else vals.clone(), k, jtop, w, tie, False)
         ka, va = x.clone(), None if vals is None else vals.clone()
-        for s in range(w):
-            ka, va = SK._run_cross(ka, va, k, jtop >> s, tie, True)
+        for s in range(w):  # unfused: windows of one stage
+            ka, va = SK._run_window(ka, va, k, jtop >> s, 1, tie, True)
         for got in (plain, (ka, va)):
             assert torch.equal(fused[0], got[0])
             if vals is not None:
@@ -162,7 +162,7 @@ def test_window_kernel_bitwise_vs_unfused_and_plain(gen, m, dtype):
 @pytest.mark.parametrize("m", range(7))
 def test_sort_hyper_reaches_the_card_with_closed_form_launches(gen, m):
     """``tuning.set("sort", sort_hyper=m)`` reaches the CUDA network: the
-    window kernel launches for m >= 1, the unfused kernel for m = 0, and
+    window kernel launches at every m (one stage a window at m = 0), and
     the counted launches equal the closed form."""
     x = _keys(gen, 1 << 18, torch.float32)
     registry.tuning.set("sort", sort_hyper=m)
@@ -175,8 +175,100 @@ def test_sort_hyper_reaches_the_card_with_closed_form_launches(gen, m):
         registry.tuning.reset("sort")
     assert torch.equal(s, torch.sort(x).values)
     assert sum(kern.values()) == SK.cross_launches(1 << 18, hyper=m)
-    assert ("bitonic_window" in kern) == (m >= 1)
-    assert ("bitonic_cross" in kern) == (m == 0)
+    assert set(kern) == {"bitonic_inblock", "bitonic_window"}
+
+
+# every block the registry accepts and shared memory holds: 2^10 .. 2^15
+# keys (2^16 for bfloat16 keys alone)
+INBLOCK_BLOCKS = [1 << b for b in range(10, 17)]
+INBLOCK_PAYLOADS = [(None, False), (torch.int32, False),
+                    (torch.int32, True), (torch.float32, False),
+                    (torch.float32, True), (torch.bfloat16, False),
+                    (torch.bfloat16, True)]
+
+
+def _awkward(gen, n, dtype):
+    """Many ties; floats with -0.0 beside 0.0 and NaN."""
+    x = torch.randint(-4, 4, (n,), generator=gen, device="cuda",
+                      dtype=torch.int32).to(dtype)
+    if dtype.is_floating_point:
+        u = torch.rand(n, generator=gen, device="cuda")
+        x = torch.where(u < 0.1, torch.full_like(x, -0.0), x)
+        x = torch.where(u > 0.97, torch.full_like(x, math.nan), x)
+    return x
+
+
+def _fits(block, dtype, vdtype):
+    size = torch.empty(0, dtype=dtype).element_size() + (
+        0 if vdtype is None else torch.empty(0, dtype=vdtype).element_size())
+    return block * size <= SK.MAX_SMEM
+
+
+def _bits(x):
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("vdtype,tie", INBLOCK_PAYLOADS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_inblock_kernel_bitwise_vs_plain_every_block(gen, dtype, vdtype,
+                                                     tie):
+    """The in-block kernel against its plain version, bitwise (NaN bits
+    included), on keys with NaN, -0.0 beside 0.0 and many ties: every key
+    and payload dtype, tie-break off and on, at every block shared memory
+    holds; the initial phases, a finish on one row and on rows of 4
+    blocks, and keys 4 bytes off 16-byte alignment (scalar loads)."""
+    for block in INBLOCK_BLOCKS:
+        if not _fits(block, dtype, vdtype):
+            continue
+        total = 8 * block
+        base = _awkward(gen, total + 8, dtype)
+        vbase = (None if vdtype is None
+                 else _awkward(gen, total + 8, vdtype))
+        for off in (0, 1):
+            if off and base.element_size() == 2:
+                off = 2
+            for k_lo, k_hi, row in ((2, block, total), (total, total, total),
+                                    (4 * block, 4 * block, 4 * block)):
+                def run(cuda):  # in place on views at the offset
+                    k = base.clone()[off:off + total]
+                    v = None if vbase is None else \
+                        vbase.clone()[off:off + total]
+                    return SK._run_inblock(k, v, k_lo, k_hi, block, tie,
+                                           cuda, row)
+                C.reset_launch_count()
+                got = run(True)
+                torch.cuda.synchronize()
+                assert C.kernel_launches() == {"bitonic_inblock": 1}
+                want = run(False)
+                what = (dtype, vdtype, tie, block, off, k_lo, row)
+                assert torch.equal(_bits(got[0]), _bits(want[0])), what
+                if vdtype is not None:
+                    assert torch.equal(_bits(got[1]), _bits(want[1])), what
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_inblock_blocks_on_rows_and_networks_vs_plain(gen, dtype):
+    """Whole networks through the entry points at every accepted block
+    (``tuning_scope``): batched rows (``bitonic_sort_batched``,
+    ``bitonic_argsort_batched``) and the 1-D kv sort with the tie-break,
+    on keys with NaN, -0.0 and ties, bitwise equal to the plain network."""
+    for block in INBLOCK_BLOCKS:
+        if not _fits(block, dtype, torch.int32):
+            continue
+        with C.tuning_scope(block_rows=8, block_cols=block // 8):
+            rows = _awkward(gen, 3 * 3 * block, dtype).view(3, -1)
+            assert torch.equal(
+                _bits(SK.bitonic_sort_batched(rows)),
+                _bits(SK.bitonic_sort_batched(rows, plain=True))), block
+            assert torch.equal(SK.bitonic_argsort_batched(rows),
+                               SK.bitonic_argsort_batched(rows, plain=True))
+            k = _awkward(gen, 5 * block + 3, dtype)
+            v = torch.randint(0, 50, k.shape, generator=gen, device="cuda",
+                              dtype=torch.int32)
+            got = SK.bitonic_sort_kv(k, v, tie_break=True)
+            want = SK.bitonic_sort_kv(k, v, tie_break=True, plain=True)
+            assert torch.equal(_bits(got[0]), _bits(want[0])), block
+            assert torch.equal(got[1], want[1]), block
 
 
 def test_auto_dispatch_launches_kernels(gen):
@@ -430,6 +522,53 @@ def test_float_add_repeats_bitwise_over_20_runs(gen):
         assert torch.equal(RK.reduce_blocks(MAPK.identity, torch.add, x,
                                             unit=0.0), r0)
         assert torch.equal(SCK.scan_blocks(torch.add, x, unit=0.0), s0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_segmented_single_pass_vs_model(gen, dtype):
+    """The segmented single pass at n in {1, TILE, TILE + 1, GROUP * TILE
+    +- 1, 2^22 + 5}, with head flags that leave element 0 out and a run
+    of empty stretches: one launch; every result, float add on normals
+    included, bitwise equal to the numpy model of its association
+    (tests/torch_scan_model.py with flags), inclusive and exclusive."""
+    for n in SCAN_SIZES:
+        flags = (torch.rand(n, generator=gen, device="cuda") < 3e-3).to(
+            torch.uint8)
+        flags[0] = 0
+        flags[n // 2:n // 2 + min(n // 4, 3 * SCK.TILE)] = 0
+        host_f = flags.cpu().numpy()
+        for name in ("add", "mul", "min", "max"):
+            op = OPS[name][0]
+            x = (torch.where(_keys(gen, n, dtype) > 0, 1.0, -1.0).to(dtype)
+                 if name == "mul" and dtype != torch.int32
+                 else _keys(gen, n, dtype, hi=3 if name == "mul" else None))
+            unit = _unit(name, dtype)
+            host = (x.float() if dtype == torch.bfloat16 else x).cpu()
+            for exclusive in (False, True):
+                C.reset_launch_count()
+                got = SGK.segmented_scan_flags(op, x, flags, unit=unit,
+                                               exclusive=exclusive)
+                torch.cuda.synchronize()
+                assert C.kernel_launches() == {"segmented_scan": 1}
+                model = torch.from_numpy(scan_model(
+                    name, host.numpy(), unit, exclusive,
+                    flags=host_f)).to(dtype)
+                assert torch.equal(got.cpu(), model), (name, dtype, n,
+                                                       exclusive)
+
+
+def test_segmented_float_add_repeats_bitwise_over_20_runs(gen):
+    """The segmented pass's association depends on n and the flags
+    alone: 20 float32 segmented scans of the same 2^26 + 3 values are
+    bitwise equal."""
+    n = (1 << 26) + 3
+    x = torch.randn(n, generator=gen, device="cuda")
+    flags = (torch.rand(n, generator=gen, device="cuda") < 1e-4).to(
+        torch.uint8)
+    s0 = SGK.segmented_scan_flags(torch.add, x, flags, unit=0.0)
+    for _ in range(19):
+        assert torch.equal(SGK.segmented_scan_flags(torch.add, x, flags,
+                                                     unit=0.0), s0)
 
 
 def _csr(gen, nseg, total, *, empty_ends=False):

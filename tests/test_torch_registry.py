@@ -204,12 +204,12 @@ def test_launch_counter_attribution_and_spans():
     with telemetry.enabled_scope():
         with telemetry.span("outer"):
             with KC.launch_attribution("sort"):
-                KC.count_launch("bitonic_cross")
+                KC.count_launch("bitonic_window")
                 KC.count_launch("bitonic_inblock")
             KC.count_launch("searchsorted")
     assert KC.launch_count() == 3
     assert KC.launch_counts() == {"sort": 2, "unattributed": 1}
-    assert KC.kernel_launches() == {"bitonic_cross": 1,
+    assert KC.kernel_launches() == {"bitonic_window": 1,
                                     "bitonic_inblock": 1, "searchsorted": 1}
     (ev,) = [e for e in telemetry.events() if e["name"] == "outer"]
     assert ev["args"]["launches"] == 3

@@ -71,7 +71,7 @@ def test_batched_launch_set_closed_form_does_not_grow_with_rows():
     # the plain network runs the kernels' stages; their count is the
     # closed form of one row, whatever the number of rows
     calls = []
-    names = ("_run_inblock", "_run_cross", "_run_window")
+    names = ("_run_inblock", "_run_window")
     orig = {n: getattr(SK, n) for n in names}
     for n in names:
         setattr(SK, n, lambda *a, _f=orig[n], **k: (calls.append(1),

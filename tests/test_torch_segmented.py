@@ -13,12 +13,18 @@ float add on normal data. The sort's float tie-break case puts -0.0 and
 0.0 in one segment: the port's network must order them as the
 reference's Pallas network does.
 """
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from repro import core as jak
+from repro.kernels import common as JKC
 from repro.kernels import segment_kernel as JSG
 from repro_torch import core as ak
 from repro_torch.core import dispatch, registry
@@ -26,6 +32,9 @@ from repro_torch.kernels import common as TC
 from repro_torch.kernels import segment_kernel as TSG
 
 from torch_parity import assert_bitwise, keys, t
+from torch_scan_model import GROUP as MODEL_GROUP
+from torch_scan_model import TILE as MODEL_TILE
+from torch_scan_model import scan_model
 
 LAYOUTS = {
     "one_segment": [20000],
@@ -251,8 +260,8 @@ def test_segmented_sort_payload_vs_pallas():
 def test_segmented_launch_closed_forms():
     from repro_torch.kernels import sort_kernel as TSK
     assert TSG.segmented_scan_launches(0) == 0
-    assert TSG.segmented_scan_launches(8192) == 1
-    assert TSG.segmented_scan_launches(1 << 28) == 3
+    assert [TSG.segmented_scan_launches(n) for n in (
+        1, 8192, 8193, 1 << 20, 1 << 28)] == [1] * 5
     assert TSG.segmented_sort_launches(0) == 0
     n = 1 << 26
     assert TSG.segmented_sort_launches(n) == TSK.cross_launches(n)
@@ -262,3 +271,128 @@ def test_segmented_launch_closed_forms():
     ak.segmented_scan(torch.add, torch.ones(9000), torch.tensor([0, 9000]),
                       init=0.0, backend="cuda")
     assert TC.launch_count() == 0  # the plain version launches nothing
+
+
+# --------------------------------------------------------------------------
+# The flagged single pass (tests/torch_scan_model.py with head flags)
+# --------------------------------------------------------------------------
+
+# one tile, the first two-tile size, and each side of the first group edge
+FLAG_SIZES = [1, MODEL_TILE, MODEL_TILE + 1, MODEL_GROUP * MODEL_TILE - 1,
+              MODEL_GROUP * MODEL_TILE + 1]
+# (name, dtype of the values, exact data): min and max are exact on any
+# data; add on small integers; mul on +-1
+FLAG_CASES = [("add", "f32"), ("add", "i32"), ("min", "f32"),
+              ("max", "f32"), ("mul", "f32")]
+
+
+def _flag_offsets(rng, n):
+    """CSR offsets over n values: empty segments at both ends and inside,
+    ragged segments (mean ~3000) that straddle tiles, and, from a group of
+    tiles up, one segment that covers the whole first group."""
+    if n >= MODEL_GROUP * MODEL_TILE:
+        lengths = [0, MODEL_GROUP * MODEL_TILE, 0]
+    else:
+        lengths = [0]
+    left = n - sum(lengths)
+    while left > 0:
+        ln = 0 if rng.random() < 0.1 else min(left, int(rng.geometric(
+            1 / 3000)))
+        lengths.append(ln)
+        left -= ln
+    return _offsets(lengths + [0])
+
+
+def _flag_values(rng, n, name, dtype):
+    if name == "mul":
+        return rng.choice(np.array([-1.0, 1.0], np.float32), size=n)
+    if name == "add":
+        raw = rng.integers(-3, 4, size=n)
+        return raw.astype(np.int32 if dtype == "i32" else np.float32)
+    return keys(rng, n, dtype)
+
+
+@pytest.mark.parametrize("n", FLAG_SIZES)
+def test_flagged_single_pass_model_vs_pallas_interpret(n):
+    """The segmented single pass's association (the numpy model with head
+    flags) against the reference's ``segmented_scan`` (Pallas, interpret
+    mode) and the port's plain version, bitwise on exact data, for add,
+    mul, min and max, inclusive and exclusive (the reference's exclusive
+    scan is its inclusive one through ``_exclusive_shift``: one Pallas
+    call a case); above a tile, float32 normals under add within the
+    reference's tolerance (rtol 1e-4 / atol 1e-3)."""
+    rng = np.random.default_rng(n)
+    off = _flag_offsets(rng, n)
+    flags = TSG.head_mask(t(off), n).numpy()
+    for name, dtype in FLAG_CASES:
+        top, jop = OPS[name] if name != "mul" else (torch.mul, jnp.multiply)
+        unit = 1 if name == "mul" else _unit(name, dtype)
+        vals = _flag_values(rng, n, name, dtype)
+        inc = jak.segmented_scan(jop, jnp.asarray(vals), jnp.asarray(off),
+                                 init=unit, backend="pallas")
+        for exclusive in (False, True):
+            want = np.asarray(JSG._exclusive_shift(
+                inc, JSG.head_flags(jnp.asarray(off), n), unit)
+                if exclusive else inc)
+            got = scan_model(name, vals, unit, exclusive, flags=flags)
+            assert_bitwise(got, want)
+            assert_bitwise(ak.segmented_scan(
+                top, t(vals), t(off), init=unit, inclusive=not exclusive,
+                backend="cuda"), got)
+    if n > MODEL_TILE:
+        vals = keys(rng, n, "f32")
+        want = np.asarray(jak.segmented_scan(
+            jnp.add, jnp.asarray(vals), jnp.asarray(off), init=0.0,
+            backend="pallas"))
+        np.testing.assert_allclose(scan_model("add", vals, 0.0,
+                                              flags=flags),
+                                   want, rtol=1e-4, atol=1e-3)
+
+
+def _reference_flagged_pallas(jop, vals, flags, unit):
+    """The reference's segmented Pallas kernel (``_segscan_body``, interpret
+    mode) fed head flags directly, as ``segmented_scan_blocks`` feeds the
+    flags of its offsets, so the first element need not be a head."""
+    n = vals.size
+    v, _ = JKC.as_blocks(jnp.asarray(vals), fill=jnp.asarray(unit,
+                                                           vals.dtype))
+    f, _ = JKC.as_blocks(jnp.asarray(flags.astype(np.int32)),
+                         fill=jnp.asarray(0, jnp.int32))
+    br, bc = JKC.block_rows(), JKC.block_cols()
+    spec = pl.BlockSpec((br, bc), lambda i: (i, 0))
+    out = JKC.pallas_call(
+        functools.partial(JSG._segscan_body, jop, unit),
+        grid=(v.shape[0] // br,), in_specs=[spec, spec], out_specs=spec,
+        out_shape=jax.ShapeDtypeStruct(v.shape, v.dtype),
+        scratch_shapes=[pltpu.VMEM((1, 1), v.dtype),
+                        pltpu.VMEM((1, 1), jnp.int32)],
+        interpret=True)(v, f)
+    return np.asarray(out.reshape(-1)[:n])
+
+
+@pytest.mark.parametrize("group", [1, 2, 3])
+def test_flagged_model_first_element_not_a_head_over_many_groups(group):
+    """Head flags with no head at element 0 (its run takes init as the
+    global seed) and heads that fall on tile edges, over many groups of
+    1-3 tiles: the model equals the reference's Pallas kernel fed the same
+    flags and the port's plain flagged scan, bitwise, for int32 add and
+    float32 max (identity inits: the reference folds a non-identity init
+    in elsewhere, ROADMAP Queue 3)."""
+    n = 7 * MODEL_TILE + 5
+    rng = np.random.default_rng(group)
+    flags = (rng.random(n) < 2e-4).astype(np.uint8)
+    flags[0] = 0
+    flags[[MODEL_TILE, 3 * MODEL_TILE - 1, 5 * MODEL_TILE + 1]] = 1
+    for name, jop, top, vals, unit in (
+            ("add", jnp.add, torch.add,
+             rng.integers(-1000, 1000, size=n).astype(np.int32), 0),
+            ("max", jnp.maximum, torch.maximum, keys(rng, n, "f32"),
+             -np.inf)):
+        want = _reference_flagged_pallas(jop, vals, flags, unit)
+        got = scan_model(name, vals, unit, flags=flags, group=group)
+        assert_bitwise(got, want)
+        for exclusive in (False, True):
+            assert_bitwise(TSG.flagged_scan_ref(
+                top, t(vals), t(flags), unit=unit, exclusive=exclusive),
+                scan_model(name, vals, unit, exclusive, flags=flags,
+                           group=group))

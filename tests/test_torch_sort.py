@@ -14,6 +14,7 @@ parity where the network's own choices show: the kv pair order with the
 tie-break off at every dtype, at the size where cross stages run.
 """
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -29,6 +30,7 @@ from repro_torch.kernels import merge_kernel as TMK
 from repro_torch.kernels import sort_kernel as TSK
 from repro.kernels import merge_kernel as JMK
 
+import torch_inblock_model as IM
 from torch_parity import DTYPES, assert_bitwise, keys, t
 
 SIZES = [1, 5, 8191, 8193, 3 * 8192 + 7]
@@ -155,7 +157,7 @@ def test_network_issues_closed_form_launches(monkeypatch, n, first_k,
     """The network loop calls its kernels exactly as often as the closed
     form says (kernels stubbed: this counts calls, not data)."""
     calls = []
-    for name in ("_run_inblock", "_run_cross", "_run_window"):
+    for name in ("_run_inblock", "_run_window"):
         monkeypatch.setattr(
             TSK, name, lambda k, v, *a, _n=name: (calls.append(_n),
                                                   (k, v))[1])
@@ -166,8 +168,7 @@ def test_network_issues_closed_form_launches(monkeypatch, n, first_k,
         m = TSK._hyper_order()
     assert len(calls) == TSK.network_launches(n, first_k=first_k, hyper=m,
                                               block=8192)
-    assert ("_run_cross" in calls) == (m == 0)
-    assert ("_run_window" in calls) == (m > 0)
+    assert "_run_window" in calls  # one stage a window at m = 0
 
 
 SCHED_TOTALS = [1024, 1 << 13, 1 << 14, 1 << 17, 1 << 20, 1 << 28]
@@ -182,8 +183,6 @@ def _stages(schedule, block):
             while k <= item[2]:
                 out.extend(TSK._stages_upto_block(k, block))
                 k *= 2
-        elif item[0] == "cross":
-            out.append((item[1], item[2]))
         else:
             _, k, jtop, w = item
             out.extend((k, jtop >> s) for s in range(w))
@@ -195,8 +194,8 @@ def _stages(schedule, block):
 def test_schedule_is_the_closed_form_and_the_unfused_stages(hyper, total):
     """The pure schedule: its length is the closed form at every order,
     every window fuses at most ``hyper`` consecutive halving cross stages
-    of one phase, and its windows cover exactly the stages of the unfused
-    sequence, in order."""
+    of one phase (one at hyper 0), and its windows cover exactly the
+    stages of the unfused sequence, in order."""
     block = 1024
     for first_k in (2, 64, 2048, 1 << 14):
         if first_k > total:
@@ -208,10 +207,10 @@ def test_schedule_is_the_closed_form_and_the_unfused_stages(hyper, total):
         assert _stages(sched, block) == _stages(TSK.network_schedule(
             total, first_k=first_k, hyper=0, block=block), block)
         for item in sched:
+            assert item[0] in ("inblock", "window")
             if item[0] == "window":
-                assert 1 <= item[3] <= hyper
+                assert 1 <= item[3] <= max(hyper, 1)
                 assert item[2] >> (item[3] - 1) >= block
-            assert item[0] != "cross" or hyper == 0
 
 
 FUSED_SIZES = [100, 1024, 7 * 1024, 9 * 1024]
@@ -289,3 +288,160 @@ def test_tie_break_needs_int32_payload_and_bad_dtype_raises():
                             tie_break=True)
     with pytest.raises(ValueError):
         TSK.bitonic_sort_kv(k, torch.arange(99, dtype=torch.int32))
+
+
+# --------------------------------------------------------------------------
+# The in-block kernel's schedule (tests/torch_inblock_model.py)
+# --------------------------------------------------------------------------
+
+INBLOCK_BLOCKS = [1 << b for b in range(10, 16)]
+
+
+def _model_stages(k_lo, k_hi, lb):
+    return [(k, 1 << p) for _, st in IM.runs(k_lo, k_hi, lb) for k, p in st]
+
+
+@pytest.mark.parametrize("block", INBLOCK_BLOCKS)
+def test_inblock_runs_cover_the_schedules_stages(block):
+    """For every ("inblock", k_lo, k_hi) that ``network_schedule`` emits
+    (rows up to 2^17, several first phases, both orders) the kernel's runs
+    cover exactly the stages ``_stages_upto_block`` lists, in order; each
+    run's stage bits lie in its register bits [c, c + 4) with 0 <= c <=
+    lb - 4; the last run of a launch has c = 0 (its vector stores); the
+    initial sort of 8192 keys takes 25 runs, a finish ceil(13 / 4)."""
+    lb = block.bit_length() - 1
+    seen = set()
+    total = block
+    while total <= 1 << 17:
+        for first_k in (2, 16, 64, block, 2 * block):
+            if first_k > total:
+                continue
+            for hyper in (0, 6):
+                for item in TSK.network_schedule(total, first_k=first_k,
+                                                 hyper=hyper, block=block):
+                    if item[0] == "inblock":
+                        seen.add(item[1:])
+        total *= 2
+    assert seen
+    for k_lo, k_hi in sorted(seen):
+        want, k = [], k_lo
+        while k <= k_hi:
+            want += TSK._stages_upto_block(k, block)
+            k *= 2
+        assert _model_stages(k_lo, k_hi, lb) == want
+        runs = IM.runs(k_lo, k_hi, lb)
+        for c, st in runs:
+            assert 0 <= c <= lb - IM.SLOT_BITS and st
+            assert all(c <= p < c + IM.SLOT_BITS for _, p in st)
+        assert runs[-1][0] == 0
+        if k_lo == k_hi > block:
+            assert len(runs) == -(-lb // IM.SLOT_BITS)
+    if block == 8192:
+        assert len(IM.runs(2, 8192, 13)) == 25
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+def test_inblock_swizzle_is_free_of_bank_conflicts(elem_bytes):
+    """Under the kernel's XOR swizzle no two lanes of a warp touch two
+    different words of one shared-memory bank, in every layout c of every
+    block 2^9 .. 2^16, for 4-byte and 2-byte elements."""
+    for lb in range(9, 17):
+        for c in range(lb - IM.SLOT_BITS + 1):
+            assert IM.bank_conflicts(lb, c, elem_bytes) == 1, (lb, c)
+
+
+def _awkward_keys(rng, n, dtype):
+    """Many ties, -0.0 beside 0.0 and NaN (floats)."""
+    if dtype == "i32":
+        return rng.integers(-4, 4, size=n).astype(np.int32)
+    raw = rng.integers(-4, 4, size=n).astype(np.float32)
+    raw[rng.random(n) < 0.1] = -0.0
+    raw[rng.random(n) < 0.03] = np.nan
+    return raw.astype(ml_dtypes.bfloat16) if dtype == "bf16" else raw
+
+
+def _payload_of(rng, n, vdtype):
+    if vdtype is None:
+        return None
+    return _awkward_keys(rng, n, vdtype)
+
+
+def _model_vs_plain(rng, dtype, vdtype, tie):
+    for lb in (10, 11, 13):
+        block = 1 << lb
+        total = 4 * block
+        k, v = _awkward_keys(rng, total, dtype), _payload_of(rng, total,
+                                                             vdtype)
+        for k_lo, k_hi, row in ((2, block, total), (2, block, block),
+                                (total, total, total),
+                                (2 * block, 2 * block, 2 * block)):
+            mk, mv = IM.apply_inblock(k, v, k_lo, k_hi, lb, row - 1, tie)
+            gk, gv = TSK._run_inblock(
+                t(k), None if v is None else t(v), k_lo, k_hi, block, tie,
+                False, row)
+            assert_bitwise(gk, mk)
+            if v is not None:
+                assert_bitwise(gv, mv)
+
+
+@pytest.mark.parametrize("vdtype,tie", [(None, False), ("i32", False),
+                                        ("i32", True), ("f32", True),
+                                        ("bf16", False), ("bf16", True)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_inblock_model_equals_plain_bitwise(dtype, vdtype, tie):
+    """The model of the kernel's runs, applied to keys with NaN, -0.0
+    beside 0.0 and many ties, equals the port's plain ``_run_inblock``
+    bitwise: the initial phases and a finish, at blocks 2^10 .. 2^13, on
+    one row and on rows of one block (the last phase's direction then
+    sees only the row)."""
+    rng = np.random.default_rng(len(dtype) + 7 * tie)
+    with np.errstate(invalid="ignore"):  # NaN compares False, as on the card
+        _model_vs_plain(rng, dtype, vdtype, tie)
+
+
+@pytest.mark.parametrize("dtype,vdtype,tie,phases", [
+    ("i32", "i32", False, (2, 8192)), ("f32", "f32", True, (1 << 15,
+                                                            1 << 15))])
+def test_inblock_model_equals_reference_interpret(dtype, vdtype, tie,
+                                                  phases):
+    """The model against the reference's ``_run_inblock`` (Pallas, in
+    interpret mode) on three 8192-key blocks, bitwise: the initial phases
+    2 .. 8192 (int32 keys and payload, tie-break off: the pair order of
+    equal keys is the network's own), and the finish of phase 2^15
+    (float32 keys and payload, tie-break on). Keys with many ties, no NaN
+    or mixed signed zeros: the reference's key-only stages take
+    min/max."""
+    rng = np.random.default_rng(3)
+    n, block = 3 * 8192, 8192
+    k = rng.integers(-40, 40, size=n).astype(np.int32)
+    k = k if dtype == "i32" else k.astype(np.float32) / 4
+    v = rng.integers(0, 50, size=n).astype(np.int32)
+    v = v if vdtype == "i32" else v.astype(np.float32)
+    k_lo, k_hi = phases
+    stages, kk = [], k_lo
+    while kk <= k_hi:
+        stages += JSK._stages_upto_block(kk, block)
+        kk *= 2
+    with JKC.tuning_scope(block_rows=8, block_cols=1024):
+        wk, wv = JSK._run_inblock(
+            stages, jnp.asarray(k).reshape(-1, 1024),
+            jnp.asarray(v).reshape(-1, 1024), tie, n // block, 8, 1024)
+    mk, mv = IM.apply_inblock(k, v, k_lo, k_hi, 13, (1 << 40) - 1, tie)
+    assert_bitwise(mk, np.asarray(wk).reshape(-1))
+    assert_bitwise(mv, np.asarray(wv).reshape(-1))
+
+
+def test_plain_network_permutes_nan_and_signed_zeros():
+    """Every compare-exchange swaps or keeps a pair whole, so the network
+    returns a permutation of its input bits even with NaN and -0.0 keys
+    (with min/max stages a NaN would be copied over its partner). At a
+    power of two, so that no padding key can pass a NaN into the cut."""
+    rng = np.random.default_rng(11)
+    n = 1 << 14
+    k = _awkward_keys(rng, n, "f32")
+    v = np.arange(n, dtype=np.int32)
+    gk, gv = TSK.bitonic_sort_kv(t(k), t(v))
+    assert_bitwise(gk, k[gv.numpy()])
+    assert np.array_equal(np.sort(gv.numpy()), v)
+    assert np.array_equal(np.sort(TSK.bitonic_sort(t(k)).numpy().view(
+        np.uint32)), np.sort(k.view(np.uint32)))
