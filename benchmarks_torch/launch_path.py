@@ -88,6 +88,22 @@ def device_us(fn, calls: int = CALLS, kernels: int = 0) -> float:
     return total / calls
 
 
+def events_ms(fn, reps: int = 7) -> float:
+    """Median CUDA-event time of one warm call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def queued_device_us(fn, calls: int = 20) -> float:
     """Device microseconds per call by CUDA events alone: ``calls`` warm
     calls queued behind a sleep kernel, so the host has launched them all

@@ -29,35 +29,19 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import statistics
 import subprocess
 
 import torch
 
 import repro_torch
-from benchmarks_torch.launch_path import device_us, queued_device_us
+from benchmarks_torch.launch_path import (device_us, events_ms,
+                                         queued_device_us)
 from repro_torch import core as ak
 from repro_torch.kernels import common as C
 
 N = 1 << 28
 ALLOC_N = 320
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
-
-
-def events_ms(fn, reps: int = 7) -> float:
-    """Median CUDA-event time of one warm call."""
-    fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def calls(seed: int) -> dict:

@@ -40,7 +40,6 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import statistics
 import subprocess
 
 import numpy as np
@@ -48,7 +47,7 @@ import torch
 
 import repro_torch
 from benchmarks_torch import streaming_inputs as SI
-from benchmarks_torch.launch_path import queued_device_us
+from benchmarks_torch.launch_path import events_ms, queued_device_us
 from repro_torch import core as ak
 from repro_torch.convert import to_torch
 from repro_torch.kernels import common as C
@@ -59,22 +58,6 @@ N = 1 << 28
 BLOCK = 8192
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
-
-
-def events_ms(fn, reps: int = 7) -> float:
-    """Median CUDA-event time of one warm call."""
-    fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:

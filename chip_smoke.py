@@ -33,7 +33,8 @@ on full-width internlm2-1.8B. Phases:
      those shapes beside its plain version, a PyTorch call that computes
      the same function, and its bound (the in-block kernel's initial
      launch and one finish, each also by device time: CUDA events around
-     20 calls queued behind a sleep kernel; the histogram's too); and a
+     20 calls queued behind a sleep kernel; the histogram's too, on the
+     sorted shard SIHSort bins and on the same keys unsorted); and a
      sweep of the sort and merge
      primitives over 2^8..2^16 keys, kernels against the portable path,
      which gives the size from which the kernels win (``switch_below``);
@@ -71,9 +72,14 @@ on full-width internlm2-1.8B. Phases:
      paged and contiguous runs of the same requests emit the same tokens;
      the kernels against their plain versions on the inputs that run gave
      them (the page gather bitwise, the nucleus mask equal except at ranks
-     whose cumulative mass lies within 1e-5 of top_p, counted); the serve
-     CLI once on the smoke config; tokens/s, TTFT, kernel timings and where
-     one decode step's device time goes;
+     whose cumulative mass lies within 1e-5 of top_p, counted; also on the
+     same step's logits before the top-k filter, where top_p cuts deep);
+     the serve CLI once on the smoke config; tokens/s, TTFT, kernel
+     timings (the nucleus mask's device time by queued events, filtered
+     and unfiltered, its cluster size and the card's
+     ``cudaOccupancyMaxActiveClusters`` at 8 and 16 CTAs and at its own
+     size) and where one
+     decode step's device time goes;
   8. flash attention through its entry points at the serving shapes, the
      head dims 8, 80, 256 and 320 and the reference test file's float32
      grid:
@@ -82,13 +88,18 @@ on full-width internlm2-1.8B. Phases:
      / atol 2e-5, + 1 bf16 ulp), timed beside SDPA, ``blockwise_attention``
      and the bound; the decode kernel against the prefill kernels as
      G * Sq grows;
-  9. granite-moe-1b through the serving engine and phase 7's traffic.
+  9. granite-moe-1b through the serving engine and phase 7's traffic;
+     the nucleus mask against its plain version away from the cut on the
+     sampler's logits of a decode batch at granite's vocabulary (another
+     cluster size than phase 7's), timed by queued events beside its
+     bound (the kernels line's ``granite`` entry of the mask).
 
 Launch counters are set to 0 just before phases 3, 4, 6, 7, 8 and 9 and
 before each run of the ``sort_hyper`` sweep, and read just after; the
 kernels' ``launches`` are the sum of those runs' counts; the in-block,
-window and scan kernels' entries also carry ptxas's registers and spilled
-bytes over their instantiations (``ptxas``). The last line of
+window, scan, histogram and nucleus mask kernels' entries also carry
+ptxas's registers and spilled bytes over their instantiations
+(``ptxas``). The last line of
 standard output is ``{"ok": true, "device": {...}}``; it is printed only
 when every phase passed. Without a CUDA device, or without the repo's
 ``src/`` beside it, the script exits non-zero and prints no result.
@@ -186,6 +197,8 @@ PTXAS_OF = {
     "bitonic_window": ("bitonic", ("window_kernel",)),
     "scan": ("scan", ("onepass_kernel", "Lb0E")),
     "segmented_scan": ("scan", ("onepass_kernel", "Lb1E")),
+    "minmax_histogram": ("hist", ("minmax_hist_kernel",)),
+    "nucleus_mask": ("nucleus", ("nucleus_kernel",)),
 }
 
 
@@ -1143,19 +1156,49 @@ def phase_serving(registry, C, errs, seed: int) -> dict:
                               reps=20),
         "library": "pool[table] for K and for V (advanced indexing)",
         "bound_ms": b, "bound_by": by}
-    # the mask kernel reads each valid lane's key and rank and writes its
-    # mask byte: 9 bytes per valid lane; 2 exp, a divide, a compare each
-    b, by = bound(R * V * 9, R * V * 4)
+    # what these inputs need: each valid lane's key read and its mask byte
+    # written (5 bytes), the rank of each kept lane read (4 bytes); an exp,
+    # a divide and a compare a lane. bound_9b_ms: every rank read, as
+    # charged before the kernel read ranks past the cut.
+    from benchmarks_torch.launch_path import queued_device_us
+    kept = int(got.sum())
+    b, by = bound(R * V * 5 + 4 * kept, R * V * 3)
+    cc = NK.cluster_size(V)
     rows["nucleus_mask"] = {
         "ms": cuda_ms(lambda: NK.mask_kernel(neg, perm, n=V, top_p=top_p,
                                              cuda=True), reps=20),
+        "device_us": queued_device_us(lambda: NK.mask_kernel(
+            neg, perm, n=V, top_p=top_p, cuda=True)),
         "plain_ms": cuda_ms(lambda: NK.mask_kernel(
             neg, perm, n=V, top_p=top_p, cuda=False), reps=20),
         "library_ms": None,
         "library": "no single PyTorch call computes the top-p mask",
         "bound_ms": b, "bound_by": by,
+        "bound_9b_ms": bound(R * V * 9, 0)[0], "ranks_kept": kept,
+        "cluster": cc,
+        "max_active_clusters": {c: NK.max_active_clusters(V, c)
+                                for c in sorted({8, 16, cc})},
         "lanes_differ": out["nucleus_near_cut"]["lanes_differ"],
         "ranks_near_cut": out["nucleus_near_cut"]["ranks_within_1e-5"]}
+    # the same step's logits before the top-k filter (the topk call's
+    # input): top_p then cuts thousands of ranks deep
+    uneg, uperm = NK.sorted_rows(lk, cuda=True)
+    ugot = NK.mask_kernel(uneg, uperm, n=V, top_p=top_p, cuda=True)
+    uplain = NK.mask_kernel(uneg, uperm, n=V, top_p=top_p, cuda=False)
+    ufar = (_exclusive_cum64(uneg, uperm, V) - top_p).abs() >= 1e-5
+    check(torch.equal(ugot[ufar], uplain[ufar]),
+          "nucleus mask differs from its plain version away from the cut "
+          "on unfiltered logits")
+    errs.record("nucleus_mask", float((ugot[ufar].int()
+                                       - uplain[ufar].int()).abs().max()))
+    ukept = int(ugot.sum())
+    rows["nucleus_mask"]["unfiltered"] = {
+        "ms": cuda_ms(lambda: NK.mask_kernel(uneg, uperm, n=V, top_p=top_p,
+                                             cuda=True), reps=20),
+        "device_us": queued_device_us(lambda: NK.mask_kernel(
+            uneg, uperm, n=V, top_p=top_p, cuda=True)),
+        "bound_ms": bound(R * V * 5 + 4 * ukept, R * V * 3)[0],
+        "ranks_kept": ukept, "lanes_differ": int((ugot != uplain).sum())}
     out["sampler_ms"] = {
         "nucleus_mask_primitive": cuda_ms(
             lambda: NK.nucleus_mask_blocks(lg, top_p=top_p), reps=10),
@@ -1179,7 +1222,7 @@ def phase_serving(registry, C, errs, seed: int) -> dict:
     out["decode_step"] = SV.breakdown(w, seed=seed)
     log("serve: one paged decode step + sampler, device ms by category: "
         + json.dumps(out["decode_step"]))
-    del w, pools, pool, table, lg, lk, neg, perm, pneg, pperm
+    del w, pools, pool, table, lg, lk, neg, perm, pneg, pperm, uneg, uperm
     torch.cuda.empty_cache()
     return out
 
@@ -1356,7 +1399,9 @@ def phase_moe_serving(registry, C, errs, seed: int) -> dict:
     for the page gather and the sampler; one ``segmented_reduce`` combine
     per MoE layer call); greedy paged and contiguous runs that must agree;
     the grouped-mm expert FFN against the per-expert loop on the inputs
-    the run gave it; the CLI; tokens/s, TTFT and a decode-step breakdown.
+    the run gave it; the nucleus mask against its plain version on the
+    sampler's logits of a full decode batch (away from the cut), timed;
+    the CLI; tokens/s, TTFT and a decode-step breakdown.
     """
     from benchmarks_torch import serving as SV
     from repro_torch.kernels import nucleus_kernel as NK
@@ -1391,7 +1436,17 @@ def phase_moe_serving(registry, C, errs, seed: int) -> dict:
                                      offsets.clone())
         return original(p, xs, counts, offsets, grouped)
 
+    mask = registry.get("nucleus_mask")
+    mask_impl = mask.cuda_impl
+    mask_in = []  # the sampler's first full-batch logits and top_p
+
+    def capturing_mask(lg, **kw):
+        if not mask_in and lg.shape[0] == SV.SLOTS:
+            mask_in.append((lg.clone(), kw["top_p"]))
+        return mask_impl(lg, **kw)
+
     MOE._expert_ffn_bucketed = capturing
+    mask.cuda_impl = capturing_mask
     try:
         registry.reset_stats()
         torch.cuda.synchronize()
@@ -1404,6 +1459,7 @@ def phase_moe_serving(registry, C, errs, seed: int) -> dict:
         pstats = registry.stats()
     finally:
         MOE._expert_ffn_bucketed = original
+        mask.cuda_impl = mask_impl
     out["engine"] = dict(SV.summary(st), wall_s=wall)
     out["launches_by_primitive"] = counts
     out["kernel_launches"] = kern
@@ -1478,6 +1534,40 @@ def phase_moe_serving(registry, C, errs, seed: int) -> dict:
                 p, xs, cnt, off, False), reps=10)}
     log("moe serve: grouped-mm expert FFN == per-expert loop within two "
         "bf16 ulps of the largest output: " + json.dumps(out["expert_ffn"]))
+
+    # the mask kernel on the sampler's logits of a full decode batch, at
+    # this vocabulary's cluster size
+    from benchmarks_torch.launch_path import queued_device_us
+    check(len(mask_in) == 1, "no full-batch nucleus mask call captured")
+    lg, top_p = mask_in[0]
+    neg, perm = NK.sorted_rows(lg, cuda=True)
+    got = NK.mask_kernel(neg, perm, n=V, top_p=top_p, cuda=True)
+    plain = NK.mask_kernel(neg, perm, n=V, top_p=top_p, cuda=False)
+    far = (_exclusive_cum64(neg, perm, V) - top_p).abs() >= 1e-5
+    check(torch.equal(got[far], plain[far]),
+          f"nucleus mask differs from its plain version away from the cut "
+          f"on granite's {tuple(lg.shape)} logits")
+    errs.record("nucleus_mask", float((got[far].int()
+                                       - plain[far].int()).abs().max()))
+    R, kept, cc = lg.shape[0], int(got.sum()), NK.cluster_size(V)
+    b, by = bound(R * V * 5 + 4 * kept, R * V * 3)
+    out["nucleus_mask"] = {
+        "shape": [R, V], "cluster": cc,
+        "max_active_clusters": NK.max_active_clusters(V, cc),
+        "ms": cuda_ms(lambda: NK.mask_kernel(neg, perm, n=V, top_p=top_p,
+                                             cuda=True), reps=20),
+        "device_us": queued_device_us(lambda: NK.mask_kernel(
+            neg, perm, n=V, top_p=top_p, cuda=True)),
+        "plain_ms": cuda_ms(lambda: NK.mask_kernel(
+            neg, perm, n=V, top_p=top_p, cuda=False), reps=20),
+        "bound_ms": b, "bound_by": by, "ranks_kept": kept,
+        "ranks_near_cut": int((~far).sum()),
+        "lanes_differ": int((got != plain).sum())}
+    log(f"moe serve: nucleus mask (top_p {top_p}, {cc}-CTA clusters) == "
+        f"plain version away from the cut on {R} x {V} logits of a decode "
+        f"step: " + json.dumps(out["nucleus_mask"]))
+    del lg, neg, perm, got, plain, far
+    mask_in.clear()
 
     res, cst = serve.main(["--device", "cuda", "--config", "granite_moe_1b",
                            "--requests", "8", "--slots", "4", "--paged"])
@@ -1745,6 +1835,17 @@ def main() -> int:
           RANK_N * 4 + 256 * 4 + 8, 2 * RANK_N)
     kernels[-1]["device_us"] = queued_device_us(
         lambda: HK.minmax_histogram_blocks(shard, 256, lo, hi))
+    # the same keys unsorted: no long runs of one bin
+    mixed = gx[:RANK_N]
+    errs.same(["minmax_histogram"],
+              HK.minmax_histogram_blocks(mixed, 256, lo, hi),
+              HK.minmax_histogram_plain(mixed, 256, lo, hi),
+              "histogram of the 2^26-key shard unsorted")
+    kernels[-1]["shuffled"] = {
+        "ms": cuda_ms(lambda: HK.minmax_histogram_blocks(mixed, 256, lo,
+                                                         hi)),
+        "device_us": queued_device_us(
+            lambda: HK.minmax_histogram_blocks(mixed, 256, lo, hi))}
     probes = math.ceil(math.log2(RANK_N + 1))
     entry("searchsorted",
           cuda_ms(lambda: SE.searchsorted_blocks(shard, q, side="right")),
@@ -1820,7 +1921,10 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("lanes_differ", "ranks_near_cut")
+            **{k: r[k] for k in ("device_us", "bound_9b_ms", "ranks_kept",
+                                 "cluster", "max_active_clusters",
+                                 "unfiltered",
+                                 "lanes_differ", "ranks_near_cut")
                if k in r},
         })
     log(f"phase 7 done in {time.perf_counter() - t0:.1f} s; comparisons "
@@ -1856,6 +1960,12 @@ def main() -> int:
               f"kernel {name} never launched on a main path")
     for k in kernels:  # earlier kernels' launches now include phases 6-9
         k["launches"] = main_kernels[k["name"]]
+        k["max_abs_err"] = errs.err[k["name"]]
+    # the mask at granite's vocabulary (another cluster size)
+    next(k for k in kernels if k["name"] == "nucleus_mask")["granite"] = {
+        f: moe["nucleus_mask"][f] for f in (
+            "shape", "cluster", "max_active_clusters", "ms", "device_us",
+            "plain_ms", "bound_ms", "bound_by", "ranks_kept")}
     log(f"phase 9 done in {time.perf_counter() - t0:.1f} s")
     for k in kernels:  # the new kernels' registers and spills
         summary = ptxas_summary(ptx, k["name"])

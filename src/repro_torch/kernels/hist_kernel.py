@@ -3,11 +3,14 @@
 
 Replaces the TPU kernel ``minmax_histogram_blocks`` (``_hist_body``),
 which binned by one-hot compare matrices for want of atomics. The CUDA
-kernel (``csrc/hist.cu``) bins with shared-memory int atomics per CTA,
-merges the CTA histograms with global ``atomicAdd`` and reduces min/max in
-two levels (per CTA, then the last CTA to finish). It is bound by one read
-of the input from device memory. Binning is bitwise the reference's; see
-``ref.histogram_bins`` for the plain version of the formula.
+kernel (``csrc/hist.cu``) reads the input with 16-byte loads (a scalar
+head up to the first 16-byte boundary and a scalar tail), bins each
+element with one shared-memory atomic into its warp's sub-histogram,
+merges the CTA histograms with global ``atomicAdd`` and reduces min/max
+in two levels (per CTA, then the last CTA to finish). It is bound by one
+read of the input from device memory. Binning is bitwise the
+reference's; see ``ref.histogram_bins`` for the plain version of the
+formula.
 """
 from __future__ import annotations
 
@@ -22,9 +25,8 @@ from repro_torch.kernels import ref
 
 _MAX_BINS = 1024
 # CTAs per launch: four per SM of an H100 at most; a grid-stride loop
-# covers the rest.
+# over warp chunks covers the rest.
 _MAX_GRID = 4 * 132
-_ELEMS_PER_THREAD = 8
 
 _SIGNATURES = {
     "ak_minmax_histogram": [
@@ -33,6 +35,7 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ],
     "ak_minmax_histogram_threads": [],
+    "ak_minmax_histogram_elems": [ctypes.c_int],
 }
 
 
@@ -60,8 +63,9 @@ def minmax_histogram_blocks(x: torch.Tensor, nbins: int, lo, hi):
     flat = x.reshape(-1).contiguous()
     n = flat.numel()
     lib = _build.library("hist", _SIGNATURES)
-    threads = lib.ak_minmax_histogram_threads()
-    grid = max(1, min(C.ceil_div(n, threads * _ELEMS_PER_THREAD), _MAX_GRID))
+    per_cta = (lib.ak_minmax_histogram_threads()
+               * lib.ak_minmax_histogram_elems(x.element_size()))
+    grid = max(1, min(C.ceil_div(n, per_cta), _MAX_GRID))
     hist_ticket = torch.zeros(nbins + 1, dtype=torch.int32, device=x.device)
     bits = torch.int32 if x.element_size() == 4 else torch.int16
     partials = torch.empty(2 * grid, dtype=bits, device=x.device)

@@ -7,9 +7,10 @@ network of ``sort_kernel`` (descending and stable: ``-x`` ascending with
 an index payload and the index tie-break, every row in one launch set),
 then ONE launch of the hand-written mask kernel (``csrc/nucleus.cu``):
 softmax over the descending row, inclusive prefix sum, cut = #{cum <
-top_p}, keep ranks <= cut, scattered back through the permutation. One CTA
-streams each row, which at vocabulary width (2^17 padded keys and ranks,
-1 MiB) does not fit in shared memory; the source says how.
+top_p}, keep ranks <= cut, scattered back through the permutation. A
+cluster of ``cluster_size(n)`` CTAs (1..16) takes each row: each CTA reads
+its slice of the row once into registers and the CTAs exchange their
+partial sums through distributed shared memory; the source says how.
 
 Semantics (the reference's): tokens ranked by (logit desc, index asc), the
 mask keeps ranks ``0..cut`` where ``cut`` is the first rank whose inclusive
@@ -34,9 +35,24 @@ from repro_torch.kernels import sort_kernel as SK
 _SIGNATURES = {
     "ak_nucleus_mask": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p,
     ],
+    "ak_nucleus_max_clusters": [ctypes.c_int, ctypes.c_int,
+                                ctypes.POINTER(ctypes.c_int)],
 }
+#: CTAs a row's cluster may hold (16 needs the non-portable cluster size)
+MAX_CLUSTER = 16
+#: lanes a CTA of the cluster takes before the wrapper adds another. On an
+#: H100 (8 rows, PERF.md) both served widths ran fastest on 16 CTAs
+#: (94208 lanes: 5888 a CTA; 51200: 3200) and 256 lanes on one CTA (16
+#: cost 0.7 us more); 2048 picks 16, 16 and 1.
+LANES_PER_CTA = 2048
+
+
+def cluster_size(n: int) -> int:
+    """CTAs of the cluster that takes one row of ``n`` lanes."""
+    return max(1, min(MAX_CLUSTER, C.ceil_div(n, LANES_PER_CTA)))
 
 
 def _canon(lg: torch.Tensor) -> torch.Tensor:
@@ -73,11 +89,15 @@ def nucleus_mask_ref(lg: torch.Tensor, *, top_p: float) -> torch.Tensor:
     return mask_from_sorted(s, order, n=n, top_p=top_p).reshape(lg.shape)
 
 
-def mask_kernel(neg, perm, *, n: int, top_p: float,
-                cuda: bool) -> torch.Tensor:
+def mask_kernel(neg, perm, *, n: int, top_p: float, cuda: bool,
+                cluster: int | None = None) -> torch.Tensor:
     """The mask launch over rows sorted by the network: ``neg`` (R, row)
     float32 ascending = the negated descending row, ``perm`` (R, row)
-    int32. ``cuda=False`` runs the plain version."""
+    int32. ``cluster`` forces the CTAs a row (1..16; default
+    ``cluster_size(n)``). ``cuda=False`` runs the plain version."""
+    cc = cluster_size(n) if cluster is None else int(cluster)
+    if not 1 <= cc <= MAX_CLUSTER:
+        raise ValueError(f"cluster {cc} not in [1, {MAX_CLUSTER}]")
     if not cuda:
         return mask_from_sorted(-neg, perm, n=n, top_p=top_p)
     if neg.dtype != torch.float32 or perm.dtype != torch.int32:
@@ -92,12 +112,25 @@ def mask_kernel(neg, perm, *, n: int, top_p: float,
     lib = _build.library("nucleus", _SIGNATURES)
     err = lib.ak_nucleus_mask(
         neg.data_ptr(), perm.data_ptr(), keep.data_ptr(), rows, n, row,
-        float(top_p),
-        _build.stream_handle(neg.device),
+        float(top_p), cc, _build.stream_handle(neg.device),
     )
     _build.check(lib, err, "nucleus mask kernel")
     C.count_launch("nucleus_mask")
     return keep
+
+
+def max_active_clusters(n: int, cluster: int) -> int:
+    """Clusters of ``cluster`` CTAs, at the block size a row of ``n`` lanes
+    takes, that the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``). Raises when the query fails or
+    the card holds none."""
+    lib = _build.library("nucleus", _SIGNATURES)
+    out = ctypes.c_int(0)
+    err = lib.ak_nucleus_max_clusters(n, cluster, ctypes.byref(out))
+    _build.check(lib, err, f"occupancy of {cluster}-CTA clusters")
+    if out.value < 1:
+        raise RuntimeError(f"the card holds no cluster of {cluster} CTAs")
+    return out.value
 
 
 def sorted_rows(lg: torch.Tensor, *, cuda: bool):

@@ -766,6 +766,116 @@ def test_nucleus_kernel_vs_plain(gen, shape, top_p):
     assert bool(got.any(dim=1).all())
 
 
+def _sampler_logits(gen, shape, filtered):
+    """Logits as the sampler hands them to the mask: filtered by top-k 16
+    (the rest NEG_MASK), or unfiltered, so that top_p 0.95 cuts deep."""
+    lg = torch.randn(shape, generator=gen, device="cuda") * 3
+    if filtered:
+        kth = torch.topk(lg, 16).values[:, -1:]
+        lg = torch.where(lg < kth, torch.full((), C.NEG_MASK,
+                                              device="cuda"), lg)
+    return lg
+
+
+@pytest.mark.parametrize("filtered", [True, False])
+@pytest.mark.parametrize("shape", [(1, 300), (4, 8193), (8, 51200),
+                                   (8, 94208), (2, (1 << 20) + 3)])
+def test_nucleus_cluster_kernel_every_cluster_size(gen, shape, filtered):
+    """The mask kernel at every cluster size 1..16 (slices of one lane to
+    whole tiles; n not a multiple of the cluster; 2^20 + 3 lanes walk their
+    slices in tiles) against the plain version away from the cut; one
+    launch a call, and the primitive's launches at the closed form."""
+    rows, n = shape
+    lg = _sampler_logits(gen, shape, filtered)
+    neg, perm = NK.sorted_rows(lg, cuda=True)
+    for top_p in (0.5, 0.95):
+        want = NK.mask_kernel(neg, perm, n=n, top_p=top_p, cuda=False)
+        far = (_exclusive_cum64(lg, neg, perm, n) - top_p).abs() >= 1e-5
+        for cc in range(1, NK.MAX_CLUSTER + 1):
+            C.reset_launch_count()
+            got = NK.mask_kernel(neg, perm, n=n, top_p=top_p, cuda=True,
+                                 cluster=cc)
+            torch.cuda.synchronize()
+            assert C.kernel_launches() == {"nucleus_mask": 1}
+            assert torch.equal(got[far], want[far]), (cc, top_p)
+            assert bool(got.any(dim=1).all())
+    C.reset_launch_count()
+    got = NK.nucleus_mask_blocks(lg, top_p=0.95)
+    torch.cuda.synchronize()
+    assert C.kernel_launches().get("nucleus_mask") == 1
+    assert C.launch_count() == NK.nucleus_launches(n)
+
+
+@pytest.mark.parametrize("n", [300, 8193])
+def test_nucleus_cluster_kernel_scalar_loads(gen, n):
+    """Rows whose length is no multiple of 16 lanes take the kernel's
+    scalar loads (no 16-byte vectors): the same mask as the plain
+    version away from the cut, at 1, 3 and 16 CTAs a row."""
+    lg = _sampler_logits(gen, (3, n), False)
+    neg, perm = NK.sorted_rows(lg, cuda=True)
+    neg, perm = neg[:, :n + 5].contiguous(), perm[:, :n + 5].contiguous()
+    far = (_exclusive_cum64(lg, neg, perm, n) - 0.95).abs() >= 1e-5
+    want = NK.mask_kernel(neg, perm, n=n, top_p=0.95, cuda=False)
+    for cc in (1, 3, 16):
+        got = NK.mask_kernel(neg, perm, n=n, top_p=0.95, cuda=True,
+                             cluster=cc)
+        assert torch.equal(got[far], want[far]), cc
+
+
+def test_nucleus_cluster_occupancy_and_refusals(gen):
+    """Both cluster sizes the wrapper may pick fit on the card; a cluster
+    outside 1..16 raises."""
+    for cc in (8, 16):
+        assert NK.max_active_clusters(94208, cc) >= 1
+    neg, perm = NK.sorted_rows(torch.randn(2, 300, device="cuda"),
+                               cuda=True)
+    for cc in (0, 17):
+        with pytest.raises(ValueError):
+            NK.mask_kernel(neg, perm, n=300, top_p=0.9, cuda=True,
+                           cluster=cc)
+
+
+def _hist_case(x, nbins, lo, hi):
+    C.reset_launch_count()
+    got = HK.minmax_histogram_blocks(x, nbins, lo, hi)
+    torch.cuda.synchronize()
+    assert C.kernel_launches() == {"minmax_histogram": 1}
+    return got, HK.minmax_histogram_plain(x, nbins, lo, hi)
+
+
+@pytest.mark.parametrize("nbins", [1, 100, 256, 1024])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_histogram_sorted_shuffled_misaligned_bitwise(gen, dtype, nbins):
+    """2^20 keys sorted (long runs of one bin) and shuffled, on views that
+    start 0-3 elements past a 16-byte boundary, with a range inside the
+    data (the tails clip into the edge bins); constant keys and a
+    degenerate range; NaN keys (bin 0; min and max NaN, as the plain
+    version's)."""
+    n = 1 << 20
+    base = _keys(gen, n + 8, dtype)
+    lo, hi = -1.0, 1.5
+    for src in (torch.sort(base).values, base):
+        for off in range(4):
+            x = src[off:off + n]
+            assert (x.data_ptr() % 16 == 0) == (off == 0)
+            got, want = _hist_case(x, nbins, lo, hi)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (off, nbins)
+            assert int(got[0].sum()) == n
+    const = torch.full((n + 3,), 3, device="cuda").to(dtype)[3:]
+    for rng in ((2.0, 5.0), (3.0, 3.0)):
+        got, want = _hist_case(const, nbins, *rng)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), rng
+    if dtype.is_floating_point:
+        xn = base.clone()
+        xn[::1000] = math.nan
+        got, want = _hist_case(xn[1:], nbins, lo, hi)
+        assert torch.equal(got[0], want[0])
+        for a, b in zip(got[1:], want[1:]):  # min and max
+            assert bool(torch.isnan(a)) and bool(torch.isnan(b)), nbins
+
+
 @pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32,
                                    torch.int32))
 @pytest.mark.parametrize("tail", [(8, 128), (3,), ()])

@@ -21,6 +21,7 @@ from repro_torch.kernels import sort_kernel as SK
 from repro_torch.kernels.common import NEG_MASK
 from repro_torch.launch import serve
 
+import torch_nucleus_model as NM
 from torch_parity import assert_bitwise, t
 
 BACKENDS = ("torch", "cuda")
@@ -188,3 +189,84 @@ def test_gumbel_noise_is_a_function_of_key_and_column():
     # standard Gumbel: mean Euler-Mascheroni, variance pi^2/6
     assert abs(float(g.mean()) - 0.5772) < 0.05
     assert abs(float(g.var()) - np.pi ** 2 / 6) < 0.15
+
+
+# -- the mask kernel's cluster schedule (tests/torch_nucleus_model.py) --
+
+CLUSTERS = (1, 2, 3, 8, 16)
+
+
+def _sampler_rows(rng, rows, n, filtered):
+    """Logits as the sampler hands them to the mask: filtered by top-k 16
+    (the rest NEG_MASK) or unfiltered, so that top_p 0.95 cuts deep."""
+    lg = (rng.standard_normal((rows, n)) * 3).astype(np.float32)
+    if filtered and n > 16:
+        kth = np.sort(lg, axis=1)[:, -16][:, None]
+        lg = np.where(lg < kth, np.float32(NEG_MASK), lg)
+    return lg
+
+
+@pytest.mark.parametrize("filtered", [True, False])
+@pytest.mark.parametrize("rows,n", [(1, 1), (1, 2), (3, 300), (2, 8193),
+                                    (2, 94208)])
+def test_nucleus_cluster_model_vs_plain_and_reference(rows, n, filtered):
+    """The model of the kernel's schedule at 1, 2, 3, 8 and 16 CTAs a row
+    (n below the cluster size and not a multiple of it included) equals
+    the plain version and the reference (jnp; its Pallas path in
+    interpret mode once a shape, unfiltered) away from the cut."""
+    lg = _sampler_rows(np.random.default_rng(n + filtered), rows, n,
+                       filtered)
+    neg, perm = (a.numpy() for a in NK.sorted_rows(t(lg), cuda=False))
+    for top_p in (0.5, 0.95):
+        plain = NK.mask_kernel(t(neg), t(perm), n=n, top_p=top_p,
+                               cuda=False).numpy()
+        want = np.asarray(rak.nucleus_mask(jnp.asarray(lg), top_p=top_p,
+                                           backend="jnp"))
+        far = ~_near_cut(lg, top_p)
+        np.testing.assert_array_equal(plain[far], want[far])
+        refs = [want]
+        if top_p == 0.95 and not filtered:
+            refs.append(np.asarray(RN.nucleus_mask_blocks(
+                jnp.asarray(lg), top_p=top_p)))
+        for cc in CLUSTERS:
+            got = NM.mask_model(neg, perm, n, top_p, cc)
+            for ref in (plain, *refs):
+                np.testing.assert_array_equal(got[far], ref[far])
+
+
+@pytest.mark.parametrize("n", [1, 300, 8193, 94208])
+def test_nucleus_cluster_geometry_covers_every_lane_once(n):
+    """Slices are multiples of 16 lanes, tile the row in rank order and
+    cover [0, n) once; threads are whole warps and a tile covers a slice
+    whenever 1024 threads can."""
+    for cc in range(1, 17):
+        sl, threads = NM.geometry(n, cc)
+        assert sl % 16 == 0 and threads % 32 == 0 and threads <= 1024
+        spans = [(min(c * sl, n), min(c * sl + sl, n)) for c in range(cc)]
+        assert spans[0][0] == 0 and spans[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+        assert threads * NM.RUN >= sl or threads == 1024
+    assert NK.cluster_size(94208) == NK.cluster_size(51200) == NK.MAX_CLUSTER
+    assert NK.cluster_size(300) == 1
+
+
+@pytest.mark.parametrize("filtered", [True, False])
+def test_nucleus_early_out_counts_what_the_full_pass_counts(filtered):
+    """The early-out (a CTA or tile whose carry / z reaches top_p counts
+    nothing) gives the count and cut of a pass over every lane; filtered
+    rows skip all but the first tile; the zero-then-set output covers
+    every column whatever the mask held before."""
+    lg = _sampler_rows(np.random.default_rng(5), 2, 94208, filtered)
+    neg, perm = (a.numpy() for a in NK.sorted_rows(t(lg), cuda=False))
+    for cc in (1, 3, 16):
+        for r in range(2):
+            for top_p in (1e-6, 0.5, 0.95):
+                a = NM.row_mask(neg[r], perm[r], 94208, top_p, cc,
+                                keep=np.zeros(94208, bool))
+                b = NM.row_mask(neg[r], perm[r], 94208, top_p, cc,
+                                early_out=False, keep=np.ones(94208, bool))
+                np.testing.assert_array_equal(a[0], b[0])
+                assert a[1:3] == b[1:3]
+                assert a[3] <= b[3]
+                if filtered:
+                    assert a[3] == 1 and a[1] <= 16

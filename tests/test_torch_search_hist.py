@@ -17,6 +17,7 @@ from repro_torch import core as ak
 from repro_torch.kernels import hist_kernel as THK
 from repro_torch.kernels import search_kernel as TSE
 
+import torch_hist_model as HM
 from torch_parity import DTYPES, assert_bitwise, keys, t
 
 
@@ -98,3 +99,87 @@ def test_search_dtype_mismatch_raises():
     with pytest.raises(TypeError):
         TSE.searchsorted_blocks(torch.arange(4.0),
                                 torch.arange(2, dtype=torch.int32))
+
+
+# -- the histogram kernel's schedule (tests/torch_hist_model.py) --------
+
+def _hist_src(rng, m, dtype, kind):
+    """m keys of one kind and its (nbins, lo, hi): sorted and shuffled
+    normals (256 and 1024 bins over [-1, 1.5): the tails clip), constant
+    keys (one bin of 1), keys far outside the range (100 bins), normals
+    with every fifth key NaN (NaN bins to 0; min and max are NaN)."""
+    x = keys(rng, m, dtype)
+    if kind == "nan":
+        x[2::5] = np.nan
+        return x, 256, -1.0, 1.5
+    if kind == "sorted":
+        return np.sort(x, kind="stable"), 256, -1.0, 1.5
+    if kind == "shuffled":
+        return x, 1024, -1.0, 1.5
+    if kind == "constant":
+        return keys(rng, m, dtype, "constant"), 1, 2.0, 5.0
+    return x, 100, 40.0, 45.0
+
+
+def _same_end(got, want):
+    """A min or max: NaN where the other is NaN (the NaN's bits differ
+    between libraries: torch's CPU min gives 0xffffffff), else bitwise."""
+    want = np.asarray(want).reshape(1)
+    if np.isnan(want.astype(np.float32)).any():
+        assert bool(torch.isnan(got)), (got, want)
+    else:
+        assert_bitwise(got.reshape(1), want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_histogram_model_equals_plain_and_reference_bitwise(dtype):
+    """The model of the kernel's schedule reads every element once, at
+    sizes around a thread's run and a CTA's round and at start offsets
+    0-7 (so every head/vector/tail split), and gives the plain version's
+    and the reference's histogram, min and max bitwise (NaN keys too)."""
+    elsize = 2 if dtype == "bf16" else 4
+    run = HM.LOADS * 16 // elsize       # elements a thread reads a chunk
+    tile = HM.THREADS * run             # elements a CTA reads a round
+    rng = np.random.default_rng(elsize)
+    for n in (1, 5, run - 1, run, run + 1, tile - 1, tile + 1):
+        for kind in ("sorted", "shuffled", "constant", "out_of_range",
+                     *(("nan",) if dtype != "i32" else ())):
+            src, nbins, lo, hi = _hist_src(rng, n + 8, dtype, kind)
+            x = src[3:3 + n]
+            wants = [jak.minmax_histogram(jnp.asarray(x), nbins, lo, hi,
+                                          backend="jnp")]
+            if n == tile + 1:
+                wants.append(jak.minmax_histogram(
+                    jnp.asarray(x), nbins, lo, hi, backend="pallas"))
+            for off in range(8):
+                view = t(src)[off:off + n]
+                h, mn, mx, st = HM.hist_model(
+                    src[off:off + n], nbins, lo, hi,
+                    addr=view.data_ptr() % 16)
+                assert (st["reads"] == 1).all(), (n, kind, off)
+                plain = THK.minmax_histogram_plain(view, nbins, lo, hi)
+                assert_bitwise(plain[0], h)
+                _same_end(plain[1], mn)
+                _same_end(plain[2], mx)
+                if off == 3:
+                    for wh, wmn, wmx in wants:
+                        assert_bitwise(plain[0], np.asarray(wh))
+                        _same_end(plain[1], wmn)
+                        _same_end(plain[2], wmx)
+            # one atomic an element; every warp that read keys counted them
+            assert st["atomics"] == n
+            per_warp = st["sub"].sum(axis=2)
+            assert per_warp.sum() == n and per_warp[0, 0] > 0
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 100])
+def test_histogram_split_covers_every_alignment(n):
+    """head + whole vectors + tail == n at every start address and
+    element size; the head ends on a 16-byte boundary."""
+    for elsize in (2, 4):
+        for addr in range(0, 16, elsize):
+            head, nvec, tail0 = HM.split(n, addr, elsize)
+            assert 0 <= head < 16 // elsize or head == n
+            assert tail0 <= n and n - tail0 < 16 // elsize + (head == n)
+            assert head == n or (addr + head * elsize) % 16 == 0
+            assert head + nvec * (16 // elsize) == tail0
