@@ -92,14 +92,33 @@ on full-width internlm2-1.8B. Phases:
      the nucleus mask against its plain version away from the cut on the
      sampler's logits of a decode batch at granite's vocabulary (another
      cluster size than phase 7's), timed by queued events beside its
-     bound (the kernels line's ``granite`` entry of the mask).
+     bound (the kernels line's ``granite`` entry of the mask);
+ 10. autotune and the CPU+GPU co-sort: ``tune_all`` by the clock on the
+     card (sort, sort_kv, argsort, merge, merge_kv, histogram, search at
+     2^12..2^26 float32) and on the host CPU at a CPU rank's thread share
+     (sort_kv, merge_kv and mapreduce at 2^26), both caches saved under
+     ``build/tune/``;
+     a second process resolves every measured key from the files (hits,
+     no misses, the measured backends as hints) and counts a cache in the
+     JAX package's format stale; ``co_sort`` of phase 4's keys and
+     payload over ("cuda", "torch", "torch", "torch") with weights from
+     the caches (sources "measured") and with uniform weights: sorted,
+     payload intact, zero overflow, 19 collectives a rank, the card
+     rank's launches against the closed forms, each rank's step ms and the
+     makespan beside phase 4's all-card time; ``exchange="ring"`` on four
+     card ranks bitwise phase 4's values and counts, 2 + 16 + 3
+     collectives; the int64-key network against its plain version at
+     phase 2's sizes and ``sortperm_lowmem`` of 2^28 keys against
+     ``sortperm``, timed beside it.
 
 Launch counters are set to 0 just before phases 3, 4, 6, 7, 8 and 9 and
-before each run of the ``sort_hyper`` sweep, and read just after; the
+before each run of the ``sort_hyper`` sweep, the tune pass and
+``sortperm_lowmem`` of phase 10 (the ranks' own counts are read from each
+rank), and read just after; the
 kernels' ``launches`` are the sum of those runs' counts; the in-block,
 window, scan, histogram and nucleus mask kernels' entries also carry
 ptxas's registers and spilled bytes over their instantiations
-(``ptxas``). The last line of
+(``ptxas``; the bitonic entries also ``ptxas_int64``). The last line of
 standard output is ``{"ok": true, "device": {...}}``; it is printed only
 when every phase passed. Without a CUDA device, or without the repo's
 ``src/`` beside it, the script exits non-zero and prints no result.
@@ -1582,6 +1601,297 @@ def phase_moe_serving(registry, C, errs, seed: int) -> dict:
     return out
 
 
+# -- phase 10: autotune on both devices and the CPU+GPU co-sort -------------
+# the co-sort's ranks: one on the card, three on the host CPU
+COSORT_BACKENDS = ("cuda", "torch", "torch", "torch")
+TUNE_SIZES = (1 << 12, 1 << 14, 1 << 17, 1 << 20, RANK_N)
+TUNE_CARD = ("sort", "sort_kv", "argsort", "merge", "merge_kv",
+             "minmax_histogram", "searchsorted")
+TUNE_CPU = ("sort_kv", "merge_kv", "mapreduce")
+# a cache file in the JAX package's format (its CPU interpret-mode
+# fingerprint and backend names): never served by the port
+REFERENCE_DOC = {
+    "schema": 1,
+    "fingerprint": {"device_kind": "cpu", "backend": "cpu",
+                    "interpret": True},
+    "entries": {"sort|float32|c17": {
+        "backend": "pallas", "knobs": {"block_cols": 2048}, "t_us": 1.0,
+        "t_default_us": 2.0, "speedup": 2.0, "source": "model"}},
+}
+
+RESOLVE_CHILD = """
+import json, sys, torch
+sys.path.insert(0, {src!r})
+from repro_torch.core import registry
+from repro_torch.tune import cache as TC
+torch.set_num_threads({threads})
+out = {{}}
+for name, path, dev in (("card", {card!r}, "cuda"), ("cpu", {cpu!r}, "cpu")):
+    c = TC.TuneCache.load(path)
+    hints = {{}}
+    for key in sorted(c.entries):
+        prim, dt, cls = key.split("|")
+        if dt == "*":
+            continue
+        with registry.tuning.using_cache(c):
+            _, hints[key] = registry.tuning.resolve(
+                prim, n=1 << int(cls[1:]), dtype=dt, device=dev)
+    out[name] = {{"compatible": c.compatible, "stats": c.stats.as_dict(),
+                  "hints": hints}}
+ref = TC.TuneCache.load({ref!r})
+ref.lookup("sort", "float32", 17, device="cpu")
+out["reference_file"] = {{"compatible": ref.compatible,
+                          "stats": ref.stats.as_dict()}}
+print(json.dumps(out))
+"""
+
+
+def rank_row(st) -> dict:
+    """One rank's step ms of its traced run, and that run's wall ms."""
+    return {"local_sort_ms": st.steps_ms.get("sihsort.local_sort"),
+            "exchange_ms": st.steps_ms.get("sihsort.exchange"),
+            "merge_ms": st.steps_ms.get("sihsort.merge_finish"),
+            "total_ms": st.traced_s * 1e3}
+
+
+def phase_cosort(ak, registry, D, SK, MK, C, errs, p4) -> dict:
+    """Tune the card and the host CPU, reuse both caches in a second
+    process, co-sort phase 4's keys over one card rank and three CPU
+    ranks with weights from the caches (against uniform weights), run
+    the ring exchange on four card ranks, and hold the int64-key network
+    and ``sortperm_lowmem`` against their plain versions."""
+    import functools
+    from repro_torch import tune as T
+    from repro_torch.launch import mesh as LM
+    from repro_torch.tune import cache as TC
+    from repro_torch.tune import search as TS
+
+    out, launches = {}, {}
+    tdir = os.path.join(ROOT, "build", "tune")
+    os.makedirs(tdir, exist_ok=True)
+    card_path = os.path.join(tdir, "torch-cuda.json")
+    cpu_path = os.path.join(tdir, "torch-cpu.json")
+    ref_path = os.path.join(tdir, "autotune.json")
+    share = D.cpu_rank_threads(COSORT_BACKENDS)
+
+    # -- (a) tune the card, then the host CPU at a CPU rank's threads -------
+    C.reset_launch_count()
+    t0 = time.perf_counter()
+    card = T.tune_all(sizes=TUNE_SIZES, primitives=TUNE_CARD,
+                      path=card_path, device="cuda")
+    card.save()
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    for name, n in C.kernel_launches().items():
+        launches[name] = launches.get(name, 0) + n
+    for name in SORT_KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"the card's tune pass never launched {name}")
+    prev = torch.get_num_threads()
+    torch.set_num_threads(share)
+    try:
+        t0 = time.perf_counter()
+        cpu = T.tune_all(sizes=(RANK_N,), primitives=TUNE_CPU,
+                         path=cpu_path, device="cpu",
+                         measure=functools.partial(TS.wallclock_measure,
+                                                   repeats=1))
+        cpu.save()
+        cpu_s = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(prev)
+    for path in (card_path, cpu_path):
+        TC.validate_file(path)
+    exact = lambda c: {k: e for k, e in c.entries.items()  # noqa: E731
+                       if "|*|" not in k}
+    out["tune"] = {"card_s": card_s, "cpu_s": cpu_s, "cpu_threads": share,
+                   "cpu_model": TC.cpu_model(),
+                   "card_fingerprint": card.fingerprint,
+                   "cpu_fingerprint": cpu.fingerprint,
+                   "card": exact(card), "cpu": exact(cpu)}
+    log(f"tune: card {len(exact(card))} keys in {card_s:.1f} s, host CPU "
+        f"({TC.cpu_model()}, {share} threads) {len(exact(cpu))} keys in "
+        f"{cpu_s:.1f} s")
+    for line in TS.report_lines(card) + TS.report_lines(cpu):
+        if "|*|" not in line:
+            log("  " + line)
+
+    # -- (b) a second process resolves the same keys from the files ---------
+    with open(ref_path, "w") as f:
+        json.dump(REFERENCE_DOC, f)
+    proc = subprocess.run(
+        [sys.executable, "-c", RESOLVE_CHILD.format(
+            src=SRC, threads=share, card=card_path, cpu=cpu_path,
+            ref=ref_path)],
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"cache reuse process failed:\n"
+                                f"{proc.stdout}\n{proc.stderr}")
+    reuse = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, cache in (("card", card), ("cpu", cpu)):
+        r = reuse[name]
+        check(r["compatible"] and r["stats"]["hits"] > 0
+              and r["stats"]["misses"] == 0 and r["stats"]["stale"] == 0,
+              f"{name} cache in a second process: {r}")
+        want = {k: e["backend"] for k, e in exact(cache).items()}
+        check(r["hints"] == want,
+              f"{name} cache resolved {r['hints']} != measured {want}")
+    rf = reuse["reference_file"]
+    check(not rf["compatible"] and rf["stats"]["stale"] == 1
+          and rf["stats"]["hits"] == 0,
+          f"a reference-format cache was served: {rf}")
+    out["reuse"] = reuse
+    log("cache reuse in a second process: card "
+        + json.dumps(reuse["card"]["stats"]) + ", cpu "
+        + json.dumps(reuse["cpu"]["stats"]) + ", reference-format file "
+        + json.dumps(rf["stats"]))
+
+    # -- (c) the co-sort: one card rank, three CPU ranks --------------------
+    x, p = p4["x"], p4["p"]
+    gx = x.cuda()
+    want = torch.sort(gx, stable=True).values
+    kw = dict(nbins=256, capacity_factor=2.0, refine_rounds=16, pad=False)
+    hm = LM.make_hetero_mesh(COSORT_BACKENDS)
+    caches = [TC.TuneCache.load(card_path),
+              TC.TuneCache.load(cpu_path, threads=share)]
+    cos = {}
+    t0 = time.perf_counter()
+    res, stats, w, sources = LM.co_sort(x, hm, payload=p, cache=caches,
+                                        with_stats=True, **kw)
+    cos["weighted_wall_s"] = time.perf_counter() - t0
+    check(sources == ("measured",) * RANKS,
+          f"co-sort weights not all measured: {sources}")
+    caps = D.exchange_capacities(RANK_N, RANKS, 2.0, weights=w,
+                                 dtypes=[torch.float32, torch.int32])
+    uni, ustats = D.sihsort_sharded_with_stats(
+        x, RANKS, payload=p, rank_backends=COSORT_BACKENDS, **kw)
+    for label, r, sts, wts in (("weighted", res, stats, w),
+                               ("uniform", uni, ustats, None)):
+        check(int(r.overflow.sum()) == 0, f"{label} co-sort overflow "
+                                          f"{r.overflow}")
+        ak.assert_no_overflow(r, weights=wts)
+        got = ak.collect_sorted(r).cuda()
+        check(torch.equal(got, want),
+              f"{label} co-sort != torch.sort(stable=True) of the keys")
+        check(torch.equal(gx[r.payload.cuda().long()], got),
+              f"{label} co-sort: payload did not ride its key")
+        for rk, st in enumerate(sts):
+            check(sum(st.collectives.values()) == 19
+                  and st.collectives.get("all_to_all") == 1,
+                  f"{label} co-sort rank {rk} collectives {st.collectives}")
+            if COSORT_BACKENDS[rk] == "torch":
+                check(st.kernel_launches == {},
+                      f"CPU rank {rk} launched {st.kernel_launches}")
+        del got
+    cap0 = int(caps[0])
+    ucap = D.exchange_capacity(RANK_N, RANKS, 2.0,
+                               [torch.float32, torch.int32])
+    for label, st, cap in (("weighted", stats[0], cap0),
+                           ("uniform", ustats[0], ucap)):
+        want_sort = SK.cross_launches(RANK_N)
+        want_merge = MK.merge_launches(RANKS * cap, RANKS)
+        check(st.launches.get("sort_kv") == want_sort
+              and st.launches.get("merge_kv") == want_merge,
+              f"{label} co-sort card rank launches {st.launches} vs closed "
+              f"forms sort_kv {want_sort}, merge_kv {want_merge}")
+    for st in (*stats, *ustats):
+        for name, n in st.kernel_launches.items():
+            launches[name] = launches.get(name, 0) + n
+    cos.update({
+        "rank_backends": list(COSORT_BACKENDS), "cpu_threads": share,
+        "weights": [float(v) for v in w], "sources": list(sources),
+        "caps": [int(c) for c in caps], "uniform_cap": ucap,
+        "counts": [int(c) for c in res.count],
+        "uniform_counts": [int(c) for c in uni.count],
+        "weighted_ranks": [rank_row(st) for st in stats],
+        "uniform_ranks": [rank_row(st) for st in ustats],
+        "weighted_makespan_ms": max(st.traced_s for st in stats) * 1e3,
+        "uniform_makespan_ms": max(st.traced_s for st in ustats) * 1e3,
+        "all_card_ms": p4["sih_ms"],
+        "partition_span": stats[0].partition,
+    })
+    out["cosort"] = cos
+    log(f"co-sort {COSORT_BACKENDS} of 4 x 2^26 keys + payload: sorted, "
+        f"payload intact, zero overflow, 19 collectives a rank; weights "
+        f"{[round(v, 6) for v in cos['weights']]} ({sources[0]}); "
+        f"makespan weighted {cos['weighted_makespan_ms']:.1f} ms, uniform "
+        f"{cos['uniform_makespan_ms']:.1f} ms, all-card (phase 4) "
+        f"{p4['sih_ms']:.1f} ms")
+    log("co-sort ranks (ms): " + json.dumps(
+        {"weighted": cos["weighted_ranks"], "uniform": cos["uniform_ranks"]}))
+    del res, uni, want
+
+    # -- (d) the ring exchange on four card ranks ---------------------------
+    ring, rstats = D.sihsort_sharded_with_stats(
+        x, RANKS, payload=p, device="cuda", exchange="ring", nbins=256,
+        capacity_factor=2.0, refine_rounds=16)
+    check(torch.equal(ring.values, p4["values"])
+          and torch.equal(ring.count, p4["count"]),
+          "ring values or counts != phase 4's all_to_all result")
+    check(torch.equal(x[ring.payload[ring.values != math.inf].long()],
+                      ring.values[ring.values != math.inf]),
+          "ring: payload did not ride its key")
+    differ = ring.payload != p4["payload"]
+    # payloads may differ only among equal keys (the merges are not stable)
+    vals = ring.values
+    same_key = torch.zeros_like(differ)
+    same_key[1:] |= vals[1:] == vals[:-1]
+    same_key[:-1] |= vals[:-1] == vals[1:]
+    check(bool((~differ | same_key).all()),
+          "ring payload differs from phase 4's at a distinct key")
+    for rk, st in enumerate(rstats):
+        check(st.collectives == {"all_reduce_max": 1, "all_reduce_sum": 17,
+                                 "ppermute": 3},
+              f"ring rank {rk} collectives {st.collectives}")
+        for name, n in st.kernel_launches.items():
+            launches[name] = launches.get(name, 0) + n
+    out["ring"] = {
+        "ranks": [rank_row(st) for st in rstats],
+        "makespan_ms": max(st.traced_s for st in rstats) * 1e3,
+        "all_to_all_ms": p4["sih_ms"],
+        "all_to_all_steps_ms": p4["steps"],
+        "payload_positions_differing_at_equal_keys": int(differ.sum()),
+    }
+    log(f"ring: bitwise phase 4's values and counts, 21 collectives a rank "
+        f"(3 hops); makespan {out['ring']['makespan_ms']:.1f} ms against "
+        f"the all_to_all's {p4['sih_ms']:.1f}")
+    del ring, differ, same_key, vals
+
+    # -- (e) the int64-key network and sortperm_lowmem ---------------------
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    big = torch.iinfo(torch.int64)
+    for n in SIZES:
+        hi = torch.randint(-4, 4, (n,), generator=gen, device="cuda",
+                           dtype=torch.int64)
+        k = (hi << 32) | torch.randint(0, 1 << 32, (n,), generator=gen,
+                                       device="cuda", dtype=torch.int64)
+        k[::7] = big.max
+        k[3::11] = big.min
+        for m in (0, 1, 3, 6):
+            with C.tuning_scope(sort_hyper=m):
+                errs.same(["bitonic_inblock", "bitonic_window"],
+                          [SK.bitonic_sort(k)],
+                          [SK.bitonic_sort(k, plain=True)],
+                          f"int64 keys n={n} sort_hyper={m}")
+    xs = torch.randn(MAIN_N, generator=gen, device="cuda")
+    C.reset_launch_count()
+    low = ak.sortperm_lowmem(xs)
+    torch.cuda.synchronize()
+    for name, n in C.kernel_launches().items():
+        launches[name] = launches.get(name, 0) + n
+    check(torch.equal(low, ak.sortperm(xs)),
+          "sortperm_lowmem of 2^28 f32 keys != sortperm")
+    out["lowmem"] = {"n": MAIN_N,
+                     "sortperm_lowmem_ms": cuda_ms(
+                         lambda: ak.sortperm_lowmem(xs)),
+                     "sortperm_ms": cuda_ms(lambda: ak.sortperm(xs)),
+                     "torch_sort_stable_ms": cuda_ms(
+                         lambda: torch.sort(xs, stable=True))}
+    log("sortperm_lowmem of 2^28 f32 keys == sortperm bitwise; "
+        + json.dumps(out["lowmem"]))
+    del low, xs
+    out["kernel_launches"] = launches
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="End-to-end check of the "
                                  "PyTorch port on one CUDA card")
@@ -1673,9 +1983,10 @@ def main() -> int:
     # -- 4. SIHSort, 4 ranks on the card -----------------------------------
     gx = torch.randn(RANKS * RANK_N, generator=gen, device="cuda")
     gp = torch.arange(RANKS * RANK_N, device="cuda", dtype=torch.int32)
+    p4 = {"x": gx.cpu(), "p": gp.cpu()}  # phase 10 sorts them again
     t0 = time.perf_counter()
     res, stats = ak.sihsort_sharded_with_stats(
-        gx.cpu(), RANKS, payload=gp.cpu(), device="cuda", nbins=256,
+        p4["x"], RANKS, payload=p4["p"], device="cuda", nbins=256,
         capacity_factor=2.0, refine_rounds=16, repeats=6)
     wall = time.perf_counter() - t0
     cap = D.exchange_capacity(RANK_N, RANKS, 2.0,
@@ -1732,6 +2043,8 @@ def main() -> int:
         f"{wall:.1f} s")
     log("sihsort steps (median over ranks, ms, traced run): "
         + json.dumps(steps))
+    p4.update(values=res.values, payload=res.payload, count=res.count,
+              sih_ms=sih_ms, steps=steps)
     del res, got, pay
 
     # -- 5. kernel against plain, then timings, at the main path's shapes --
@@ -1825,7 +2138,17 @@ def main() -> int:
               cuda_ms(lambda k: run(k, False), bitonic, reps=3),
               cuda_ms(lib), nb + 4 * moved, MAIN_N // 2 * width)
         kernels[-1]["keys_moved"] = moved
-        del got
+        # device us by queued events: each call windows a fresh copy of
+        # the bitonic input (the kernel stores moved keys only, so a
+        # second window over its own output moves none); the copy's own
+        # queued time is taken off
+        work = torch.empty_like(xb)
+        copy_us = queued_device_us(lambda: work.copy_(xb))
+        both_us = queued_device_us(lambda: run(work.copy_(xb), True))
+        kernels[-1]["device_us"] = both_us - copy_us
+        kernels[-1]["device_us_parts"] = {"copy_and_window": both_us,
+                                          "copy": copy_us}
+        del got, work
     del xb
     entry("minmax_histogram",
           cuda_ms(lambda: HK.minmax_histogram_blocks(shard, 256, lo, hi)),
@@ -1967,10 +2290,27 @@ def main() -> int:
             "shape", "cluster", "max_active_clusters", "ms", "device_us",
             "plain_ms", "bound_ms", "bound_by", "ranks_kept")}
     log(f"phase 9 done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 10. autotune on both devices and the CPU+GPU co-sort ----------------
+    t0 = time.perf_counter()
+    cosort = phase_cosort(ak, registry, D, SK, MK, C, errs, p4)
+    del p4
+    report["cosort"] = cosort
+    for name, n in cosort["kernel_launches"].items():
+        main_kernels[name] = main_kernels.get(name, 0) + n
+    for k in kernels:  # the sort kernels' launches now include phase 10
+        k["launches"] = main_kernels[k["name"]]
+        k["max_abs_err"] = errs.err[k["name"]]
+    log(f"phase 10 done in {time.perf_counter() - t0:.1f} s")
     for k in kernels:  # the new kernels' registers and spills
         summary = ptxas_summary(ptx, k["name"])
         if summary is not None:
             k["ptxas"] = summary
+        lib, parts = PTXAS_OF.get(k["name"], (None, ()))
+        if lib == "bitonic":  # the int64-key (sortperm_lowmem) kernels
+            k["ptxas_int64"] = ptxas_summary(
+                {lib: {f: v for f, v in ptx[lib].items()
+                       if parts[0] + "Il" in f}}, k["name"])
     report["float64"] = errs.float64
     log(f"float add against float64, bound {stream['sum_rtol']:.4g} * "
         f"sum |x| (depth {stream['sum_depth']}): " + json.dumps(errs.float64))

@@ -38,15 +38,18 @@ from repro_torch.core.sort import (
     segmented_sort,
     sortperm,
     sortperm_batched,
+    sortperm_lowmem,
     topk,
 )
 from repro_torch.core.search import searchsortedfirst, searchsortedlast
 from repro_torch.core.histogram import bincount, minmax_histogram
+from repro_torch.core.paging import page_gather
 from repro_torch.core.distributed import (
     ShardedSort,
     assert_no_overflow,
     collect_sorted,
     collective_counts,
+    exchange_capacities,
     reset_collective_counts,
     sihsort,
     sihsort_sharded,
@@ -59,11 +62,12 @@ __all__ = [
     "foreachindex", "map_elements", "mapreduce", "reduce", "accumulate",
     "segmented_reduce", "segmented_scan", "any_pred", "all_pred",
     "merge", "merge_kv", "merge_sort", "merge_sort_by_key", "sortperm",
+    "sortperm_lowmem", "page_gather",
     "segmented_sort", "merge_sort_batched", "sortperm_batched", "topk",
     "nucleus_mask",
     "searchsortedfirst", "searchsortedlast",
     "bincount", "minmax_histogram",
     "ShardedSort", "assert_no_overflow", "collect_sorted",
-    "collective_counts", "reset_collective_counts",
+    "collective_counts", "reset_collective_counts", "exchange_capacities",
     "sihsort", "sihsort_sharded", "sihsort_sharded_with_stats",
 ]

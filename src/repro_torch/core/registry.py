@@ -26,6 +26,14 @@ PyTorch runs eagerly, so the port's one cache of compiled code is the
 kernel library cache of :mod:`repro_torch.kernels._build`; the
 reference's jit cache and its ``traces``/``uncached`` counters have no
 counterpart.
+
+The tuning table's measured layer is an attached autotune cache
+(:mod:`repro_torch.tune.cache`): ``resolve`` reads knobs and a backend
+verdict per (primitive, dtype, size class) from it. A cache describes one
+device; it is consulted only for an operand on the device its
+fingerprint names, and an operand elsewhere counts ``stale`` and resolves
+as if no cache were attached, so a ``"cuda"`` verdict never reaches a CPU
+tensor.
 """
 from __future__ import annotations
 
@@ -44,7 +52,7 @@ from repro_torch.kernels import hist_kernel, map_kernel, merge_kernel
 from repro_torch.kernels import nucleus_kernel, page_kernel
 from repro_torch.kernels import reduce_kernel, ref as kref, scan_kernel
 from repro_torch.kernels import search_kernel, segment_kernel, sort_kernel
-from repro_torch.runtime import telemetry
+from repro_torch.runtime import metrics, telemetry
 
 
 # --------------------------------------------------------------------------
@@ -120,17 +128,29 @@ def _validate_tuning(name: str, kv: dict, allowed=TUNABLE_KEYS) -> None:
             )
 
 
+def dtype_name(dtype) -> str:
+    """The dtype part of an autotune-cache key: ``"float32"`` for
+    ``torch.float32`` (the reference's ``str(jnp.dtype)`` spelling)."""
+    return str(dtype).replace("torch.", "")
+
+
 class TuningTable:
-    """Central per-primitive knobs. Precedence, weakest first: registered
-    defaults < active named presets (``preset()`` scopes) < global
-    ``set()`` < scoped ``overrides()`` (innermost wins). Scoped state is
-    thread-local; ``set()`` is a deliberate process-global install."""
+    """Central per-primitive knobs. Precedence, weakest first (the
+    reference's): registered defaults < active named presets
+    (``preset()`` scopes) < the attached autotune cache (``resolve()``
+    only; exact key > wildcard) < global ``set()`` < scoped
+    ``overrides()`` (innermost wins). Scoped state (``preset()``,
+    ``overrides()``, ``using_cache()``) is thread-local; ``set()`` and
+    ``attach_cache()`` are deliberate process-global installs."""
 
     def __init__(self):
         self._defaults: dict[str, dict] = {}
         self._allowed: dict[str, tuple] = {}
         self._global: dict[str, dict] = {}
         self._presets: dict[str, dict[str, dict]] = {}
+        #: attached autotune cache (duck-typed: ``.lookup(name, dtype,
+        #: size_class, device=)``, see repro_torch.tune.cache). None = off.
+        self._autotune = None
         self._tls = threading.local()
 
     def _register(self, name: str, defaults: dict | None, allowed) -> None:
@@ -159,18 +179,49 @@ class TuningTable:
             )
 
     def lookup(self, name: str) -> dict:
-        """The knobs in force for ``name``."""
+        """Size-agnostic knob resolution: ``resolve`` without the cache
+        layer."""
+        return self.resolve(name)[0]
+
+    def resolve(self, name: str, *, n: int | None = None, dtype=None,
+                device=None) -> tuple[dict, str | None]:
+        """The knobs in force for a call of ``name`` on ``n`` elements of
+        ``dtype`` on ``device``, and the attached cache's measured backend
+        for that key (``"torch"`` or ``"cuda"``; None when no cache is
+        attached, the key misses, the entry has no verdict or the cache
+        describes another device). ``Primitive.__call__`` honours the hint
+        only under ``auto``."""
         self._check_name(name)
         out = dict(self._defaults[name])
         for mapping in getattr(self._tls, "presets", ()):
             if name in mapping:
                 out.update(mapping[name])
+        hint = None
+        cache = self._active_cache()
+        if cache is not None and n:
+            entry = cache.lookup(name, dtype_name(dtype),
+                                 KC.size_class(int(n)), device=device)
+            if entry:
+                allowed = self._allowed[name]
+                knobs = {k: v for k, v in (entry.get("knobs") or {}).items()
+                         if k in allowed}
+                try:
+                    _validate_tuning(name, knobs, allowed)
+                except (KeyError, ValueError):
+                    knobs = {}  # a hand-edited entry: defaults win
+                out.update(knobs)
+                hint = entry.get("backend")
+                if hint == "cuda" and device is not None and \
+                        torch.device(device).type != "cuda":
+                    hint = None  # never the kernels for a host tensor
+                elif hint not in dispatch.VALID[1:]:
+                    hint = None
         if name in self._global:
             out.update(self._global[name])
         for layer in getattr(self._tls, "stack", ()):
             if name in layer:
                 out.update(layer[name])
-        return out
+        return out, hint
 
     def set(self, name: str, **kv) -> None:
         """Globally override tunables for one primitive."""
@@ -199,6 +250,18 @@ class TuningTable:
             {k: types.MappingProxyType(v) for k, v in checked.items()}
         )
 
+    def preset_names(self) -> tuple:
+        return tuple(sorted(self._presets))
+
+    def preset_mapping(self, preset: str) -> dict[str, dict]:
+        try:
+            return {k: dict(v) for k, v in self._presets[preset].items()}
+        except KeyError:
+            raise KeyError(
+                f"unknown preset {preset!r}; registered: "
+                f"{sorted(self._presets)}"
+            ) from None
+
     @contextlib.contextmanager
     def preset(self, preset: str):
         """Scoped activation of a registered preset (the weakest layer
@@ -214,6 +277,33 @@ class TuningTable:
             yield self
         finally:
             self._preset_stack().pop()
+
+    # -- autotune cache attachment -----------------------------------------
+    def _active_cache(self):
+        stack = getattr(self._tls, "caches", None)
+        return stack[-1] if stack else self._autotune
+
+    @property
+    def autotune(self):
+        """The cache ``resolve`` reads on this thread (None: none)."""
+        return self._active_cache()
+
+    def attach_cache(self, cache) -> None:
+        """Process-global install (``None`` detaches) of an autotune
+        cache; thread-scoped ``using_cache()`` attachments shadow it."""
+        self._autotune = cache
+
+    @contextlib.contextmanager
+    def using_cache(self, cache):
+        """Scoped, thread-local cache attachment (``None``: explicitly no
+        cache), shadowing any ``attach_cache`` install."""
+        if not hasattr(self._tls, "caches"):
+            self._tls.caches = []
+        self._tls.caches.append(cache)
+        try:
+            yield cache
+        finally:
+            self._tls.caches.pop()
 
     @contextlib.contextmanager
     def overrides(self, mapping: dict[str, dict] | None = None, **per_prim):
@@ -244,8 +334,9 @@ class PrimitiveStats:
     """``calls``: every __call__; ``cache_hits``: calls during which no
     kernel library had to be built or loaded; ``portable_calls``: calls
     that ``auto`` would have sent to the kernels but that ran on the
-    portable path because the kernels cannot take their op, body or
-    dtype."""
+    portable path, because the kernels cannot take their op, body or
+    dtype, or because the attached autotune cache measured the portable
+    path faster for the call's key."""
 
     calls: int = 0
     cache_hits: int = 0
@@ -292,8 +383,18 @@ class Primitive:
         return self.torch_impl
 
     def _select_backend(self, backend, operand, n: int,
-                        switch_below: int) -> str:
+                        switch_below: int, hint: str | None = None) -> str:
         resolved = dispatch.resolve(backend, operand)
+        if (hint is not None and self.cuda_impl is not None
+                and (backend or dispatch.default_backend()) == "auto"):
+            # the attached cache's measured verdict for this key replaces
+            # the device rule under auto (the cache describes the
+            # operand's device, or resolve gave no hint); an explicit
+            # backend or a dispatch.backend() scope wins
+            if resolved == "cuda" and hint == "torch":
+                with self._lock:
+                    self.stats.portable_calls += 1
+            resolved = hint
         if resolved != "cuda" or self.cuda_impl is None:
             return "torch"
         if n == 0 or n < switch_below:
@@ -312,11 +413,13 @@ class Primitive:
         if n and self.switch_measure == "last_axis" and x.dim():
             # batched primitives: switch_below compares the row length
             n = x.shape[-1]
-        tune = tuning.lookup(self.name)
+        tune, hint = tuning.resolve(
+            self.name, n=n, dtype=getattr(x, "dtype", None),
+            device=getattr(x, "device", None))
         switch_below = opts.pop("switch_below", None)
         if switch_below is None:
             switch_below = tune["switch_below"]
-        resolved = self._select_backend(backend, x, n, switch_below)
+        resolved = self._select_backend(backend, x, n, switch_below, hint)
         if resolved == "cuda" and self.refusal is not None:
             why = self.refusal(*operands, **opts)
             if why is not None:
@@ -407,6 +510,36 @@ def reset_stats() -> None:
 def clear_caches() -> None:
     for p in _REGISTRY.values():
         p.clear()
+
+
+def _metrics_collector(reg) -> None:
+    """Pull-sync the per-primitive counters and the kernel launches into
+    the process metrics registry at snapshot time (runtime/metrics.py);
+    ``stats()`` and ``KC.kernel_launches()`` stay the source of truth.
+    Names of counters with a counterpart in the reference are the
+    reference's (``ak_registry_calls_total``,
+    ``ak_registry_cache_hits_total``); the port adds portable calls and
+    CUDA launches by kernel. The reference's ``traces`` and ``uncached``
+    counters count jax traces and uncacheable jit calls, which eager
+    PyTorch has no counterpart of, so they are left out."""
+    calls = reg.counter("ak_registry_calls_total",
+                        "Primitive.__call__ dispatches")
+    hits = reg.counter("ak_registry_cache_hits_total",
+                       "dispatches that built or loaded no kernel library")
+    portable = reg.counter("ak_registry_portable_calls_total",
+                           "auto dispatches run on the portable path")
+    for name, p in _REGISTRY.items():
+        s = p.stats
+        calls.set_total(s.calls, primitive=name)
+        hits.set_total(s.cache_hits, primitive=name)
+        portable.set_total(s.portable_calls, primitive=name)
+    launches = reg.counter("ak_kernel_launches_total",
+                           "CUDA kernel launches, by kernel")
+    for kernel, n in KC.kernel_launches().items():
+        launches.set_total(n, kernel=kernel)
+
+
+metrics.register_collector(_metrics_collector)
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The AK.jl primitive suite, part 2: sorting (counterpart of
 ``repro/core/sort.py``).
 
-``merge_sort`` / ``merge_sort_by_key`` / ``sortperm``, the k-way
+``merge_sort`` / ``merge_sort_by_key`` / ``sortperm`` /
+``sortperm_lowmem``, the k-way
 ``merge`` / ``merge_kv`` of the paper's §II-B, ``segmented_sort``, and
 the batched last-axis forms the serve sampler uses (``merge_sort_batched``,
 ``sortperm_batched``, ``topk``, ``nucleus_mask``). The GPU specialisation is
@@ -10,6 +11,8 @@ the bitonic network of ``kernels/sort_kernel.py``; the portable path is
 ``repro_torch.core.registry``; these wrappers adapt the public signatures.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core import registry
 
@@ -41,6 +44,32 @@ def sortperm(x, *, backend: str | None = None):
     """Stable int32 index permutation that sorts ``x`` (AK ``sortperm``):
     a by-key sort of (x, iota) with (key, index) lexicographic ties."""
     return _argsort(x, backend=backend)
+
+
+def sortperm_lowmem(x, *, backend: str | None = None):
+    """AK ``sortperm_lowmem``: the permutation of ``sortperm`` with one
+    n-element temporary instead of two. The index rides in the low bits
+    of a widened key, ``(bits << 32) | index`` as int64, sorted key-only
+    and unpacked. ``bits`` is a signed-order int32 image of the key: an
+    int32 key itself; for float32 the IEEE bits with the magnitude bits of
+    negative keys flipped (the reference's unsigned map with the sign bit
+    flipped back, so the int64 comparison is signed). Keys of other dtypes
+    take ``sortperm``. Equal to ``sortperm`` on NaN-free keys without
+    mixed signed zeros (the widened key orders -0.0 before 0.0)."""
+    n = x.shape[0]
+    if n == 0:
+        return torch.zeros((0,), dtype=torch.int32, device=x.device)
+    if x.dtype == torch.float32:
+        bits = x.view(torch.int32)
+        bits = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    elif x.dtype == torch.int32:
+        bits = x
+    else:
+        return sortperm(x, backend=backend)
+    wide = (bits.to(torch.int64) << 32) | torch.arange(
+        n, dtype=torch.int64, device=x.device)
+    swide = merge_sort(wide, backend=backend)
+    return (swide & 0xFFFFFFFF).to(torch.int32)
 
 
 def merge(x, nruns: int, *, counts=None, backend: str | None = None):

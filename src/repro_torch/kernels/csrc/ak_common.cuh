@@ -1,6 +1,8 @@
 // Key types shared by the kernels of this directory: float32, int32 and
 // bfloat16, the dtypes of the reference's sort, histogram and search
-// kernels. bfloat16 keys are compared through __bfloat162float.
+// kernels. bfloat16 keys are compared through __bfloat162float. int64 keys
+// (AK_I64) reach only the bitonic network, key-only: sortperm_lowmem's
+// widened (key bits << 32) | index keys.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,7 +11,7 @@
 
 // dtype codes passed from Python (kernels/_dtypes in each wrapper)
 // AK_BOOL only as the output of a logical reduction (kernels/_build.py)
-enum AkDtype { AK_F32 = 0, AK_I32 = 1, AK_BF16 = 2, AK_BOOL = 3 };
+enum AkDtype { AK_F32 = 0, AK_I32 = 1, AK_BF16 = 2, AK_BOOL = 3, AK_I64 = 4 };
 
 template <typename K>
 __device__ __forceinline__ float ak_to_float(K v) { return (float)v; }

@@ -111,6 +111,13 @@ constexpr int kSlotBits = 4;                // index bits a thread holds
 constexpr int kSlots = 1 << kSlotBits;      // keys (and payloads) a thread
 constexpr int kInblockThreads = 256;        // most threads of a CTA
 constexpr int kInblockCtasPerSm = 4;        // 64 registers a thread
+// int64 keys: an 8192-key block takes 64 KiB of shared memory, so three
+// CTAs share an SM whatever the registers; 85 registers a thread then hold
+// 16 int64 keys without the spills 64 registers gave (PERF.md)
+template <typename K>
+constexpr int inblock_ctas_per_sm() {
+  return sizeof(K) == 8 ? 3 : kInblockCtasPerSm;
+}
 static_assert(kSlotBits == 4, "run_stage and run_down dispatch 4 bits");
 
 // Shared-memory slot of block element i: i with its low 5 bits XORed by
@@ -272,7 +279,7 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p,
 // keys (and vals) are 16-byte aligned, so a run at c = 0 moves them to and
 // from device memory as vectors.
 template <typename K, typename V, bool KV, bool TIE>
-__global__ void __launch_bounds__(kInblockThreads, kInblockCtasPerSm)
+__global__ void __launch_bounds__(kInblockThreads, inblock_ctas_per_sm<K>())
 inblock_kernel(K* __restrict__ keys, V* __restrict__ vals, int lb,
                long long k_lo, long long k_hi, long long rmask, int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -472,8 +479,12 @@ int dispatch_inblock(void* keys, void* vals, int tie, long long total,
                      int lb, long long k_lo, long long k_hi,
                      long long rmask, cudaStream_t s) {
   if (vals == nullptr) return launch_inblock<K, int32_t, false, false>(keys, vals, total, lb, k_lo, k_hi, rmask, s);
-  if (tie) return launch_inblock<K, V, true, true>(keys, vals, total, lb, k_lo, k_hi, rmask, s);
-  return launch_inblock<K, V, true, false>(keys, vals, total, lb, k_lo, k_hi, rmask, s);
+  if constexpr (sizeof(K) == 8) {  // int64 keys: key-only
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (tie) return launch_inblock<K, V, true, true>(keys, vals, total, lb, k_lo, k_hi, rmask, s);
+    return launch_inblock<K, V, true, false>(keys, vals, total, lb, k_lo, k_hi, rmask, s);
+  }
 }
 
 template <typename K, typename V>
@@ -481,14 +492,26 @@ int dispatch_window(void* keys, void* vals, int tie, long long total,
                     long long k, long long jtop, int w, long long rmask,
                     cudaStream_t s) {
   if (vals == nullptr) return launch_window<K, int32_t, false, false>(keys, vals, total, k, jtop, w, rmask, s);
-  if (tie) return launch_window<K, V, true, true>(keys, vals, total, k, jtop, w, rmask, s);
-  return launch_window<K, V, true, false>(keys, vals, total, k, jtop, w, rmask, s);
+  if constexpr (sizeof(K) == 8) {  // int64 keys: key-only
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (tie) return launch_window<K, V, true, true>(keys, vals, total, k, jtop, w, rmask, s);
+    return launch_window<K, V, true, false>(keys, vals, total, k, jtop, w, rmask, s);
+  }
 }
 
 // Calls f(TypeTag<K>, TypeTag<V>) for key and payload dtype codes (the
-// payload code is ignored, as int32, when there is no payload).
+// payload code is ignored, as int32, when there is no payload). int64 keys
+// are taken key-only (sortperm_lowmem packs the index into the key), so
+// they instantiate the key-only kernels alone: 16 keys a thread are 32
+// registers in the in-block kernel, and a window of 6 stages holds 64 keys
+// (128 registers), as a 4-byte key/value window does.
 template <typename F>
 int with_types(int kdtype, int vdtype, bool kv, F&& f) {
+  if (kdtype == AK_I64) {
+    if (kv) return (int)cudaErrorInvalidValue;
+    return f(AkTypeTag<int64_t>{}, AkTypeTag<int32_t>{});
+  }
   auto pick_v = [&](auto kt) {
     switch (kv ? vdtype : AK_I32) {
       case AK_F32: return f(kt, AkTypeTag<float>{});

@@ -33,7 +33,8 @@ costs ``ceil(i/m) + 1`` launches against the reference's ``ceil(i/m)``
 
 Padding (type-max to ``max(next_pow2(n), block)``), the stage sequence and
 the direction rule ``((global low index) & k) == 0`` are the reference's,
-and the network is oblivious. Every compare-exchange, in the kernels and
+and the network is oblivious. Keys are float32, int32 or bfloat16 (with
+or without a payload of one of those) or int64 without one. Every compare-exchange, in the kernels and
 in the plain version alike, swaps a pair only where the later key compares
 smaller (``a > b``; descending: not greater), so kernels and plain version
 agree bitwise on every input, NaN and signed zeros included, and the
@@ -156,8 +157,15 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
+#: dtype code of int64 keys (csrc/ak_common.cuh AK_I64): the network takes
+#: them key-only, for ``sortperm_lowmem``'s widened (bits << 32) | index keys
+I64_CODE = 4
+
+
 def _codes(keys, vals) -> tuple[int, int]:
     """dtype codes of the keys and of the payload (int32's when none)."""
+    if keys.dtype == torch.int64 and vals is None:
+        return I64_CODE, 1
     vcode = 1 if vals is None else _build.dtype_code(vals.dtype, "sort")
     return _build.dtype_code(keys.dtype, "sort"), vcode
 

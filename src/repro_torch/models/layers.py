@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from repro_torch.core import registry as _registry
+from repro_torch.core.paging import page_gather
 
 # ---------------------------------------------------------------------------
 # basics
@@ -205,8 +205,7 @@ def attention_apply(p, cfg, x, *, positions, causal=True, cache=None,
             offs = cols % ps
             _write_kv(cache, phys, offs, valid, k, v)
             # K and V share the table: one gather (one launch) for both
-            k, v = _registry.call("page_gather", (cache["k"], cache["v"]),
-                                  block_table)
+            k, v = page_gather((cache["k"], cache["v"]), block_table)
         elif ci.dim() == 1:
             S = cache["k"].shape[1]
             rows = torch.arange(B, device=dev)[:, None].expand(B, Sq)

@@ -1183,3 +1183,120 @@ def test_moe_ffn_on_the_card(gen):
     assert float(aux) == float(paux)
     torch.testing.assert_close(padded.float(), got.float(), rtol=2 ** -6,
                                atol=2e-2)
+
+
+# -- int64 keys (sortperm_lowmem), the autotune cache and the co-sort -------
+
+def _int64_keys(gen, n):
+    """Widened keys as sortperm_lowmem makes them: few distinct high
+    words (many ties there), random low words, and the type's extremes."""
+    hi = torch.randint(-4, 4, (n,), generator=gen, device="cuda",
+                       dtype=torch.int64)
+    k = (hi << 32) | torch.randint(0, 1 << 32, (n,), generator=gen,
+                                   device="cuda", dtype=torch.int64)
+    k[::7] = torch.iinfo(torch.int64).max
+    k[3::11] = torch.iinfo(torch.int64).min
+    return k
+
+
+@pytest.mark.parametrize("block", INBLOCK_BLOCKS)
+def test_int64_inblock_kernel_bitwise_vs_plain(gen, block):
+    """The int64-key in-block kernel (key-only) against its plain
+    version at every block its shared memory holds: the initial phases
+    and a finish, on keys 8 bytes off 16-byte alignment too."""
+    if not _fits(block, torch.int64, None):
+        pytest.skip(f"{block} int64 keys exceed one CTA's shared memory")
+    total = 8 * block
+    base = _int64_keys(gen, total + 1)
+    for off in (0, 1):
+        for k_lo, k_hi in ((2, block), (total, total)):
+            def run(cuda):
+                return SK._run_inblock(base.clone()[off:off + total], None,
+                                       k_lo, k_hi, block, False, cuda)[0]
+            C.reset_launch_count()
+            got = run(True)
+            torch.cuda.synchronize()
+            assert C.kernel_launches() == {"bitonic_inblock": 1}
+            assert torch.equal(got, run(False)), (block, off, k_lo)
+
+
+@pytest.mark.parametrize("m", range(7))
+def test_int64_window_kernel_and_network_bitwise_vs_plain(gen, m):
+    """The int64-key window kernel and whole networks at every
+    ``sort_hyper`` against the plain network and ``torch.sort``."""
+    for n in SIZES:
+        k = _int64_keys(gen, n)
+        with C.tuning_scope(sort_hyper=m):
+            got = SK.bitonic_sort(k)
+            assert torch.equal(got, SK.bitonic_sort(k, plain=True)), (n, m)
+        assert torch.equal(got, torch.sort(k).values), (n, m)
+    with pytest.raises(TypeError):  # int64 keys are key-only
+        SK._run_window(k.clone(), torch.zeros_like(k, dtype=torch.int32),
+                       1 << 21, 1 << 20, 1, False, True)
+
+
+def test_sortperm_lowmem_on_the_card_equals_sortperm(gen):
+    x = torch.randn(3 << 20, generator=gen, device="cuda")
+    assert torch.equal(ak.sortperm_lowmem(x), ak.sortperm(x))
+    xi = torch.randint(-1000, 1000, (1 << 20,), generator=gen,
+                       device="cuda", dtype=torch.int32)
+    assert torch.equal(ak.sortperm_lowmem(xi), ak.sortperm(xi))
+
+
+def _cache(tmp_path, backend):
+    from repro_torch.tune import cache as TC
+
+    c = TC.TuneCache(path=str(tmp_path / "c.json"), device="cuda")
+    c.put("sort", "float32", 17, backend=backend, knobs={}, t_us=1.0)
+    return c
+
+
+def test_cache_hint_torch_runs_portable_on_the_card(gen, tmp_path):
+    x = torch.randn(1 << 17, generator=gen, device="cuda")
+    prim = registry.get("sort")
+    prim.reset_stats()
+    C.reset_launch_count()
+    with registry.tuning.using_cache(_cache(tmp_path, "torch")):
+        out = ak.merge_sort(x)
+    assert prim.stats.portable_calls == 1
+    assert C.kernel_launches() == {}
+    assert torch.equal(out, torch.sort(x).values)
+    with registry.tuning.using_cache(_cache(tmp_path, "cuda")):
+        out = ak.merge_sort(x)
+    assert prim.stats.portable_calls == 1
+    assert C.kernel_launches().get("bitonic_inblock", 0) > 0
+    assert torch.equal(out, torch.sort(x).values)
+
+
+def test_wallclock_measure_times_the_card_by_events(gen, monkeypatch):
+    from repro_torch.tune import search as TS
+
+    events = []
+    real = torch.cuda.Event
+
+    def counted(*a, **k):
+        events.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch.cuda, "Event", counted)
+    ops, opts = TS.make_operands("sort", 1 << 16, "float32", device="cuda")
+    t = TS.wallclock_measure("sort", "cuda", ops, opts, {}, repeats=3)
+    assert t > 0 and len(events) == 2 * 3
+
+
+def test_two_rank_co_sort_one_card_one_cpu_rank(gen):
+    from repro_torch.launch import mesh as LM
+
+    x = torch.randn(1 << 16, generator=gen, device="cuda").cpu()
+    p = torch.arange(1 << 16, dtype=torch.int32)
+    hm = LM.make_hetero_mesh(("cuda", "torch"))
+    assert hm.devices == ("cuda", "cpu")
+    res, stats, w, src = LM.co_sort(x, hm, payload=p, with_stats=True)
+    assert src == ("model", "model") and w[0] > w[1]
+    got = ak.collect_sorted(res)
+    assert torch.equal(got, torch.sort(x, stable=True).values)
+    per_p = res.payload.view(2, -1)
+    counts = res.count.tolist()
+    pay = torch.cat([per_p[r, :counts[r]] for r in range(2)])
+    assert torch.equal(x[pay.long()], got)
+    assert stats[0].kernel_launches and not stats[1].kernel_launches

@@ -162,8 +162,13 @@ def test_lognormal_overflow_names_same_destination(reference):
 
 
 def test_not_ported_options_raise():
+    """The reference's remaining refusals (its distributed.py:425-440):
+    the ring takes no per-rank backends, and a uniform backend excludes
+    per-rank ones. Both raise in the launcher, before any rank starts."""
     x = torch.randn(8)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ak.sihsort_sharded(x, 2, device="cpu", exchange="ring")
-    with pytest.raises(NotImplementedError, match="rank_weights"):
-        ak.sihsort_sharded(x, 2, device="cpu", rank_weights=[1, 2])
+    with pytest.raises(NotImplementedError, match="ring"):
+        ak.sihsort_sharded(x, 2, device="cpu", exchange="ring",
+                           rank_backends=("torch", "torch"))
+    with pytest.raises(ValueError, match="either backend"):
+        ak.sihsort_sharded(x, 2, device="cpu", backend="torch",
+                           rank_backends=("torch", "torch"))

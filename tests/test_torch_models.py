@@ -354,3 +354,45 @@ def test_moe_slot_and_paged_prefill_match_reference(moe_model):
                               jnp.asarray(pages), cache_len=16, page_size=4)
     _close(gl, wl)
     _close(gp["kv"]["k"], wp["kv"]["k"])
+
+
+DENSE_ARCHS = ("glm4_9b", "yi_34b", "deepseek_67b")
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_configs_match_the_reference_and_their_logits(arch):
+    """The three dense configs: every field the port's ModelConfig has
+    equals the reference's (published and smoke), and the float32 smoke
+    model's forward, prefill and decode logits match (yi-34b's smoke
+    config has head dim 8)."""
+    from repro.configs import load_config as ref_config
+    from repro_torch.configs import load_config
+
+    for mine, theirs in ((load_config(arch), ref_config(arch)),
+                         (load_smoke_config(arch), ref_smoke(arch))):
+        for f in dataclasses.fields(mine):
+            if f.name != "dtype":
+                assert getattr(mine, f.name) == getattr(theirs, f.name), \
+                    (arch, f.name)
+    rcfg = dataclasses.replace(ref_smoke(arch), dtype=jnp.float32)
+    cfg = dataclasses.replace(load_smoke_config(arch), dtype=torch.float32)
+    rparams = RM.init_params(jax.random.PRNGKey(5), rcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, rparams), cfg,
+                             device="cpu")
+    assert M.param_count(params) == RM.param_count(rparams)
+    rng = np.random.default_rng(8)
+    tok = rng.integers(0, cfg.vocab, size=(2, 8)).astype(np.int32)
+    _close(M.forward(params, cfg, torch.from_numpy(tok))[0],
+           RM.forward(rparams, rcfg, jnp.asarray(tok))[0])
+    wl, wc, _ = RM.prefill(rparams, rcfg, jnp.asarray(tok), cache_len=12)
+    gl, gc, _ = M.prefill(params, cfg, torch.from_numpy(tok), cache_len=12)
+    _close(gl, wl)
+    pos = np.array([8, 6], np.int32)
+    for _ in range(2):
+        nt = rng.integers(0, cfg.vocab, size=(2, 1)).astype(np.int32)
+        wl, wc = RM.decode_step(rparams, rcfg, jnp.asarray(nt), wc,
+                                jnp.asarray(pos))
+        gl, gc = M.decode_step(params, cfg, torch.from_numpy(nt), gc,
+                               torch.from_numpy(pos))
+        _close(gl, wl)
+        pos = pos + 1

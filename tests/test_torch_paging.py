@@ -198,3 +198,23 @@ def test_exhaustion_leaves_the_pool_consistent():
         pool.fork(0)
     with pytest.raises(ValueError):
         pool.release(3)
+
+
+@pytest.mark.parametrize("backend", [None, "torch", "cuda"])
+def test_public_page_gather_single_and_pair_match_the_reference(backend):
+    """``ak.page_gather`` (core/paging.py) against the reference's public
+    ``repro.core.page_gather``, one pool and a K/V pair, bitwise."""
+    from repro import core as jak
+    from repro_torch import core as ak
+
+    rng = np.random.default_rng(11)
+    P, ps, B, T = 7, 4, 2, 3
+    k, v = (rng.standard_normal((P, ps, 2, 8)).astype(np.float32)
+            for _ in range(2))
+    table = rng.integers(0, P, size=(B, T)).astype(np.int32)
+    want = [jak.page_gather(jnp.asarray(p), jnp.asarray(table),
+                            backend="jnp") for p in (k, v)]
+    assert_bitwise(ak.page_gather(t(k), t(table), backend=backend), want[0])
+    gk, gv = ak.page_gather((t(k), t(v)), t(table), backend=backend)
+    assert_bitwise(gk, want[0])
+    assert_bitwise(gv, want[1])

@@ -226,6 +226,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
         import repro_torch.launch.serve, repro_torch.configs
         import repro_torch.kernels.attention_kernel, repro_torch.models.moe
         import benchmarks_torch.serving
+        import repro_torch.tune, repro_torch.tune.__main__
+        import repro_torch.launch.mesh, repro_torch.core.paging
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
@@ -256,6 +258,43 @@ def test_no_port_file_imports_jax_or_reference():
                       if n.endswith(".py")]
     assert len(files) > 10
     assert any(f.endswith("benchmarks_torch/arithmetic.py") for f in files)
+    for new in ("core/paging.py", "tune/__init__.py", "tune/cache.py",
+                "tune/search.py", "tune/__main__.py", "launch/mesh.py",
+                "configs/glm4_9b.py", "configs/yi_34b.py",
+                "configs/deepseek_67b.py"):
+        assert any(f.endswith("repro_torch/" + new) for f in files), new
     for f in files:
         bad = {m for m in _imported_roots(f)} & {"jax", "jaxlib", "repro"}
         assert not bad, (f, bad)
+
+
+def test_metrics_collector_snapshot_equals_registry_stats():
+    """The registry's collector (the reference's registry.py:683-708)
+    puts calls, hits and portable calls per primitive, and kernel
+    launches by kernel, into the process metrics snapshot."""
+    from repro_torch.runtime import metrics
+
+    registry.reset_stats()
+    ak.merge_sort(torch.randn(64))
+    ak.reduce(lambda a, b: a + b, torch.randn(64), init=0.0,
+              backend="auto")
+    snap = metrics.snapshot()["metrics"]
+
+    def by_primitive(name):
+        return {s["labels"]["primitive"]: s["value"]
+                for s in snap[name]["samples"]}
+
+    stats = registry.stats()
+    for metric, field in (("ak_registry_calls_total", "calls"),
+                          ("ak_registry_cache_hits_total", "cache_hits"),
+                          ("ak_registry_portable_calls_total",
+                           "portable_calls")):
+        assert by_primitive(metric) == {
+            n: float(s[field]) for n, s in stats.items()}
+    assert stats["sort"]["calls"] == 1
+    assert not any(n.startswith(("ak_registry_traces",
+                                 "ak_registry_uncached")) for n in snap)
+    launches = {s["labels"]["kernel"]: s["value"]
+                for s in snap.get("ak_kernel_launches_total",
+                                  {"samples": []})["samples"]}
+    assert launches == {k: float(v) for k, v in KC.kernel_launches().items()}

@@ -445,3 +445,29 @@ def test_plain_network_permutes_nan_and_signed_zeros():
     assert np.array_equal(np.sort(gv.numpy()), v)
     assert np.array_equal(np.sort(TSK.bitonic_sort(t(k)).numpy().view(
         np.uint32)), np.sort(k.view(np.uint32)))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "i32"])
+@pytest.mark.parametrize("n", [1, 7, 8192, 3 * 8192 + 5])
+def test_sortperm_lowmem_bitwise_to_the_reference_sortperm(dtype, n):
+    """The widened int64 key path (both backends on the CPU: the plain
+    int64 network and torch.sort) against the reference's ``sortperm``
+    (its own ``sortperm_lowmem`` takes that path without x64)."""
+    rng = np.random.default_rng(n)
+    x = keys(rng, n, dtype, "duplicates" if n > 8192 else "normal")
+    want = jak.sortperm(jnp.asarray(x), backend="jnp")
+    assert_bitwise(jak.sortperm_lowmem(jnp.asarray(x), backend="jnp"), want)
+    for backend in ("torch", "cuda"):
+        assert_bitwise(ak.sortperm_lowmem(t(x), backend=backend), want)
+
+
+def test_sortperm_lowmem_edges():
+    empty = ak.sortperm_lowmem(torch.zeros(0))
+    assert empty.dtype == torch.int32 and empty.shape == (0,)
+    ext = torch.tensor([3e38, -3e38, float("inf"), float("-inf"), 1e-45,
+                        -1e-45, 0.0, 1.0, -1.0])
+    assert torch.equal(ak.sortperm_lowmem(ext), ak.sortperm(ext))
+    ints = torch.tensor([2**31 - 1, -2**31, 0, -1, 1], dtype=torch.int32)
+    assert torch.equal(ak.sortperm_lowmem(ints), ak.sortperm(ints))
+    bf = torch.tensor([2.0, -1.0, 0.5], dtype=torch.bfloat16)
+    assert torch.equal(ak.sortperm_lowmem(bf), ak.sortperm(bf))
