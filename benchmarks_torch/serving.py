@@ -1,13 +1,20 @@
 """The serving path at full width on the card, with random bfloat16
-weights from a seeded generator, paged KV cache, 8 slots, 16 requests of
-256 random prompt tokens and 64 new tokens each (top-k 16, top-p 0.95).
-``--config`` picks the model: internlm2-1.8B (the default; 24 layers,
-d_model 2048, 16 heads, 8 KV heads, d_ff 8192, vocab 92544 padded to
-94208) or granite-moe-1b (24 layers, d_model 1024, 16 heads, 8 KV heads,
-32 experts of d_ff 512, top-8, vocab 49155 padded to 51200).
+weights from a seeded generator, 8 slots, 16 requests of 256 random
+prompt tokens and 64 new tokens each (top-k 16, top-p 0.95), over a paged
+KV cache for the attention families and the contiguous recurrent state
+for the others. ``--config`` picks the model: internlm2-1.8B (the
+default; 24 layers, d_model 2048, 16 heads, 8 KV heads, d_ff 8192, vocab
+92544 padded to 94208), granite-moe-1b (24 layers, d_model 1024, 16
+heads, 8 KV heads, 32 experts of d_ff 512, top-8, vocab 49155 padded to
+51200), mamba2-1.3b (48 Mamba2 layers, d_model 2048, 64 heads of 64,
+state 128, vocab 50280 padded to 51200) or zamba2-7b (81 Mamba2 layers in
+13 groups of 6 + a tail of 3, d_model 3584, 112 heads of 64, state 64;
+one shared attention block of 32 heads of 112 and d_ff 14336 after each
+group; vocab 32000 padded to 32768).
 
     PYTHONPATH=src:. python -m benchmarks_torch.serving \
-        [--config {internlm2_1_8b,granite_moe_1b}] [--seed S] [--out F]
+        [--config {internlm2_1_8b,granite_moe_1b,mamba2_1_3b,zamba2_7b}]
+        [--seed S] [--out F]
 
 Prints the engine's tokens/s and TTFT, and where one decode step's time
 goes: device time by kernel class from ``torch.profiler`` (weight and
@@ -15,8 +22,10 @@ attention products both land in "matmuls" there), and CUDA-event times of
 the step's parts run alone at its shapes (the weight products, the
 attention core, the page gathers, the sampler; for the MoE model also the
 routing, the expert GEMMs and the combine of every layer), and the host
-cost of one page-gather call. ``chip_smoke.py``
-phases 7 and 9 drive the same workloads from here. Needs a card.
+cost of one page-gather call; for the recurrent models the weight
+products, the shared block's attention core (zamba2) and the sampler.
+``chip_smoke.py`` phases 7, 9 and 11 drive the same workloads from here.
+Needs a card.
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
 
 ARCH = "internlm2_1_8b"
-ARCHS = (ARCH, "granite_moe_1b")
+ARCHS = (ARCH, "granite_moe_1b", "mamba2_1_3b", "zamba2_7b")
 SLOTS, REQUESTS, PROMPT_LEN, MAX_NEW = 8, 16, 256, 64
 TOP_K, TOP_P = 16, 0.95
 
@@ -55,9 +64,11 @@ class Workload:
     cache_len: int
 
 
-def workload(seed: int = 0, device="cuda", arch: str = ARCH) -> Workload:
-    """The full-width model (random weights from ``seed``) and prompts."""
-    cfg = load_config(arch)
+def workload(seed: int = 0, device="cuda", arch: str = ARCH,
+             cfg=None) -> Workload:
+    """The full-width model (random weights from ``seed``) and prompts;
+    ``cfg`` in place of ``arch``'s published config (a smoke config)."""
+    cfg = load_config(arch) if cfg is None else cfg
     gen = torch.Generator(device=device).manual_seed(seed)
     params = M.init_params(gen, cfg, device=device)
     prompts = np.random.default_rng(seed).integers(
@@ -67,22 +78,45 @@ def workload(seed: int = 0, device="cuda", arch: str = ARCH) -> Workload:
     return Workload(cfg, params, prompts, ps, cache_len)
 
 
-def engine(w: Workload, *, paged=True, temperature=1.0, seed=0) -> Engine:
-    return Engine(w.params, w.cfg, slots=SLOTS, cache_len=w.cache_len,
+def paged_default(w: Workload) -> bool:
+    """The attention families serve from the paged pool; the recurrent
+    ones keep their O(1) state a slot contiguous (nothing to page)."""
+    return w.cfg.family in M.ATTENTION_FAMILIES
+
+
+def engine(w: Workload, *, paged=None, temperature=1.0, seed=0,
+           slots=None) -> Engine:
+    if paged is None:
+        paged = paged_default(w)
+    return Engine(w.params, w.cfg, slots=SLOTS if slots is None else slots,
+                  cache_len=w.cache_len,
                   prompt_pad=PROMPT_LEN, temperature=temperature,
                   top_k=TOP_K, top_p=TOP_P, seed=seed, paged=paged,
                   page_size=w.page_size)
 
 
-def requests(w: Workload) -> list:
+def requests(w: Workload, count: int | None = None) -> list:
     return [Request(rid=i, prompt=w.prompts[i], max_new=MAX_NEW)
-            for i in range(REQUESTS)]
+            for i in range(REQUESTS if count is None else count)]
 
 
-def run(w: Workload, **kw):
-    """One engine run; returns (tokens {rid: list}, EngineStats)."""
-    res, stats = engine(w, **kw).run(requests(w))
+def run(w: Workload, count: int | None = None, **kw):
+    """One engine run of the first ``count`` requests (all by default);
+    returns (tokens {rid: list}, EngineStats)."""
+    res, stats = engine(w, **kw).run(requests(w, count))
     return {r: v.tokens for r, v in res.items()}, stats
+
+
+def state_bytes_per_slot(cfg) -> int:
+    """Decode-cache bytes of one slot whose size does not grow with the
+    context: the float32 SSM state and the conv history of every layer
+    (a hybrid model's K/V, one column a group per token, is left out)."""
+    specs = M.cache_specs(cfg, batch=1, cache_len=1)
+    specs.pop("kv", None)
+    leaves = []
+    M._tree_map(leaves.append, specs)
+    return sum(int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+               for shape, dt in leaves)
 
 
 # ---------------------------------------------------------------------------
@@ -117,18 +151,24 @@ def _device_us(evt) -> float:
 
 
 def decode_step_inputs(w: Workload, seed: int = 0):
-    """A steady-state decode step of the paged path: every slot live at
-    position PROMPT_LEN + MAX_NEW // 2, tables over a full pool of random
-    K/V pages (a scattered permutation of page ids)."""
+    """A steady-state decode step: every slot live at position
+    PROMPT_LEN + MAX_NEW // 2. The paged path's tables run over a full
+    pool of random K/V pages (a scattered permutation of page ids); the
+    recurrent models' contiguous state, conv history and (zamba2) K/V
+    are random, and their table is None."""
     cfg, dev = w.cfg, w.params["embed"]["embed"].device
-    T = w.cache_len // w.page_size
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    caches = M.zero_paged_caches(cfg, num_pages=SLOTS * T,
-                                 page_size=w.page_size, device=dev)
-    for c in caches["kv"].values():
-        c.normal_(generator=gen)
-    table = torch.randperm(SLOTS * T, generator=gen, device=dev).to(
-        torch.int32).view(SLOTS, T)
+    if paged_default(w):
+        T = w.cache_len // w.page_size
+        caches = M.zero_paged_caches(cfg, num_pages=SLOTS * T,
+                                     page_size=w.page_size, device=dev)
+        table = torch.randperm(SLOTS * T, generator=gen, device=dev).to(
+            torch.int32).view(SLOTS, T)
+    else:
+        caches = M.zero_caches(cfg, batch=SLOTS, cache_len=w.cache_len,
+                               device=dev)
+        table = None
+    M._tree_map(lambda c: c.normal_(generator=gen), caches)
     tok = torch.randint(0, cfg.vocab, (SLOTS, 1), generator=gen,
                         device=dev, dtype=torch.int32)
     pos = torch.full((SLOTS,), PROMPT_LEN + MAX_NEW // 2, device=dev)
@@ -140,8 +180,9 @@ def decode_step(w: Workload, inputs):
     """One engine decode step: the model through the page table, then the
     sampler under the engine's "sampler" preset."""
     caches, table, tok, pos, keys = inputs
-    logits, _ = M.decode_step(w.params, w.cfg, tok, caches, pos,
-                              block_tables=table, page_size=w.page_size)
+    logits, _ = M.decode_step(
+        w.params, w.cfg, tok, caches, pos, block_tables=table,
+        page_size=None if table is None else w.page_size)
     with registry.tuning.preset("sampler"):
         return serve.sample_logits(keys, logits[:, 0], top_k=TOP_K,
                                    top_p=TOP_P, vocab=w.cfg.vocab)
@@ -184,9 +225,8 @@ def _event_ms(fn, reps: int = 5) -> float:
 
 
 def parts(w: Workload, inputs) -> dict:
-    """CUDA-event ms of one decode step and of its parts alone (host work
-    included), and each part's device ms (its kernels' time in a
-    profiler trace), at the step's shapes: every weight product of the layers and the head (the
+    """A paged decode step's parts alone, as functions to time at the
+    step's shapes: every weight product of the layers and the head (the
     dense FFN's included; the experts' are their own part), the attention
     core of every layer, the n_layers K/V page gathers, the sampler; for
     the MoE model also every layer's routing (router, top-k, sortperm,
@@ -235,11 +275,58 @@ def parts(w: Workload, inputs) -> dict:
            "page gathers": gathers, "sampler": sampler}
     if cfg.family == "moe":
         fns.update(moe_parts(w, x.view(SLOTS, d)))
-    out = {"step": _event_ms(lambda: decode_step(w, inputs))}
-    out.update((n, _event_ms(f)) for n, f in fns.items())
-    out["rest of the step"] = out["step"] - sum(
-        v for n, v in out.items() if n != "step")
-    return out, {n: _device_ms(f) for n, f in fns.items()}
+    return fns
+
+
+def recurrent_parts(w: Workload, inputs) -> dict:
+    """A recurrent model's decode-step parts alone, as functions to time
+    at the step's shapes: every weight product (the SSM layers' in and
+    out projections, the shared block's and the head), the shared block's
+    attention core at each of its G applications (zamba2), the
+    sampler."""
+    cfg, p = w.cfg, w.params
+    caches, _, tok, pos, keys = inputs
+    dev = tok.device
+    x = torch.randn(SLOTS, 1, cfg.d_model, device=dev).to(cfg.dtype)
+    xi = torch.randn(SLOTS, 1, cfg.d_inner, device=dev).to(cfg.dtype)
+    hybrid = cfg.family == "hybrid"
+    ssm_layers = ([lp for g in p["layers"] for lp in g]
+                  + list(p["tail"] or ()) if hybrid else p["layers"])
+    G = len(p["layers"]) if hybrid else 0
+
+    def matmuls():
+        for lp in ssm_layers:
+            x @ lp["ssm"]["in_proj"]
+            xi @ lp["ssm"]["out_proj"]
+        if hybrid:
+            a, m = p["shared"]["attn"], p["shared"]["mlp"]
+            f = torch.randn(SLOTS, 1, cfg.d_ff, device=dev).to(cfg.dtype)
+            for _ in range(G):
+                for wt in (a["wq"], a["wk"], a["wv"], a["wo"],
+                           m["w_gate"], m["w_up"]):
+                    x @ wt
+                f @ m["w_down"]
+        x @ p["head"]["unembed"]
+
+    logits = torch.randn(SLOTS, cfg.padded_vocab(16), device=dev)
+
+    def sampler():
+        with registry.tuning.preset("sampler"):
+            serve.sample_logits(keys, logits, top_k=TOP_K, top_p=TOP_P,
+                                vocab=cfg.vocab)
+
+    fns = {"weight matmuls": matmuls, "sampler": sampler}
+    if hybrid:
+        H, hd = cfg.n_heads, cfg.head_dim
+        q = torch.randn(SLOTS, 1, H, hd, device=dev).to(cfg.dtype)
+        k, v = caches["kv"]["k"][0], caches["kv"]["v"][0]
+
+        def attention():
+            for _ in range(G):
+                L.blockwise_attention(q, k, v, causal=True, q_offset=pos)
+
+        fns["attention core"] = attention
+    return fns
 
 
 def moe_parts(w: Workload, xf) -> dict:
@@ -295,10 +382,27 @@ def gather_host_us(w: Workload, inputs, calls: int = 2000) -> dict:
     return {k: per_call_us(fn, calls) for k, fn in parts.items()}
 
 
-def breakdown(w: Workload, reps: int = 3, seed: int = 0) -> dict:
-    """Device time of one decode step by category (``torch.profiler``),
-    the step's host-clock time and the device's idle share."""
-    inputs = decode_step_inputs(w, seed)
+def _parts(w: Workload, inputs) -> dict:
+    return (parts if paged_default(w) else recurrent_parts)(w, inputs)
+
+
+def timed_step(w: Workload, inputs) -> dict:
+    """CUDA-event ms of one decode step and of each of its parts alone
+    (host work included), and the rest of the step. Run it before any
+    ``torch.profiler`` run in the process: on the card's machine a
+    profiler run leaves every later launch slower."""
+    out = {"step": _event_ms(lambda: decode_step(w, inputs))}
+    out.update((n, _event_ms(f)) for n, f in _parts(w, inputs).items())
+    out["rest of the step"] = out["step"] - sum(
+        v for n, v in out.items() if n != "step")
+    return out
+
+
+def profiled_step(w: Workload, inputs, reps: int = 3) -> dict:
+    """Device ms of one decode step by kernel class and by kernel
+    (``torch.profiler`` over ``reps`` steps), the host clock per profiled
+    step, each part's device ms, and (paged) the host cost of a page
+    gather."""
     decode_step(w, inputs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -313,17 +417,33 @@ def breakdown(w: Workload, reps: int = 3, seed: int = 0) -> dict:
     for name, ms in kernels.items():
         cat = _category(name)
         cats[cat] = cats.get(cat, 0.0) + ms
-    device = sum(cats.values())
-    event_ms, device_ms = parts(w, inputs)
-    return {
-        "wall_ms": wall, "device_ms": device,
-        "parts_ms": event_ms, "parts_device_ms": device_ms,
-        "page_gather_host_us": gather_host_us(w, inputs),
-        "idle_share": max(0.0, 1.0 - device / wall) if wall else None,
+    out = {
+        "wall_ms": wall, "device_ms": sum(cats.values()),
+        "parts_device_ms": {n: _device_ms(f)
+                            for n, f in _parts(w, inputs).items()},
         "categories_ms": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": dict(sorted(kernels.items(),
                                       key=lambda kv: -kv[1])[:12]),
     }
+    if paged_default(w):
+        out["page_gather_host_us"] = gather_host_us(w, inputs)
+    return out
+
+
+def combine(parts_ms: dict, profiled: dict) -> dict:
+    """One breakdown from ``timed_step`` and ``profiled_step``: the idle
+    share is 1 - device ms / the step's CUDA-event ms (taken without the
+    profiler's own host cost)."""
+    step = parts_ms["step"]
+    return {"parts_ms": parts_ms, **profiled,
+            "idle_share": max(0.0, 1.0 - profiled["device_ms"] / step)}
+
+
+def breakdown(w: Workload, reps: int = 3, seed: int = 0) -> dict:
+    """Where one decode step's time goes: ``timed_step``, then
+    ``profiled_step``, combined."""
+    inputs = decode_step_inputs(w, seed)
+    return combine(timed_step(w, inputs), profiled_step(w, inputs, reps))
 
 
 def summary(stats) -> dict:

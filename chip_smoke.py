@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port's main paths: the AK sort primitives at 2^28 float32 keys
 and SIHSort over 4 ranks on the one card (2^26 keys + int32 payload per
 rank), then the streaming and segmented primitives, then the serving path
-on full-width internlm2-1.8B. Phases:
+on full-width internlm2-1.8B, granite-moe-1b, mamba2-1.3b and zamba2-7b.
+Phases:
 
   1. environment: card name and power limit, torch / CUDA / nvcc
      versions, kernel build time, ptxas's registers and spills a kernel, and
@@ -18,7 +19,10 @@ on full-width internlm2-1.8B. Phases:
      ``sort_hyper`` m = 1..6 against its plain stages and against windows
      of one stage, k-way merge,
      histogram, search: a warp per query below ``THREAD_QUERIES_FROM``
-     queries, a thread per query from it);
+     queries, a thread per query from it; sort, kv sort and argsort at a
+     2^15-key registry block whose int64 keys, or float32 keys and int32
+     payload, exceed one CTA's shared memory: the in-block stages at a
+     2^14 tile);
   3. ``merge_sort`` and ``sortperm`` of 2^28 float32 keys, checked against
      ``torch.sort(stable=True)``, launches against the closed form at the
      default ``sort_hyper``;
@@ -88,7 +92,8 @@ on full-width internlm2-1.8B. Phases:
      / atol 2e-5, + 1 bf16 ulp), timed beside SDPA, ``blockwise_attention``
      and the bound; the decode kernel against the prefill kernels as
      G * Sq grows;
-  9. granite-moe-1b through the serving engine and phase 7's traffic;
+  9. granite-moe-1b (published widths, its first 8 of 24 layers)
+     through the serving engine and phase 7's traffic;
      the nucleus mask against its plain version away from the cut on the
      sampler's logits of a decode batch at granite's vocabulary (another
      cluster size than phase 7's), timed by queued events beside its
@@ -109,9 +114,29 @@ on full-width internlm2-1.8B. Phases:
      card ranks bitwise phase 4's values and counts, 2 + 16 + 3
      collectives; the int64-key network against its plain version at
      phase 2's sizes and ``sortperm_lowmem`` of 2^28 keys against
-     ``sortperm``, timed beside it.
+     ``sortperm``, timed beside it;
+ 11. the recurrent families through the serving engine: mamba2-1.3b
+     (48 Mamba2 layers, d_model 2048) and zamba2-7b (81 Mamba2 layers
+     in 13 groups of 6 + a tail of 3, d_model 3584, one shared attention
+     block) at published widths and full depth, random bf16 weights from
+     the seed, ``Engine(paged=False)`` with phase 7's traffic; the
+     sampler's launches against their closed forms and its portable
+     calls (0); the share of sampled tokens equal to a batch-1 run of
+     two of the requests; greedy decode logits against the forward's
+     (within 2^-4 of the largest |logit|); the batched network and the
+     nucleus mask against their plain versions on the sampler's inputs;
+     tokens/s, TTFT, prefill ms at 256 tokens, state bytes a slot; the
+     CLI; and on float32 smoke models: the engine's sampled tokens equal
+     a sequential one-request run, and the chunked prefill's caches a
+     token-by-token recurrence from zero.
 
-Launch counters are set to 0 just before phases 3, 4, 6, 7, 8 and 9 and
+Last, the decode-step breakdowns of phases 7, 9 and 11 (``torch.profiler``
+device ms by kernel class, the step by CUDA events and the host clock, its
+idle share and parts), on the same seeded weights rebuilt: a profiler
+run slows every later launch on that machine.
+
+Launch counters are set to 0 just before phases 3, 4, 6, 7, 8, 9 and
+each family's engine run of phase 11, and
 before each run of the ``sort_hyper`` sweep, the tune pass and
 ``sortperm_lowmem`` of phase 10 (the ranks' own counts are read from each
 rank), and read just after; the
@@ -488,6 +513,26 @@ def phase_parity(SK, MK, HK, SE, C) -> Errors:
                               [SE.searchsorted_blocks(hay, q, side=side)],
                               [SE.searchsorted_plain(hay, q, side=side)],
                               f"search {dtype} n={n} nq={q.numel()} {side}")
+    # a registry block past one CTA's shared memory (2^15 int64 keys; 2^15
+    # float32 keys + an int32 payload): the in-block stages at a 2^14
+    # tile, bitwise the plain network at the registry's block
+    n = (1 << 17) + 3
+    with C.tuning_scope(block_rows=32, block_cols=1024):
+        k64 = torch.randint(-2**62, 2**62, (n,), generator=gen,
+                            device="cuda", dtype=torch.int64)
+        errs.same(both, [SK.bitonic_sort(k64)],
+                  [SK.bitonic_sort(k64, plain=True)],
+                  "sort of int64 keys at a 2^15 block")
+        kf = awkward_keys(gen, n, torch.float32)
+        v = torch.randint(0, 50, (n,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        errs.same(both, [as_bits(g) for g in SK.bitonic_sort_kv(
+            kf, v, tie_break=True)], [as_bits(w) for w in SK.bitonic_sort_kv(
+                kf, v, tie_break=True, plain=True)],
+            "sort_kv of float32 + int32 at a 2^15 block")
+        errs.same(both, [SK.bitonic_argsort(kf)],
+                  [SK.bitonic_argsort(kf, plain=True)],
+                  "argsort of float32 at a 2^15 block")
     torch.cuda.synchronize()
     return errs
 
@@ -1238,9 +1283,6 @@ def phase_serving(registry, C, errs, seed: int) -> dict:
             f"{r['bound_by']})")
     log(f"serve: sampler calls at {tuple(lg.shape)}, ms: "
         + json.dumps(out["sampler_ms"]))
-    out["decode_step"] = SV.breakdown(w, seed=seed)
-    log("serve: one paged decode step + sampler, device ms by category: "
-        + json.dumps(out["decode_step"]))
     del w, pools, pool, table, lg, lk, neg, perm, pneg, pperm, uneg, uperm
     torch.cuda.empty_cache()
     return out
@@ -1409,9 +1451,25 @@ def phase_attention(C, errs) -> dict:
     return {"kernel_launches": kern, "rows": rows}
 
 
+# phase 9's depth: granite-moe-1b's first 8 of its 24 layers at published
+# widths (cut so that the whole script, phase 11 included, keeps near half
+# of its 1200 s limit)
+MOE_LAYERS = 8
+
+
+def moe_config():
+    import dataclasses
+
+    from repro_torch.configs import load_config
+
+    return dataclasses.replace(load_config("granite_moe_1b"),
+                               n_layers=MOE_LAYERS)
+
+
 def phase_moe_serving(registry, C, errs, seed: int) -> dict:
-    """Phase 9: granite-moe-1b at full width through the serving engine
-    (``benchmarks_torch/serving.py --config granite_moe_1b``): a paged,
+    """Phase 9: granite-moe-1b at published widths and ``MOE_LAYERS`` of
+    its 24 layers through the serving engine (``benchmarks_torch/
+    serving.py --config granite_moe_1b`` runs all 24): a paged,
     sampled run with the launch counters set to 0 just before it, its
     launches against the closed forms (the prefill sortperm network, the
     sampler, the page gather, the allocator) and its portable calls (0
@@ -1433,13 +1491,14 @@ def phase_moe_serving(registry, C, errs, seed: int) -> dict:
 
     out = {}
     t0 = time.perf_counter()
-    w = SV.workload(seed, arch="granite_moe_1b")
+    w = SV.workload(seed, arch="granite_moe_1b", cfg=moe_config())
     torch.cuda.synchronize()
     cfg = w.cfg
     V = cfg.padded_vocab(16)
     out["params"] = M.param_count(w.params)
     out["init_s"] = time.perf_counter() - t0
-    log(f"moe serve: {cfg.name} at full width, {out['params']} parameters "
+    log(f"moe serve: {cfg.name} at full width, {cfg.n_layers} layers, "
+        f"{out['params']} parameters "
         f"(random bf16, seed {seed}), {cfg.n_experts} experts top-"
         f"{cfg.top_k}, vocab {cfg.vocab} padded to {V}; init "
         f"{out['init_s']:.1f} s")
@@ -1593,9 +1652,6 @@ def phase_moe_serving(registry, C, errs, seed: int) -> dict:
     check(all(r.status == COMPLETED for r in res.values())
           and cst.tokens == 8 * 32, "serve CLI (granite_moe_1b) did not "
                                     "complete")
-    out["decode_step"] = SV.breakdown(w, seed=seed)
-    log("moe serve: one paged decode step + sampler: "
-        + json.dumps(out["decode_step"]))
     del w, captured
     torch.cuda.empty_cache()
     return out
@@ -1890,6 +1946,352 @@ def phase_cosort(ak, registry, D, SK, MK, C, errs, p4) -> dict:
     del low, xs
     out["kernel_launches"] = launches
     return out
+
+
+# -- phase 11: the recurrent families through the serving engine ------------
+RECURRENT_ARCHS = ("mamba2_1_3b", "zamba2_7b")
+# requests of the full-width run repeated at batch 1 (64 decode steps
+# each): the share of sampled tokens equal to the batch-8 run's
+AGREE_REQUESTS = 2
+# greedy decode steps whose logits are held to the forward's
+GREEDY_STEPS = 8
+# bfloat16 decode logits against the forward's at the same positions:
+# |diff| <= 2^-4 of the largest |logit| there (16 bf16 ulps of it; the two
+# sum in other orders, and 48-81 layers carry bf16 activations)
+BF16_LOGIT_TOL = 2 ** -4
+# float32 smoke model: the chunked prefill's final state and conv history
+# against a token-by-token recurrence from zero (torch.allclose)
+STATE_RTOL, STATE_ATOL = 1e-4, 1e-5
+# a prompt of five chunks of 8 and a ragged sixth at smoke width
+RECURRENCE_PROMPT = 45
+# new tokens a request of the float32 smoke runs (each at 8 slots and 1)
+SMOKE_NEW = 16
+
+
+def _smoke_recurrent(arch, seed: int) -> dict:
+    """Phase 11's float32 smoke checks of one family on the card: the
+    engine's sampled tokens (phase 7's 16 prompts of 256 tokens, 8 slots,
+    ``SMOKE_NEW`` tokens each) equal a sequential one-request run of the
+    same requests, and the chunked prefill's caches equal a
+    token-by-token recurrence from zero."""
+    import dataclasses
+
+    from benchmarks_torch import serving as SV
+    from repro_torch.configs import load_smoke_config
+    from repro_torch.launch.engine import Request
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(load_smoke_config(arch), dtype=torch.float32)
+    w = SV.workload(seed, arch=arch, cfg=cfg)
+    reqs = [Request(rid=i, prompt=p, max_new=SMOKE_NEW)
+            for i, p in enumerate(w.prompts)]
+
+    def tokens(slots):
+        res, _ = SV.engine(w, seed=seed, slots=slots).run(reqs)
+        return {r: v.tokens for r, v in res.items()}
+
+    batched, alone = tokens(SV.SLOTS), tokens(1)
+    check(batched == alone,
+          f"{arch} float32 smoke: the engine's sampled tokens at "
+          f"{SV.SLOTS} slots != a sequential one-request run")
+    # the chunked prefill against the recurrence, every cache leaf
+    tok = torch.from_numpy(w.prompts[:1, :RECURRENCE_PROMPT]).cuda()
+    lg, chunked, _ = M.prefill(w.params, cfg, tok, cache_len=w.cache_len)
+    steps = M.zero_caches(cfg, batch=1, cache_len=w.cache_len,
+                          device="cuda")
+    for i in range(RECURRENCE_PROMPT):
+        lg1, steps = M.decode_step(w.params, cfg, tok[:, i:i + 1], steps, i)
+    diffs = []
+
+    def cmp(a, b):
+        diffs.append(float((a - b).abs().max()))
+        check(torch.allclose(a, b, rtol=STATE_RTOL, atol=STATE_ATOL),
+              f"{arch}: chunked prefill cache {tuple(a.shape)} off the "
+              f"recurrence by {diffs[-1]}")
+
+    M._tree_map(cmp, chunked, steps)
+    cmp(lg[:, -1], lg1[:, 0])
+    out = {"sampled_tokens_equal": sum(len(t) for t in batched.values()),
+           "recurrence_max_abs_diff": max(diffs)}
+    log(f"recurrent {arch}: float32 smoke ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}): {SV.SLOTS}-slot sampled tokens == one-request run "
+        f"({out['sampled_tokens_equal']} tokens); chunked prefill of "
+        f"{RECURRENCE_PROMPT} tokens == token-by-token recurrence, every "
+        f"cache leaf and the last logits within rtol {STATE_RTOL} / atol "
+        f"{STATE_ATOL} (max abs diff {max(diffs):.3g})")
+    del w
+    return out
+
+
+def phase_recurrent(registry, C, errs, seed: int) -> dict:
+    """Phase 11: mamba2-1.3b and zamba2-7b at published widths and full
+    depth (random bf16 weights from the seed) through ``Engine(paged=
+    False)`` with phase 7's traffic, the launch counters set to 0 just
+    before each run: the sampler's launches against their closed forms
+    and ``portable_calls == 0``; the share of sampled tokens equal to a
+    batch-1 run; greedy decode logits against the forward's; the batched
+    network and the nucleus mask against their plain versions on the
+    sampler's inputs; tokens/s, TTFT, prefill ms at 256 tokens, state
+    bytes a slot; the CLI; and the float32 smoke checks of
+    ``_smoke_recurrent``. Each part's seconds go to ``parts_s``; the
+    decode-step breakdown runs last (``phase_breakdowns``)."""
+    from benchmarks_torch import serving as SV
+    from benchmarks_torch.launch_path import queued_device_us
+    from repro_torch.kernels import nucleus_kernel as NK
+    from repro_torch.kernels import sort_kernel as SK
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import COMPLETED
+    from repro_torch.models import model as M
+
+    out = {"kernel_launches": {}}
+    for arch in RECURRENT_ARCHS:
+        t_arch = time.perf_counter()
+        r = out[arch] = _smoke_recurrent(arch, seed)
+        parts = r["parts_s"] = {"smoke": time.perf_counter() - t_arch}
+        t0 = time.perf_counter()
+        w = SV.workload(seed, arch=arch)
+        torch.cuda.synchronize()
+        cfg = w.cfg
+        V = cfg.padded_vocab(16)
+        r["params"] = M.param_count(w.params)
+        r["init_s"] = parts["init"] = time.perf_counter() - t0
+        r["state_bytes_per_slot"] = SV.state_bytes_per_slot(cfg)
+        log(f"recurrent {arch}: {cfg.n_layers} SSM layers, d "
+            f"{cfg.d_model}, {r['params']} parameters (random bf16, seed "
+            f"{seed}), vocab {cfg.vocab} padded to {V}; "
+            f"{r['state_bytes_per_slot']} bytes of state a slot; init "
+            f"{r['init_s']:.1f} s")
+
+        # the main path; capture the sampler's first full-batch inputs
+        prims = {n: registry.get(n) for n in ("topk", "nucleus_mask")}
+        originals = {n: p.cuda_impl for n, p in prims.items()}
+        captured = {}
+
+        def capturing(name, impl):
+            def call(*a, **kw):
+                if name not in captured and a[0].shape[0] == SV.SLOTS:
+                    captured[name] = (a[0].clone(), dict(kw))
+                return impl(*a, **kw)
+            return call
+
+        for n, p in prims.items():
+            p.cuda_impl = capturing(n, originals[n])
+        try:
+            registry.reset_stats()
+            torch.cuda.synchronize()
+            C.reset_launch_count()
+            t0 = time.perf_counter()
+            sampled, st = SV.run(w, seed=seed)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, kern = C.launch_counts(), C.kernel_launches()
+            pstats = registry.stats()
+        finally:
+            for n, p in prims.items():
+                p.cuda_impl = originals[n]
+        r["engine"] = dict(SV.summary(st), wall_s=wall)
+        parts["engine"] = wall
+        r["launches_by_primitive"] = counts
+        r["kernel_launches"] = kern
+        r["registry_stats"] = {n: s for n, s in pstats.items()
+                               if s["calls"]}
+        for name, n in kern.items():
+            out["kernel_launches"][name] = (
+                out["kernel_launches"].get(name, 0) + n)
+        check(st.tokens == SV.REQUESTS * SV.MAX_NEW
+              and all(len(t) == SV.MAX_NEW for t in sampled.values()),
+              f"{arch}: the engine emitted {st.tokens} tokens")
+        check(all(0 <= x < cfg.vocab for t in sampled.values() for x in t),
+              f"{arch}: a sampled token outside the vocabulary")
+        samples = st.steps + st.prefills   # one sampler call each
+        want = {("kernel", "nucleus_mask"): samples,
+                ("primitive", "topk"):
+                    samples * SK.cross_launches(V, elem_bytes=8),
+                ("primitive", "nucleus_mask"):
+                    samples * NK.nucleus_launches(V)}
+        for (kind, name), n in want.items():
+            got = (kern if kind == "kernel" else counts).get(name)
+            check(got == n, f"{arch}: {kind} {name} launched {got} times, "
+                            f"closed form {n}")
+        check(kern.get("bitonic_inblock", 0) > 0
+              and kern.get("bitonic_window", 0) > 0,
+              f"{arch}: the sampler's network did not launch {kern}")
+        for name in ("topk", "nucleus_mask"):
+            check(pstats[name]["portable_calls"] == 0
+                  and pstats[name]["calls"] == samples,
+                  f"{arch}: {name} stats {pstats[name]}")
+        r["closed_forms"] = {f"{k} {n}": v for (k, n), v in want.items()}
+        log(f"recurrent {arch}: {SV.REQUESTS} requests x {SV.MAX_NEW} "
+            f"tokens, contiguous, {SV.SLOTS} slots: {st.steps} decode "
+            f"steps, {st.tokens} tokens, {st.tokens_per_s:.1f} tok/s, ttft "
+            f"p50 {r['engine']['ttft_p50_ms']:.1f} ms p99 "
+            f"{r['engine']['ttft_p99_ms']:.1f} ms; kernel launches {kern}; "
+            f"by primitive {counts}; registry stats "
+            + json.dumps(r["registry_stats"]))
+
+        # batch 8 against batch 1 at full width: bf16 GEMMs may differ in
+        # the last bit between the two, so the share is reported
+        t0 = time.perf_counter()
+        alone, _ = SV.run(w, count=AGREE_REQUESTS, slots=1, seed=seed)
+        parts["batch_1_run"] = time.perf_counter() - t0
+        pairs = [(a, b) for rid in alone
+                 for a, b in zip(alone[rid], sampled[rid])]
+        r["agree_share"] = sum(a == b for a, b in pairs) / len(pairs)
+        r["agree_tokens"] = len(pairs)
+        log(f"recurrent {arch}: {r['agree_share']:.4f} of {len(pairs)} "
+            f"sampled tokens of requests 0-{AGREE_REQUESTS - 1} equal "
+            f"between {SV.SLOTS} slots and 1")
+
+        # greedy decode logits against the forward's
+        t0 = time.perf_counter()
+        prompt = torch.from_numpy(w.prompts[:1]).cuda()
+        lg, caches, _ = M.prefill(w.params, cfg, prompt,
+                                  cache_len=w.cache_len)
+        toks, dec = [int(torch.argmax(lg[0, -1, :cfg.vocab]))], []
+        for i in range(GREEDY_STEPS):
+            lg1, caches = M.decode_step(
+                w.params, cfg, torch.tensor([[toks[-1]]], device="cuda",
+                                            dtype=torch.int32),
+                caches, SV.PROMPT_LEN + i)
+            dec.append(lg1[0, 0])
+            toks.append(int(torch.argmax(lg1[0, 0, :cfg.vocab])))
+        seq = torch.cat([prompt, torch.tensor([toks[:-1]], device="cuda",
+                                              dtype=torch.int32)], dim=1)
+        fl, _ = M.forward(w.params, cfg, seq)
+        want_l = fl[0, SV.PROMPT_LEN:, :cfg.vocab].float()
+        got_l = torch.stack(dec)[:, :cfg.vocab].float()
+        top = float(want_l.abs().max())
+        diff = float((got_l - want_l).abs().max())
+        pre = float((lg[0, :, :cfg.vocab].float()
+                     - fl[0, :SV.PROMPT_LEN, :cfg.vocab].float()).abs().max())
+        r["greedy_vs_forward"] = {
+            "steps": GREEDY_STEPS, "max_abs_diff": diff, "largest": top,
+            "share_of_tol": diff / (BF16_LOGIT_TOL * top),
+            "prefill_max_abs_diff": pre,
+            "argmax_equal": int((got_l.argmax(-1)
+                                 == want_l.argmax(-1)).sum())}
+        check(diff <= BF16_LOGIT_TOL * top and pre <= BF16_LOGIT_TOL * top,
+              f"{arch}: greedy decode logits off the forward's by {diff} "
+              f"(prefill {pre}; limit 2^-4 x largest {top})")
+        log(f"recurrent {arch}: greedy decode logits (prompt of "
+            f"{SV.PROMPT_LEN}, {GREEDY_STEPS} steps) == forward's within "
+            f"2^-4 of the largest |logit|: "
+            + json.dumps(r["greedy_vs_forward"]))
+        del caches, fl, lg, lg1
+        parts["greedy"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        # the batched network and the mask against their plain versions
+        # on the sampler's inputs of a full decode batch
+        check(set(captured) == {"topk", "nucleus_mask"},
+              f"{arch}: sampler calls captured {sorted(captured)}")
+        lk, kw = captured["topk"]
+        k = kw["k"]
+        tv, ti = SK.bitonic_topk_batched(lk, k)
+        ptv, pti = SK.bitonic_topk_batched(lk, k, plain=True)
+        errs.same(["bitonic_inblock", "bitonic_window"], [tv, ti],
+                  [ptv, pti], f"{arch}: topk of a decode batch's logits")
+        check(torch.equal(tv, torch.topk(lk, k).values),
+              f"{arch}: batched topk != torch.topk")
+        lg_m, kw = captured["nucleus_mask"]
+        top_p = kw["top_p"]
+        neg, perm = NK.sorted_rows(lg_m, cuda=True)
+        pneg, pperm = NK.sorted_rows(lg_m, cuda=False)
+        errs.same(["bitonic_inblock", "bitonic_window"], [neg, perm],
+                  [pneg, pperm], f"{arch}: the nucleus mask's sort network")
+        got = NK.mask_kernel(neg, perm, n=V, top_p=top_p, cuda=True)
+        plain = NK.mask_kernel(neg, perm, n=V, top_p=top_p, cuda=False)
+        far = (_exclusive_cum64(neg, perm, V) - top_p).abs() >= 1e-5
+        check(torch.equal(got[far], plain[far]),
+              f"{arch}: nucleus mask differs from its plain version away "
+              f"from the cut")
+        errs.record("nucleus_mask", float((got[far].int()
+                                           - plain[far].int()).abs().max()))
+        R, kept, cc = lg_m.shape[0], int(got.sum()), NK.cluster_size(V)
+        b, by = bound(R * V * 5 + 4 * kept, R * V * 3)
+        r["nucleus_mask"] = {
+            "shape": [R, V], "cluster": cc,
+            "ms": cuda_ms(lambda: NK.mask_kernel(neg, perm, n=V,
+                                                 top_p=top_p, cuda=True),
+                          reps=20),
+            "device_us": queued_device_us(lambda: NK.mask_kernel(
+                neg, perm, n=V, top_p=top_p, cuda=True)),
+            "plain_ms": cuda_ms(lambda: NK.mask_kernel(
+                neg, perm, n=V, top_p=top_p, cuda=False), reps=20),
+            "bound_ms": b, "bound_by": by, "ranks_kept": kept,
+            "ranks_near_cut": int((~far).sum()),
+            "lanes_differ": int((got != plain).sum())}
+        r["sampler_ms"] = {
+            "topk_primitive": cuda_ms(lambda: SK.bitonic_topk_batched(lk, k),
+                                      reps=10),
+            "torch_topk": cuda_ms(lambda: torch.topk(lk, k), reps=10),
+            "nucleus_mask_primitive": cuda_ms(
+                lambda: NK.nucleus_mask_blocks(lg_m, top_p=top_p), reps=10)}
+        log(f"recurrent {arch}: topk and the nucleus mask (top_p {top_p}) "
+            f"== plain versions on {R} x {V} logits of a decode step: "
+            + json.dumps({"nucleus_mask": r["nucleus_mask"],
+                          "sampler_ms": r["sampler_ms"]}))
+        del lk, lg_m, neg, perm, pneg, pperm, got, plain, far, captured
+        parts["sampler_kernels"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        r["prefill_ms_256"] = cuda_ms(lambda: M.prefill(
+            w.params, cfg, prompt, cache_len=w.cache_len), reps=3)
+        log(f"recurrent {arch}: prefill of {SV.PROMPT_LEN} tokens "
+            f"{r['prefill_ms_256']:.2f} ms")
+        parts["prefill_timing"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        res, cst = serve.main(["--device", "cuda", "--config", arch,
+                               "--requests", "8", "--slots", "4"])
+        check(all(v.status == COMPLETED for v in res.values())
+              and cst.tokens == 8 * 32, f"serve CLI ({arch}) did not "
+                                        f"complete")
+        parts["cli"] = time.perf_counter() - t0
+        del w, prompt
+        torch.cuda.empty_cache()
+        r["phase_s"] = time.perf_counter() - t_arch
+        log(f"recurrent {arch}: done in {r['phase_s']:.1f} s; seconds by "
+            f"part " + json.dumps(parts))
+    return out
+
+
+# the decode-step breakdowns of phases 7, 9 and 11: the model, the report
+# entry that takes each, and its label in the log
+BREAKDOWNS = (("internlm2_1_8b", ("serving",), "serve: one paged decode "
+               "step + sampler"),
+              ("granite_moe_1b", ("serving_moe",), "moe serve: one paged "
+               "decode step + sampler"),
+              *((arch, ("recurrent", arch), f"recurrent {arch}: one "
+                 f"contiguous decode step + sampler")
+                for arch in RECURRENT_ARCHS))
+
+
+def phase_breakdowns(report, seed: int) -> None:
+    """Where one decode step's time goes, for each served model (phases 7,
+    9 and 11; ``benchmarks_torch/serving.py``): the step and its parts by
+    CUDA events for every model first, then device ms by kernel class
+    from ``torch.profiler``, and the idle share (1 - device ms / the
+    step's event ms). Run after every other phase, on the same seeded
+    weights rebuilt (granite-moe-1b at phase 9's depth): on that machine
+    a profiler run leaves every later launch slower (a zamba2-7b
+    decode step 106 -> 144 ms, PERF.md), so no timing follows one."""
+    from benchmarks_torch import serving as SV
+
+    runs = []
+    for arch, keys, label in BREAKDOWNS:
+        w = SV.workload(seed, arch=arch, cfg=moe_config() if
+                        arch == "granite_moe_1b" else None)
+        inputs = SV.decode_step_inputs(w, seed)
+        runs.append((w, inputs, keys, label, SV.timed_step(w, inputs)))
+    for w, inputs, keys, label, timed in runs:
+        entry = report
+        for k in keys:
+            entry = entry[k]
+        entry["decode_step"] = SV.combine(timed, SV.profiled_step(w, inputs))
+        log(f"{label}: " + json.dumps(entry["decode_step"]))
+    del runs
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2302,6 +2704,26 @@ def main() -> int:
         k["launches"] = main_kernels[k["name"]]
         k["max_abs_err"] = errs.err[k["name"]]
     log(f"phase 10 done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 11. the recurrent families through the serving engine --------------
+    t0 = time.perf_counter()
+    recurrent = phase_recurrent(registry, C, errs, args.seed)
+    report["recurrent"] = recurrent
+    for name, n in recurrent["kernel_launches"].items():
+        main_kernels[name] = main_kernels.get(name, 0) + n
+    for k in kernels:  # the sampler's kernels' launches include phase 11
+        k["launches"] = main_kernels[k["name"]]
+        k["max_abs_err"] = errs.err[k["name"]]
+    mask_row = next(k for k in kernels if k["name"] == "nucleus_mask")
+    for arch in RECURRENT_ARCHS:  # the mask at both vocabularies
+        mask_row[arch] = {f: recurrent[arch]["nucleus_mask"][f] for f in (
+            "shape", "cluster", "ms", "device_us", "plain_ms", "bound_ms",
+            "bound_by", "ranks_kept")}
+    log(f"phase 11 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_breakdowns(report, args.seed)
+    log(f"decode-step breakdowns of phases 7, 9 and 11 done in "
+        f"{time.perf_counter() - t0:.1f} s")
     for k in kernels:  # the new kernels' registers and spills
         summary = ptxas_summary(ptx, k["name"])
         if summary is not None:

@@ -82,7 +82,8 @@ class ModelConfig:
 
 #: Architectures of the port so far; the others wait for their families.
 ARCH_IDS = ["internlm2_1_8b", "glm4_9b", "yi_34b", "deepseek_67b",
-            "granite_moe_1b", "deepseek_moe_16b"]
+            "granite_moe_1b", "deepseek_moe_16b", "mamba2_1_3b",
+            "zamba2_7b"]
 
 
 def _module(arch: str):

@@ -40,15 +40,18 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def params_from_jax(params_np, cfg, device="cuda"):
     """The reference's ``init_params`` pytree (numpy leaves, bf16 as
-    ``ml_dtypes.bfloat16``) as the port's parameters on ``device``: the
-    same dict, with the stacked (L, ...) leaves of ``layers`` split into
-    one dict per layer (a moe layer's stacked expert weights, router and
-    shared experts included; deepseek-moe's dense ``layer0`` is not
-    stacked and stays one dict). Dense and moe families, as the port's
-    model."""
-    if cfg.family not in ("dense", "moe"):
+    ``ml_dtypes.bfloat16``) as the port's parameters on ``device``, every
+    leaf in its dtype: the same dict, with the stacked (L, ...) leaves of
+    ``layers`` split into one dict per layer (a moe layer's stacked expert
+    weights, router and shared experts included; deepseek-moe's dense
+    ``layer0`` is not stacked and stays one dict). A hybrid model's
+    (G, gs, ...) ``layers`` become G lists of gs dicts, its ``tail`` a
+    list of dicts (None when empty) and ``shared`` one dict. Dense, moe,
+    ssm and hybrid families, as the port's model."""
+    fam = cfg.family
+    if fam not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet")
+            f"family {fam!r} is not ported yet")
 
     def tree(node, pick=None):
         if isinstance(node, dict):
@@ -56,7 +59,18 @@ def params_from_jax(params_np, cfg, device="cuda"):
         a = np.asarray(node)
         return to_torch(a if pick is None else a[pick], device)
 
-    out = {k: tree(v) for k, v in params_np.items() if k != "layers"}
-    n = cfg.n_layers - int(cfg.family == "moe" and cfg.first_layer_dense)
-    out["layers"] = [tree(params_np["layers"], i) for i in range(n)]
+    stacked = ("layers", "tail")
+    out = {k: tree(v) for k, v in params_np.items() if k not in stacked}
+    layers = params_np["layers"]
+    if fam == "hybrid":
+        gs = cfg.hybrid_attn_every
+        G = cfg.n_layers // gs
+        out["layers"] = [[tree(layers, (g, j)) for j in range(gs)]
+                         for g in range(G)]
+        tail = params_np["tail"]
+        out["tail"] = None if tail is None else [
+            tree(tail, i) for i in range(cfg.n_layers - G * gs)]
+        return out
+    n = cfg.n_layers - int(fam == "moe" and cfg.first_layer_dense)
+    out["layers"] = [tree(layers, i) for i in range(n)]
     return out

@@ -66,7 +66,7 @@ def _pad_runs(flat, nruns: int, run_len: int, L: int, total: int, fill):
 def _merge(keys, vals, nruns: int, counts, tie_break: bool, cuda: bool):
     n = keys.shape[0]
     _, _, block = SK._geometry()
-    SK._check_operands(keys, vals, tie_break, cuda, block)
+    SK._check_operands(keys, vals, tie_break, cuda)
     L, total = _run_shape(n, nruns, block)
     run_len = n // nruns
     pad_k = C.type_max(keys.dtype)
@@ -111,9 +111,10 @@ def kway_merge_kv(keys, vals, nruns: int, *, counts=None,
 
 
 def merge_launches(n: int, nruns: int, *, hyper: int | None = None,
-                   block: int | None = None) -> int:
+                   block: int | None = None, elem_bytes: int = 4) -> int:
     """Closed-form launch count of one ``kway_merge`` call at the live
-    ``sort_hyper`` (default ``sort_kernel.HYPER_ORDER``)."""
+    ``sort_hyper`` (default ``sort_kernel.HYPER_ORDER``), for
+    ``elem_bytes`` of key and payload an element."""
     if n == 0 or nruns <= 1:
         return 0
     if block is None:
@@ -122,4 +123,4 @@ def merge_launches(n: int, nruns: int, *, hyper: int | None = None,
         hyper = SK._hyper_order()
     L, total = _run_shape(n, nruns, block)
     return SK.network_launches(total, first_k=2 * L, hyper=hyper,
-                               block=block)
+                               block=block, elem_bytes=elem_bytes)

@@ -159,4 +159,4 @@ def nucleus_mask_blocks(lg: torch.Tensor, *, top_p: float) -> torch.Tensor:
 def nucleus_launches(n: int) -> int:
     """Closed-form launches of one ``nucleus_mask_blocks`` call, whatever
     the number of rows: the network's, plus the mask."""
-    return SK.cross_launches(n) + 1
+    return SK.cross_launches(n, elem_bytes=8) + 1

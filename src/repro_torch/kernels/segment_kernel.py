@@ -204,4 +204,4 @@ def segmented_sort_launches(n: int, *, payload: bool = False) -> int:
     port's, from ``sort_kernel.cross_launches``)."""
     if n == 0:
         return 0
-    return SK.cross_launches(n) * (2 if payload else 1)
+    return SK.cross_launches(n, elem_bytes=8) * (2 if payload else 1)

@@ -5,7 +5,10 @@ Replaces the TPU kernels ``_inblock_body`` (run by ``_run_inblock``) and
 ``_hyper_body`` (run by ``_run_hyper``) of ``sort_kernel.py``:
 
   * **in-block kernel** (``csrc/bitonic.cu`` ``inblock_kernel``): one CTA
-    per block of ``block_rows() * block_cols()`` keys (8192 by default);
+    per block of ``block_rows() * block_cols()`` keys (8192 by default),
+    or of the largest power of two below it whose keys and payload fit
+    the CTA's shared memory (``inblock_tile``: the window kernel then
+    takes the stages between that tile and the block);
     it runs every stage (k, j) with j < block of the phases it is given.
     Each thread holds 16 keys (and payloads) in registers and runs the
     stages whose distance bits are its register bits there; between such
@@ -214,6 +217,19 @@ def _run_window(keys, vals, k: int, jtop: int, w: int, tie_break: bool,
     return keys, vals
 
 
+def inblock_tile(block: int, elem_bytes: int) -> int:
+    """The in-block kernel's block under a registry block of ``block``
+    keys: the largest power of two <= ``block`` whose keys and payload
+    (``elem_bytes`` an element) fit one CTA's shared memory. The network
+    still pads to ``block``; its stages at distances >= the tile and
+    < ``block`` go to the window kernel, and the compare-exchanges, so
+    the values, are those of the network at ``block``."""
+    tile = block
+    while tile > 1 and tile * elem_bytes > MAX_SMEM:
+        tile //= 2
+    return tile
+
+
 def network_schedule(total: int, *, first_k: int = 2, hyper: int,
                      block: int) -> list[tuple]:
     """The launches of ``_sort_network`` in order, as a pure function of
@@ -251,11 +267,15 @@ def _sort_network(keys, vals, total: int, tie_break: bool, *, block: int,
     the live ``sort_hyper``: one network per row of ``total`` keys, the
     arrays holding one or more rows end to end. ``first_k = 2L`` resumes
     on data already L-run alternating-sorted: the k-way merge of
-    ``merge_kernel``."""
+    ``merge_kernel``. ``block`` is the registry's block, a divisor of
+    ``total``; the in-block stages run at ``inblock_tile(block, ...)``,
+    the window kernel taking the distances from the tile up."""
+    elem = keys.element_size() + (0 if vals is None else vals.element_size())
+    tile = inblock_tile(block, elem)
     for item in network_schedule(total, first_k=first_k,
-                                 hyper=_hyper_order(), block=block):
+                                 hyper=_hyper_order(), block=tile):
         if item[0] == "inblock":
-            keys, vals = _run_inblock(keys, vals, item[1], item[2], block,
+            keys, vals = _run_inblock(keys, vals, item[1], item[2], tile,
                                       tie_break, cuda, total)
         else:
             keys, vals = _run_window(keys, vals, item[1], item[2], item[3],
@@ -263,7 +283,7 @@ def _sort_network(keys, vals, total: int, tie_break: bool, *, block: int,
     return keys, vals
 
 
-def _check_operands(keys, vals, tie_break: bool, cuda: bool, block: int):
+def _check_operands(keys, vals, tie_break: bool, cuda: bool):
     if keys.dim() not in (1, 2):
         raise ValueError(
             f"bitonic sort takes 1-D keys or (rows, n) batches, got "
@@ -279,16 +299,8 @@ def _check_operands(keys, vals, tie_break: bool, cuda: bool, block: int):
                 f"tie_break compares values as one of {C.KERNEL_DTYPES}, "
                 f"got {vals.dtype}"
             )
-    if not cuda:
-        return
-    _codes(keys, vals)
-    smem = block * (keys.element_size() +
-                    (vals.element_size() if vals is not None else 0))
-    if smem > MAX_SMEM:
-        raise ValueError(
-            f"block of {block} keys needs {smem} bytes of shared memory, "
-            f"more than one CTA's {MAX_SMEM}"
-        )
+    if cuda:
+        _codes(keys, vals)
 
 
 def _padded(x, total: int, fill):
@@ -310,7 +322,7 @@ def sort_padded(keys, vals, tie_break: bool, cuda: bool):
     sorted to the end of each row."""
     n = keys.shape[-1]
     _, _, block = _geometry()
-    _check_operands(keys, vals, tie_break, cuda, block)
+    _check_operands(keys, vals, tie_break, cuda)
     total = max(C.next_pow2(n), block)
     kp = _padded(keys, total, C.type_max(keys.dtype))
     vp = None if vals is None else _padded(vals, total,
@@ -366,13 +378,17 @@ def bitonic_argsort(keys: torch.Tensor, *, plain: bool = False):
 
 
 def network_launches(total: int, *, first_k: int = 2, hyper: int,
-                     block: int) -> int:
+                     block: int, elem_bytes: int | None = None) -> int:
     """Closed-form launch count of ``_sort_network(total, first_k=…)``
     (the length of ``network_schedule``): one in-block launch if any
     phase fits a block, then per cross phase ``ceil(i/m) + 1`` launches
     for ``i = log₂(k/block)`` (``i + 1`` unfused, m = 0 or 1). The
     reference's fused count is ``ceil(i/m)``: its last window absorbs the
-    in-block finish."""
+    in-block finish. Given ``elem_bytes`` (a key's and its payload's
+    bytes), the count is ``_sort_network``'s, whose in-block stages run
+    at ``inblock_tile(block, elem_bytes)``."""
+    if elem_bytes is not None:
+        block = inblock_tile(block, elem_bytes)
     launches = 0
     k = first_k
     if k <= min(total, block):
@@ -387,15 +403,18 @@ def network_launches(total: int, *, first_k: int = 2, hyper: int,
 
 
 def cross_launches(n: int, *, hyper: int | None = None,
-                   block: int | None = None) -> int:
+                   block: int | None = None, elem_bytes: int = 4) -> int:
     """Closed-form launch count of an n-element sort at the live
-    ``sort_hyper`` (default ``HYPER_ORDER``), as in the reference."""
+    ``sort_hyper`` (default ``HYPER_ORDER``), as in the reference, for
+    ``elem_bytes`` of key and payload an element (8: an int32 payload
+    beside 4-byte keys, or int64 keys)."""
     if block is None:
         _, _, block = _geometry()
     if hyper is None:
         hyper = _hyper_order()
     total = max(C.next_pow2(n), block)
-    return network_launches(total, first_k=2, hyper=hyper, block=block)
+    return network_launches(total, first_k=2, hyper=hyper, block=block,
+                            elem_bytes=elem_bytes)
 
 
 # --------------------------------------------------------------------------

@@ -9,9 +9,12 @@ re-batching, so every decode step has the same shapes.
                  batch-1 prefill scattered into that slot's row of every
                  cache leaf; neighbouring lanes untouched bit for bit),
                  then sample the request's first token from the prefill
-                 logits. The prompt is right-padded to the engine's fixed
-                 ``prompt_pad`` (pad K/V is overwritten or causally masked
-                 — see DESIGN.md §8).
+                 logits. Attention families right-pad the prompt to the
+                 engine's fixed ``prompt_pad`` (pad K/V is overwritten or
+                 causally masked — see DESIGN.md §8); recurrent families
+                 (ssm/hybrid) prefill at the TRUE prompt length, since a
+                 recurrence integrates every token it is fed and no mask
+                 can hide pad tokens.
     decode     — ONE ``model.decode_step`` over all slots with a
                  per-slot POSITION VECTOR: each lane RoPEs, writes its cache
                  column, and attends its own ``[0, pos_b]`` prefix (the
@@ -85,10 +88,9 @@ from repro_torch.runtime.supervisor import (
     Supervisor,
 )
 
-#: Families the slot scheduler supports so far (both pad prompts and may
-#: page their KV cache, as in the reference); the reference's ssm and
-#: hybrid come with their slices of the port.
-ENGINE_FAMILIES = ("dense", "moe")
+#: Families the slot scheduler supports (per-slot positions + slot-indexed
+#: cache refill), as in the reference; encdec and vlm wait for their slice.
+ENGINE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 # -- request status lifecycle (RequestResult.status) -------------------------
 # PENDING is the only non-terminal state; every request handed to
@@ -375,16 +377,27 @@ class Engine:
         self.pool: PagePool | None = None     # last run's pool (gates
         #                                       assert conservation on it)
 
+        # recurrent state integrates every fed token — pad tokens would
+        # corrupt it (unlike KV caches, where pad columns are overwritten
+        # or causally masked), so ssm/hybrid prefill at true length
+        self._pad_prompts = cfg.family in M.ATTENTION_FAMILIES
+
         # bytes one logical cache token costs (K + V across layers) — the
-        # memory-economics metric
+        # memory-economics metric; attention-KV families only
         self._token_bytes = (
             cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim
             * torch.empty((), dtype=cfg.dtype).element_size()
+            if self._pad_prompts else 0
         )
 
         self.paged = paged
         self.defrag_every = defrag_every
         if paged:
+            if not self._pad_prompts:
+                raise ValueError(
+                    f"paged KV cache needs an attention-family cache; "
+                    f"{cfg.family!r} carries recurrent state"
+                )
             if page_size is None:
                 # the knob lives with the page_gather primitive so the
                 # engine, the tune sweep and the kernel agree on geometry
@@ -581,12 +594,16 @@ class Engine:
                                      np.asarray(replay[:-1], np.int32)]))
             clen = int(chain.shape[0])
             t0 = time.perf_counter()
-            # fresh prompts pad to prompt_pad (pad K/V is overwritten or
-            # causally masked); resumed chains can exceed it — those pad
-            # to cache_len
-            pad_to = self.prompt_pad if replay is None else self.cache_len
-            tok_in = np.zeros((1, pad_to), np.int32)
-            tok_in[0, :clen] = chain
+            if self._pad_prompts:
+                # fresh prompts pad to prompt_pad (pad K/V is overwritten
+                # or causally masked); resumed chains can exceed it —
+                # those pad to cache_len
+                pad_to = (self.prompt_pad if replay is None
+                          else self.cache_len)
+                tok_in = np.zeros((1, pad_to), np.int32)
+                tok_in[0, :clen] = chain
+            else:
+                tok_in = chain[None, :]
             tok_dev = torch.from_numpy(tok_in).to(dev)
             if self.paged:
                 # chain pages: exact-token-chain lookup first (a hit
@@ -1074,17 +1091,18 @@ class Engine:
                 stats.steps += 1
                 stats.slot_util.append(len(live) / B)
                 stats.queue_depth.append(len(queue) + len(resume_q))
-                # memory economics, sampled per step: logical tokens
-                # live lanes hold vs the cache bytes backing them
-                active = sum(int(pos[b]) for b in live)
-                if self.paged:
-                    resident = (pool.allocated_count() * ps
-                                * self._token_bytes)
-                    stats.occupancy.append(pool.occupancy()[0])
-                else:
-                    resident = B * self.cache_len * self._token_bytes
-                stats.resident_bytes.append(resident)
-                stats.active_tokens.append(active)
+                if self._token_bytes:
+                    # memory economics, sampled per step: logical tokens
+                    # live lanes hold vs the cache bytes backing them
+                    active = sum(int(pos[b]) for b in live)
+                    if self.paged:
+                        resident = (pool.allocated_count() * ps
+                                    * self._token_bytes)
+                        stats.occupancy.append(pool.occupancy()[0])
+                    else:
+                        resident = B * self.cache_len * self._token_bytes
+                    stats.resident_bytes.append(resident)
+                    stats.active_tokens.append(active)
                 pending.append((tok, snapshot, step_no))
 
                 # drain deferred bookkeeping (fully once no lane is live)

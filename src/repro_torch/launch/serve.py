@@ -18,7 +18,8 @@ hash of (seed, request id, token index, column), so a sampled token
 depends only on the request and its index, never on the slot or batch it
 rides in, on every device. It cannot reproduce ``jax.random``'s bits.
 
-    python -m repro_torch.launch.serve [--device cuda|cpu] [--paged] ...
+    python -m repro_torch.launch.serve [--config ARCH] [--device cuda|cpu]
+        [--paged] ...
 """
 from __future__ import annotations
 
@@ -212,7 +213,7 @@ def main(argv=None):
                     default="internlm2_1_8b",
                     help="architecture whose smoke config is served "
                          "(internlm2_1_8b, granite_moe_1b, "
-                         "deepseek_moe_16b)")
+                         "deepseek_moe_16b, mamba2_1_3b, zamba2_7b, ...)")
     ap.add_argument("--device", default="cuda",
                     help="device to serve on (default: the card; 'cpu' "
                          "runs the plain versions of the kernels)")
@@ -228,7 +229,7 @@ def main(argv=None):
                     help="use the unfused top-p composition")
     ap.add_argument("--paged", action="store_true",
                     help="block-pool KV cache with copy-on-write prefix "
-                         "reuse")
+                         "reuse (attention families only)")
     ap.add_argument("--page-size", type=int, default=None,
                     help="tokens per KV page (default: the page_gather "
                          "primitive's knob)")

@@ -1,20 +1,28 @@
-"""Top-level model of the dense and moe families: init, forward, prefill,
-decode step, contiguous and paged caches (counterpart of
-``repro/models/model.py``).
+"""Top-level model of the dense, moe, ssm and hybrid families: init,
+forward, prefill, decode step, contiguous and paged caches (counterpart
+of ``repro/models/model.py``).
 
 Parameters are a plain dict of tensors on one device; the reference's
-stacked (L, ...) layer leaves are a list of per-layer dicts here, driven
-by a Python loop where the reference scans. Caches keep the reference's
-layouts: contiguous ``{"kv": {"k", "v"}}`` of (L, B, S, KV, hd), paged
-pools of (L, P, page_size, KV, hd). Decode and prefill write the caches
-IN PLACE and return them (the reference donates them to its jit).
+stacked (L, ...) layer leaves are a list of per-layer dicts here (a
+hybrid model's (G, gs, ...) leaves a list of G lists of gs dicts),
+driven by a Python loop where the reference scans. Caches keep the
+reference's layouts (``cache_specs``): attention K/V of (L, B, S, KV,
+hd), paged pools of (L, P, page_size, KV, hd), SSM state of (L, B, H, P,
+N) in float32 and the conv history of (L, B, K-1, conv_dim). Decode and
+prefill write the caches IN PLACE and return them (the reference donates
+them to its jit).
 
 A moe model stacks [attention, MoE FFN] layers, with deepseek-moe's
 layer 0 a dense layer whose FFN is as wide as the shared and routed
-experts' activation together (``params["layer0"]``, cache layer 0).
+experts' activation together (``params["layer0"]``, cache layer 0). An
+ssm model stacks Mamba2 layers. A hybrid model (zamba2) runs G groups of
+gs Mamba2 layers, each group followed by ONE shared attention + MLP
+block (``params["shared"]``) with that group's own K/V cache, then a
+tail of ``n_layers - G * gs`` Mamba2 layers (``params["tail"]``, None
+when empty).
 
-Other families raise ``NotImplementedError``: ssm, hybrid, encdec and vlm
-come with later slices of the port.
+The encdec and vlm families raise ``NotImplementedError``: they come
+with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -26,14 +34,24 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 TP_DEFAULT = 16
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: Families whose decode cache is attention K/V alone (padded prompts,
+#: paged pools); the others carry recurrent state.
+ATTENTION_FAMILIES = ("dense", "moe")
 
 
 def _check_family(cfg):
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ported: {FAMILIES}); "
-            f"ssm, hybrid, encdec and vlm come with later slices")
+            f"encdec and vlm come with a later slice")
+
+
+def _check_paged(cfg):
+    if cfg.family not in ATTENTION_FAMILIES:
+        raise ValueError(
+            f"paged KV cache needs an attention-family cache; family "
+            f"{cfg.family!r} has recurrent state (nothing to page)")
 
 
 def _vocab(cfg):
@@ -42,8 +60,9 @@ def _vocab(cfg):
 
 def init_params(gen: torch.Generator, cfg, device="cuda"):
     """Random parameters with the reference's distributions (embedding
-    N(0, 0.02^2), projections U(+-1/sqrt(d_in)), norm scales 1), drawn
-    from ``gen`` on ``device``; the draws are not the reference's."""
+    N(0, 0.02^2), projections U(+-1/sqrt(d_in)), norm scales 1, the SSM
+    block's as ``ssm.ssm_init``), drawn from ``gen`` on ``device``; the
+    draws are not the reference's."""
     _check_family(cfg)
     V, d = _vocab(cfg), cfg.d_model
     p = {
@@ -51,15 +70,26 @@ def init_params(gen: torch.Generator, cfg, device="cuda"):
         "final_norm": L.rmsnorm_init(d, device),
         "head": L.lm_head_init(gen, d, V, cfg.dtype, device),
     }
-    if cfg.family == "dense":
+    fam = cfg.family
+    if fam == "dense":
         p["layers"] = [T.dense_layer_init(gen, cfg, device)
                        for _ in range(cfg.n_layers)]
-    else:
+    elif fam == "moe":
         p["layers"] = [T.moe_layer_init(gen, cfg, device)
                        for _ in range(cfg.n_layers - _first_dense(cfg))]
         if _first_dense(cfg):
             p["layer0"] = T.dense_layer_init(gen, _dense_ff_view(cfg),
                                              device)
+    elif fam == "ssm":
+        p["layers"] = [T.ssm_layer_init(gen, cfg, device)
+                       for _ in range(cfg.n_layers)]
+    else:
+        G, gs, tail = _hybrid_shape(cfg)
+        p["layers"] = [[T.ssm_layer_init(gen, cfg, device)
+                        for _ in range(gs)] for _ in range(G)]
+        p["tail"] = ([T.ssm_layer_init(gen, cfg, device)
+                      for _ in range(tail)] if tail else None)
+        p["shared"] = T.dense_layer_init(gen, cfg, device)  # ONE block
     return p
 
 
@@ -75,8 +105,17 @@ def _dense_ff_view(cfg):
         cfg, d_ff=cfg.d_ff * (cfg.top_k + cfg.n_shared_experts))
 
 
+def _hybrid_shape(cfg) -> tuple[int, int, int]:
+    """(G groups, gs SSM layers a group, the tail's SSM layers)."""
+    gs = cfg.hybrid_attn_every
+    G = cfg.n_layers // gs
+    return G, gs, cfg.n_layers - G * gs
+
+
 def param_count(params) -> int:
     def count(t):
+        if t is None:
+            return 0
         if isinstance(t, torch.Tensor):
             return t.numel()
         if isinstance(t, dict):
@@ -87,20 +126,32 @@ def param_count(params) -> int:
 
 def forward(params, cfg, tokens, *, chunk=1024):
     """A full sequence (no cache) -> (logits over the padded vocab, the
-    MoE balance loss summed over layers: 0 for dense)."""
+    MoE balance loss summed over layers: 0 for the other families)."""
     _check_family(cfg)
     x = L.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    if _first_dense(cfg):
-        x, _ = T.dense_block(params["layer0"], cfg, x, positions,
-                             chunk=chunk)
-    for p in params["layers"]:
-        if cfg.family == "dense":
-            x, _ = T.dense_block(p, cfg, x, positions, chunk=chunk)
-        else:
-            x, aux, _ = T.moe_block(p, cfg, x, positions, chunk=chunk)
-            aux_total = aux_total + aux
+    fam = cfg.family
+    if fam == "hybrid":
+        for group in params["layers"]:
+            for p in group:
+                x, _, _ = T.ssm_block(p, cfg, x)
+            x, _ = T.dense_block(params["shared"], cfg, x, positions,
+                                 chunk=chunk)
+        for p in params["tail"] or ():
+            x, _, _ = T.ssm_block(p, cfg, x)
+    else:
+        if _first_dense(cfg):
+            x, _ = T.dense_block(params["layer0"], cfg, x, positions,
+                                 chunk=chunk)
+        for p in params["layers"]:
+            if fam == "dense":
+                x, _ = T.dense_block(p, cfg, x, positions, chunk=chunk)
+            elif fam == "moe":
+                x, aux, _ = T.moe_block(p, cfg, x, positions, chunk=chunk)
+                aux_total = aux_total + aux
+            else:
+                x, _, _ = T.ssm_block(p, cfg, x)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.lm_head(params["head"], x), aux_total
 
@@ -111,25 +162,60 @@ def forward(params, cfg, tokens, *, chunk=1024):
 
 
 def cache_specs(cfg, *, batch, cache_len):
-    """{"kv": {"k": (shape, dtype), "v": ...}} of the contiguous cache."""
+    """The contiguous decode cache as a tree of (shape, dtype) leaves, the
+    reference's ``cache_specs`` leaf for leaf: ``{"kv": {"k", "v"}}`` for
+    the attention families; ``{"ssm", "conv"}`` for ssm; for hybrid the
+    groups' ``ssm`` (G, gs, B, ...) and ``conv``, one K/V cache a group
+    (``kv`` over G) and, when the tail is not empty, ``ssm_tail`` and
+    ``conv_tail``."""
     _check_family(cfg)
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"kv": {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}}
+    B, S, dt = batch, cache_len, cfg.dtype
+
+    def kv(n):
+        shape = (n, B, S, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": (shape, dt), "v": (shape, dt)}
+
+    fam = cfg.family
+    if fam in ATTENTION_FAMILIES:
+        return {"kv": kv(cfg.n_layers)}
+    state = (B, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
+    conv = (B, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state)
+    if fam == "ssm":
+        return {"ssm": ((cfg.n_layers, *state), torch.float32),
+                "conv": ((cfg.n_layers, *conv), dt)}
+    G, gs, tail = _hybrid_shape(cfg)
+    out = {"ssm": ((G, gs, *state), torch.float32),
+           "conv": ((G, gs, *conv), dt), "kv": kv(G)}
+    if tail:
+        out["ssm_tail"] = ((tail, *state), torch.float32)
+        out["conv_tail"] = ((tail, *conv), dt)
+    return out
 
 
 def paged_cache_specs(cfg, *, num_pages, page_size):
     """Shapes of the PAGED cache: a pool of ``num_pages`` pages of
     ``page_size`` tokens, no batch axis (a (B, T) block table maps each
-    lane's columns onto pages)."""
+    lane's columns onto pages). Attention families only: recurrent state
+    is O(1) a lane, so there is nothing to page."""
     _check_family(cfg)
+    _check_paged(cfg)
     shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
              cfg.head_dim)
     return {"kv": {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}}
 
 
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts (and of like-shaped
+    ``rest``)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
 def _zeros(specs, device):
-    return {"kv": {n: torch.zeros(shape, dtype=dt, device=device)
-                   for n, (shape, dt) in specs["kv"].items()}}
+    return _tree_map(lambda s: torch.zeros(s[0], dtype=s[1], device=device),
+                     specs)
 
 
 def zero_caches(cfg, *, batch, cache_len, device="cuda"):
@@ -142,9 +228,19 @@ def zero_paged_caches(cfg, *, num_pages, page_size, device="cuda"):
 
 
 def cache_batch_axes(cfg):
-    """Each cache leaf's batch axis (the slot scheduler's row)."""
+    """Each cache leaf's batch axis (the slot scheduler's row), the same
+    tree as ``cache_specs``: the hybrid's group axes come first."""
     _check_family(cfg)
-    return {"kv": {"k": 1, "v": 1}}
+    kv1 = {"k": 1, "v": 1}
+    if cfg.family in ATTENTION_FAMILIES:
+        return {"kv": kv1}
+    if cfg.family == "ssm":
+        return {"ssm": 1, "conv": 1}
+    out = {"ssm": 2, "conv": 2, "kv": kv1}
+    if _hybrid_shape(cfg)[2]:
+        out["ssm_tail"] = 1
+        out["conv_tail"] = 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -158,9 +254,13 @@ def decode_step(params, cfg, tokens, caches, position, *, chunk=1024,
 
     ``position``: absolute index of the incoming token, a scalar or a (B,)
     vector of per-slot positions (positions past the cache park a slot:
-    its write drops). With ``block_tables`` (B, T) int32 and ``page_size``
-    the caches are the paged pool of ``paged_cache_specs``.
+    its K/V write drops; its recurrent state integrates garbage nobody
+    reads until admission overwrites the row). With ``block_tables`` (B,
+    T) int32 and ``page_size`` the caches are the paged pool of
+    ``paged_cache_specs`` (attention families only).
     """
+    if block_tables is not None and cfg.family not in ATTENTION_FAMILIES:
+        raise ValueError(f"paged decode unsupported for {cfg.family!r}")
     return _decode(params, cfg, tokens, caches, position, chunk=chunk,
                    block_tables=block_tables, page_size=page_size)
 
@@ -176,21 +276,54 @@ def _decode(params, cfg, tokens, caches, position, *, chunk=1024,
     x = L.embed(params["embed"], tokens)
     positions = (torch.as_tensor(position, device=dev)[..., None]
                  + torch.arange(S, device=dev))
-    kvs = caches["kv"]
-    kw = dict(cache_index=position, block_table=block_tables,
-              page_size=page_size, chunk=chunk)
-    first = _first_dense(cfg)
-    if first:
-        x, _ = T.dense_block(params["layer0"], cfg, x, positions,
-                             cache={"k": kvs["k"][0], "v": kvs["v"][0]}, **kw)
-    for i, p in enumerate(params["layers"], start=first):
-        cache = {"k": kvs["k"][i], "v": kvs["v"][i]}
-        if cfg.family == "dense":
-            x, _ = T.dense_block(p, cfg, x, positions, cache=cache, **kw)
-        else:
-            x, _, _ = T.moe_block(p, cfg, x, positions, cache=cache, **kw)
+    fam = cfg.family
+    if fam in ATTENTION_FAMILIES:
+        kvs = caches["kv"]
+        kw = dict(cache_index=position, block_table=block_tables,
+                  page_size=page_size, chunk=chunk)
+        first = _first_dense(cfg)
+        if first:
+            x, _ = T.dense_block(params["layer0"], cfg, x, positions,
+                                 cache={"k": kvs["k"][0],
+                                        "v": kvs["v"][0]}, **kw)
+        for i, p in enumerate(params["layers"], start=first):
+            cache = {"k": kvs["k"][i], "v": kvs["v"][i]}
+            if fam == "dense":
+                x, _ = T.dense_block(p, cfg, x, positions, cache=cache,
+                                     **kw)
+            else:
+                x, _, _ = T.moe_block(p, cfg, x, positions, cache=cache,
+                                      **kw)
+    elif fam == "ssm":
+        x = _ssm_stack(params["layers"], cfg, x, caches["ssm"],
+                       caches["conv"])
+    else:
+        kvs = caches["kv"]
+        for g, group in enumerate(params["layers"]):
+            x = _ssm_stack(group, cfg, x, caches["ssm"][g],
+                           caches["conv"][g])
+            # the shared block, with this group's own K/V cache
+            x, _ = T.dense_block(params["shared"], cfg, x, positions,
+                                 cache={"k": kvs["k"][g], "v": kvs["v"][g]},
+                                 cache_index=position, chunk=chunk)
+        if params["tail"] is not None:
+            x = _ssm_stack(params["tail"], cfg, x, caches["ssm_tail"],
+                           caches["conv_tail"])
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.lm_head(params["head"], x), caches
+
+
+def _ssm_stack(layers, cfg, x, states, convs):
+    """Mamba2 layers in order over their caches (L, B, ...), each layer's
+    new state and conv history written in place. S > 1 tokens are a
+    prefill from position 0: the chunked scan starts from zero whatever
+    the state cache holds, as in the reference."""
+    for i, p in enumerate(layers):
+        x, st, cv = T.ssm_block(p, cfg, x, state=states[i],
+                                conv_state=convs[i])
+        states[i].copy_(st)
+        convs[i].copy_(cv)
+    return x
 
 
 def prefill(params, cfg, tokens, *, cache_len, chunk=1024):
@@ -204,20 +337,24 @@ def prefill(params, cfg, tokens, *, cache_len, chunk=1024):
 
 def slot_prefill(params, cfg, tokens, caches, slot, *, cache_len,
                  chunk=1024):
-    """Prefill ONE request (tokens (1, S), right-padded) into row ``slot``
-    of the shared cache. The row is zeroed first and the prefill then
-    writes it in place, which equals the reference's fresh batch-1 prefill
-    copied into the row; neighbouring slots are untouched.
-    Returns (logits (1, S, V), caches)."""
+    """Prefill ONE request (tokens (1, S): right-padded for the attention
+    families, the true prompt for the recurrent ones) into row ``slot``
+    of the shared cache. The row of every leaf is zeroed first and the
+    prefill then writes it in place, which equals the reference's fresh
+    batch-1 prefill copied into the row: a recurrent slot's whole state
+    and conv history are overwritten, whatever a parked lane integrated
+    there. Neighbouring slots are untouched. Returns (logits (1, S, V),
+    caches)."""
     _check_family(cfg)
-    kvs = caches["kv"]
-    if kvs["k"].shape[2] != cache_len:
-        raise ValueError(f"cache holds {kvs['k'].shape[2]} columns, "
-                         f"cache_len is {cache_len}")
-    row = {n: kvs[n][:, slot:slot + 1] for n in ("k", "v")}
-    for t in row.values():
-        t.zero_()
-    logits, _ = _decode(params, cfg, tokens, {"kv": row}, 0, chunk=chunk)
+    axes = cache_batch_axes(cfg)
+    if "kv" in caches:
+        cols = caches["kv"]["k"].shape[axes["kv"]["k"] + 1]
+        if cols != cache_len:
+            raise ValueError(f"cache holds {cols} columns, cache_len is "
+                             f"{cache_len}")
+    row = _tree_map(lambda t, ax: t.narrow(ax, slot, 1), caches, axes)
+    _tree_map(lambda t: t.zero_(), row)
+    logits, _ = _decode(params, cfg, tokens, row, 0, chunk=chunk)
     return logits, caches
 
 
@@ -231,6 +368,7 @@ def paged_prefill(params, cfg, tokens, caches, page_ids, *, cache_len,
     contiguous engine's. A page id >= the pool size is the don't-write
     sentinel (pure pad, or a prefix page shared by copy-on-write whose
     bytes are already resident): it drops. Returns (logits, caches)."""
+    _check_paged(cfg)
     page_ids = torch.as_tensor(page_ids, device=tokens.device).long()
     n_pp = page_ids.shape[0]
     logits, fresh, _ = prefill(params, cfg, tokens, cache_len=cache_len,

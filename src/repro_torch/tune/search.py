@@ -10,8 +10,8 @@ Per ``(primitive, dtype, size-class)`` key and device the engine
    not set by hand;
 2. **prunes** with an analytic model of the card (:func:`modelled_time`:
    closed-form launches at the measured cost of one, the bytes each pass
-   moves at the card's memory rate, and the in-block kernel's shared
-   memory as the ceiling on its block), then times the best few;
+   moves at the card's memory rate, the in-block stages at the tile one
+   CTA's shared memory holds), then times the best few;
 3. **measures** the survivors through the registry (a warm-up call
    discarded, the median of k; CUDA events for a card operand,
    ``perf_counter`` for a CPU one) on both backends on the card, and on
@@ -142,9 +142,11 @@ def candidates(name: str) -> list[dict]:
     return out
 
 
-def _network(name: str, n: int, knobs: dict) -> tuple[int, int, int]:
-    """(block, launches, padded length) of the bitonic network the cuda
-    path of ``name`` runs on n keys under ``knobs``."""
+def _network(name: str, n: int, knobs: dict,
+             elem_bytes: int) -> tuple[int, int]:
+    """(launches, padded length) of the bitonic network the cuda path of
+    ``name`` runs on n keys of ``elem_bytes`` (key and payload) under
+    ``knobs``: the in-block stages at the tile shared memory holds."""
     block = (knobs.get("block_rows") or SK.SORT_ROWS) * \
         (knobs.get("block_cols") or SK.SORT_COLS)
     m = knobs.get("sort_hyper")
@@ -152,18 +154,21 @@ def _network(name: str, n: int, knobs: dict) -> tuple[int, int, int]:
     total = max(KC.next_pow2(n), block)
     if name in MERGE_PRIMITIVES:
         launches = max(MK.merge_launches(n, MERGE_RUNS, hyper=m,
-                                         block=block), 1)
+                                         block=block,
+                                         elem_bytes=elem_bytes), 1)
     else:
-        launches = SK.network_launches(total, hyper=m, block=block)
-    return block, launches, total
+        launches = SK.network_launches(total, hyper=m, block=block,
+                                       elem_bytes=elem_bytes)
+    return launches, total
 
 
 def modelled_time(name: str, backend: str, n: int, itemsize: int,
                   knobs: dict, *, device="cuda") -> float:
     """Analytic seconds for one call. On the card: the cuda path is its
     closed-form launches at ``LAUNCH_S`` plus the bytes every pass moves
-    at ``HBM_BYTES_S``, ``inf`` for a block whose keys (and payload)
-    exceed one CTA's shared memory (the pruning rule); the portable path
+    at ``HBM_BYTES_S`` (a block whose keys and payload exceed one CTA's
+    shared memory runs its in-block stages at a smaller tile, and the
+    window kernel's extra passes count); the portable path
     is one call plus ``torch.sort``'s measured rate for the sort family,
     two passes at the memory rate otherwise. On the host CPU (portable
     only): ``torch.sort``'s n log n at the measured rate, or one
@@ -188,9 +193,7 @@ def modelled_time(name: str, backend: str, n: int, itemsize: int,
         return LAUNCH_S + 2 * nb / HBM_BYTES_S
     if not sortish:
         return LAUNCH_S + 2 * lanes * nb / HBM_BYTES_S
-    block, launches, total = _network(name, n, knobs)
-    if block * itemsize * lanes > SK.MAX_SMEM:
-        return float("inf")
+    launches, total = _network(name, n, knobs, itemsize * lanes)
     return launches * LAUNCH_S + 2 * lanes * total * itemsize * launches \
         / HBM_BYTES_S
 
@@ -386,8 +389,6 @@ def search_one(name: str, n: int, dtype, *, measure=None,
         if {} not in survivors:  # keep the default comparable
             survivors.append({})
         for kv in survivors:
-            if modelled_time(name, "cuda", n, itemsize, kv) == float("inf"):
-                continue  # pruned: past one CTA's shared memory
             if "page_size" in prim.tunables:
                 ops_kv, opts_kv = make_operands(name, n, dtype, kv,
                                                 device=dev)

@@ -96,11 +96,16 @@ def test_model_is_deterministic_and_prunes_shared_memory():
     a = T.modelled_time("sort", "cuda", 2**17, 4, {"sort_hyper": 2})
     assert a == T.modelled_time("sort", "cuda", 2**17, 4, {"sort_hyper": 2})
     # 16 x 2048 keys: 128 KiB alone, 256 KiB with a payload, past one
-    # CTA's 227 KB
+    # CTA's 227 KB: the kv network's in-block stages run at half the
+    # block, and the model counts the window passes that adds
     huge = {"block_rows": 16, "block_cols": 2048, "sort_hyper": 4}
     assert 16 * 2048 * 4 < SK.MAX_SMEM < 16 * 2048 * 8
-    assert T.modelled_time("sort_kv", "cuda", 2**20, 4, huge) == float("inf")
-    assert T.modelled_time("sort", "cuda", 2**20, 4, huge) < float("inf")
+    kv = T.modelled_time("sort_kv", "cuda", 2**20, 4, huge)
+    tiled = SK.network_launches(2**20, hyper=4, block=2**15, elem_bytes=8)
+    assert tiled > SK.network_launches(2**20, hyper=4, block=2**15)
+    assert kv == tiled * T.search.LAUNCH_S + 2 * 2 * 2**20 * 4 * tiled \
+        / T.search.HBM_BYTES_S
+    assert T.modelled_time("sort", "cuda", 2**20, 4, huge) < kv < float("inf")
     # from a few blocks up the card's torch.sort rate beats the network's
     # passes (one in-block launch and torch's call cost about the same)
     for n in (2**17, 2**20, 2**26):

@@ -1235,6 +1235,48 @@ def test_int64_window_kernel_and_network_bitwise_vs_plain(gen, m):
                        1 << 21, 1 << 20, 1, False, True)
 
 
+@pytest.mark.parametrize("entry", ["sort_int64", "sort_kv", "argsort"])
+def test_entries_at_a_block_past_shared_memory(gen, entry):
+    """A registry block of 2^15 keys whose keys and payload exceed one
+    CTA's shared memory (int64 keys; float32 keys + an int32 payload)
+    through the public entries: the kernels run (no portable call) with
+    the in-block stages at a 2^14 tile, launches the tiled closed form,
+    bitwise the plain network at the registry's block."""
+    block, n = 32 * 1024, (1 << 17) + 3
+    assert block * 8 > SK.MAX_SMEM and SK.inblock_tile(block, 8) == 1 << 14
+    if entry == "sort_int64":
+        name, k = "sort", _int64_keys(gen, n)
+        call = lambda: [ak.merge_sort(k)]  # noqa: E731
+        plain = lambda: [SK.bitonic_sort(k, plain=True)]  # noqa: E731
+    elif entry == "sort_kv":
+        name, k = "sort_kv", _awkward(gen, n, torch.float32)
+        v = torch.randint(0, 50, (n,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        call = lambda: list(ak.merge_sort_by_key(k, v))  # noqa: E731
+        plain = lambda: list(  # noqa: E731
+            SK.bitonic_sort_kv(k, v, plain=True))
+    else:
+        name, k = "argsort", _awkward(gen, n, torch.float32)
+        call = lambda: [ak.sortperm(k)]  # noqa: E731
+        plain = lambda: [SK.bitonic_argsort(k, plain=True)]  # noqa: E731
+    registry.reset_stats()
+    C.reset_launch_count()
+    with ak.tuning.overrides(**{name: {"block_rows": 32,
+                                       "block_cols": 1024}}):
+        got = call()
+    torch.cuda.synchronize()
+    assert registry.stats(name)["portable_calls"] == 0
+    assert C.launch_counts() == {
+        name: SK.cross_launches(n, block=block, elem_bytes=8)}
+    kern = C.kernel_launches()
+    assert kern["bitonic_inblock"] > 0 and kern["bitonic_window"] > 0
+    with C.tuning_scope(block_rows=32, block_cols=1024):
+        want = plain()
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g) if g.element_size() < 8 else g,
+                           _bits(w) if w.element_size() < 8 else w), entry
+
+
 def test_sortperm_lowmem_on_the_card_equals_sortperm(gen):
     x = torch.randn(3 << 20, generator=gen, device="cuda")
     assert torch.equal(ak.sortperm_lowmem(x), ak.sortperm(x))

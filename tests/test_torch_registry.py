@@ -228,6 +228,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
         import benchmarks_torch.serving
         import repro_torch.tune, repro_torch.tune.__main__
         import repro_torch.launch.mesh, repro_torch.core.paging
+        import repro_torch.models.ssm, repro_torch.models.model
+        import repro_torch.configs.mamba2_1_3b, repro_torch.configs.zamba2_7b
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
@@ -261,7 +263,8 @@ def test_no_port_file_imports_jax_or_reference():
     for new in ("core/paging.py", "tune/__init__.py", "tune/cache.py",
                 "tune/search.py", "tune/__main__.py", "launch/mesh.py",
                 "configs/glm4_9b.py", "configs/yi_34b.py",
-                "configs/deepseek_67b.py"):
+                "configs/deepseek_67b.py", "models/ssm.py",
+                "configs/mamba2_1_3b.py", "configs/zamba2_7b.py"):
         assert any(f.endswith("repro_torch/" + new) for f in files), new
     for f in files:
         bad = {m for m in _imported_roots(f)} & {"jax", "jaxlib", "repro"}

@@ -471,3 +471,103 @@ def test_sortperm_lowmem_edges():
     assert torch.equal(ak.sortperm_lowmem(ints), ak.sortperm(ints))
     bf = torch.tensor([2.0, -1.0, 0.5], dtype=torch.bfloat16)
     assert torch.equal(ak.sortperm_lowmem(bf), ak.sortperm(bf))
+
+
+# --------------------------------------------------------------------------
+# Blocks past one CTA's shared memory: the in-block stages at a tile
+# --------------------------------------------------------------------------
+
+BIG_BLOCK = 32 * 1024   # 2^15: 256 KiB of 8-byte elements, past 227 KiB
+
+
+def _drive_plain(keys, vals, total, block, tie_break):
+    """The plain network launch by launch as ``network_schedule`` lists it
+    at ``block``."""
+    for item in TSK.network_schedule(total, hyper=TSK._hyper_order(),
+                                     block=block):
+        if item[0] == "inblock":
+            keys, vals = TSK._run_inblock(keys, vals, item[1], item[2],
+                                          block, tie_break, False, total)
+        else:
+            keys, vals = TSK._run_window(keys, vals, *item[1:], tie_break,
+                                         False, total)
+    return keys, vals
+
+
+@pytest.mark.parametrize("case", ["int64_keys", "f32_keys_int32_payload"])
+def test_tiled_network_is_bitwise_the_untiled_one(case):
+    """At a registry block whose keys and payload exceed one CTA's shared
+    memory the in-block stages run at half the block and the window
+    kernel takes the stages at distance 2^14: the same compare-exchanges,
+    so the plain network on the tiled schedule is bitwise the one at the
+    registry's block, and ``_sort_network`` runs the tiled one."""
+    rng = np.random.default_rng(7)
+    n = (1 << 17) - 5
+    total = 1 << 17
+    if case == "int64_keys":
+        k = torch.from_numpy(rng.integers(-2**62, 2**62, n))
+        k[::9] = torch.iinfo(torch.int64).max
+        v, tie = None, False
+    else:
+        k = torch.from_numpy(rng.integers(-40, 40, n).astype(np.float32))
+        k[::13] = -0.0
+        k[5::17] = float("nan")
+        v = torch.from_numpy(rng.integers(0, 50, n).astype(np.int32))
+        tie = True
+    tile = TSK.inblock_tile(BIG_BLOCK, 8)
+    assert BIG_BLOCK * 8 > TSK.MAX_SMEM >= tile * 8 and tile == 1 << 14
+    pad = TSK._padded(k, total, TC.type_max(k.dtype))
+    pv = None if v is None else TSK._padded(v, total, TC.type_max(v.dtype))
+
+    def clone():
+        return pad.clone(), None if pv is None else pv.clone()
+
+    untiled = _drive_plain(*clone(), total, BIG_BLOCK, tie)
+    tiled = _drive_plain(*clone(), total, tile, tie)
+    with TC.tuning_scope(block_rows=32, block_cols=1024):
+        run = TSK._sort_network(*clone(), total, tie, block=BIG_BLOCK,
+                                cuda=False)
+    for got in (tiled, run):
+        for a, b in zip(got, untiled):
+            if a is not None:
+                assert torch.equal(a.view(torch.int32 if a.element_size()
+                                          == 4 else torch.int64),
+                                   b.view(torch.int32 if b.element_size()
+                                          == 4 else torch.int64))
+    if v is None:
+        assert torch.equal(untiled[0][:n], torch.sort(k).values)
+
+
+def test_launch_counts_and_tuner_cost_count_the_tiled_schedule(monkeypatch):
+    """``network_launches``, ``cross_launches`` and the tuner's model count
+    the tiled schedule (finite, one window pass more per cross phase than
+    the untiled count), and ``_sort_network`` makes exactly that many
+    launches."""
+    from repro_torch.tune import search as T
+
+    total = 1 << 17
+    tiled = TSK.network_launches(total, hyper=6, block=BIG_BLOCK,
+                                 elem_bytes=8)
+    assert tiled == len(TSK.network_schedule(total, hyper=6,
+                                             block=1 << 14))
+    assert tiled == TSK.network_launches(total, hyper=6, block=BIG_BLOCK) + 2
+    # 4-byte keys alone fit: no tile
+    assert TSK.network_launches(total, hyper=6, block=BIG_BLOCK,
+                                elem_bytes=4) == TSK.network_launches(
+        total, hyper=6, block=BIG_BLOCK)
+    n = total - 5
+    assert TSK.cross_launches(n, block=BIG_BLOCK, elem_bytes=8) == tiled
+    calls = []
+    for name in ("_run_inblock", "_run_window"):
+        monkeypatch.setattr(
+            TSK, name, lambda k, v, *a, _n=name: (calls.append(_n),
+                                                  (k, v))[1])
+    with TC.tuning_scope(sort_hyper=6):
+        TSK._sort_network(torch.empty(0, dtype=torch.int64), None, total,
+                          False, block=BIG_BLOCK, cuda=True)
+    assert len(calls) == tiled
+    knobs = {"block_rows": 32, "block_cols": 1024, "sort_hyper": 6}
+    t_kv = T.modelled_time("sort_kv", "cuda", n, 4, knobs)
+    assert t_kv == tiled * T.LAUNCH_S + 2 * 2 * total * 4 * tiled \
+        / T.HBM_BYTES_S
+    assert t_kv > T.modelled_time("sort", "cuda", n, 4, knobs)
