@@ -10,10 +10,21 @@ heads, 8 KV heads, 32 experts of d_ff 512, top-8, vocab 49155 padded to
 state 128, vocab 50280 padded to 51200) or zamba2-7b (81 Mamba2 layers in
 13 groups of 6 + a tail of 3, d_model 3584, 112 heads of 64, state 64;
 one shared attention block of 32 heads of 112 and d_ff 14336 after each
-group; vocab 32000 padded to 32768).
+group; vocab 32000 padded to 32768), whisper-medium (24 encoder + 24
+decoder layers, d_model 1024, 16 heads of 64, d_ff 4096, 1536 frames,
+vocab 51865 padded to 53248) or llama-3.2-vision at 10 of its 100 layers
+(2 groups of 4 dense layers + 1 gated cross-attention layer; d_model
+8192, 64 heads / 8 KV heads of 128, d_ff 28672, 1664 patches, vocab
+128256 padded to 129024): 100 layers are ~88 B parameters, ~175 GB in
+bfloat16, which no single card holds. The encdec and vlm models serve 8
+rows of the same traffic in one wave through ``serve_loop``'s fixed-batch
+loop, with stub frames / patches drawn from the seed, and the vlm's
+cross-layer gates drawn nonzero from the seed (the published init of 0
+makes every cross layer add nothing).
 
     PYTHONPATH=src:. python -m benchmarks_torch.serving \
-        [--config {internlm2_1_8b,granite_moe_1b,mamba2_1_3b,zamba2_7b}]
+        [--config {internlm2_1_8b,granite_moe_1b,mamba2_1_3b,zamba2_7b,
+                   whisper_medium,llama32_vision_90b}]
         [--seed S] [--out F]
 
 Prints the engine's tokens/s and TTFT, and where one decode step's time
@@ -23,9 +34,12 @@ the step's parts run alone at its shapes (the weight products, the
 attention core, the page gathers, the sampler; for the MoE model also the
 routing, the expert GEMMs and the combine of every layer), and the host
 cost of one page-gather call; for the recurrent models the weight
-products, the shared block's attention core (zamba2) and the sampler.
-``chip_smoke.py`` phases 7, 9 and 11 drive the same workloads from here.
-Needs a card.
+products, the shared block's attention core (zamba2) and the sampler; for
+encdec and vlm the weight products, the self- and the cross-attention
+cores and the sampler, and the prefill split into the cross K/V (the
+encoder, or the patches' projection) and the prompt.
+``chip_smoke.py`` phases 7, 9, 11 and 12 drive the same workloads from
+here. Needs a card.
 """
 from __future__ import annotations
 
@@ -50,9 +64,14 @@ from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
 
 ARCH = "internlm2_1_8b"
-ARCHS = (ARCH, "granite_moe_1b", "mamba2_1_3b", "zamba2_7b")
+CROSS_ARCHS = ("whisper_medium", "llama32_vision_90b")
+ARCHS = (ARCH, "granite_moe_1b", "mamba2_1_3b", "zamba2_7b", *CROSS_ARCHS)
 SLOTS, REQUESTS, PROMPT_LEN, MAX_NEW = 8, 16, 256, 64
 TOP_K, TOP_P = 16, 0.95
+#: llama-3.2-vision's depth on one card: 2 of its 20 groups
+VLM_LAYERS = 10
+#: scale of the stub frames' / patches' rank-one part (``cross_extras``)
+STUB_AMP = 2.0
 
 
 @dataclasses.dataclass
@@ -62,20 +81,70 @@ class Workload:
     prompts: np.ndarray       # (REQUESTS, PROMPT_LEN) int32
     page_size: int
     cache_len: int
+    #: encdec / vlm: the stub frames / patches of the SLOTS rows
+    extras: dict = dataclasses.field(default_factory=dict)
+
+
+def config(arch: str):
+    """``arch``'s published config, llama-3.2-vision cut to
+    ``VLM_LAYERS`` layers."""
+    cfg = load_config(arch)
+    if cfg.family == "vlm":
+        cfg = dataclasses.replace(cfg, n_layers=VLM_LAYERS)
+    return cfg
+
+
+def cross_extras(cfg, gen) -> dict:
+    """Stub frames (encdec) or patches (vlm) of SLOTS rows from ``gen``, in
+    ``cfg.dtype``; {} for the other families. A row is N(0, 1) noise plus
+    one direction u ~ N(0, I) scaled at each position by a ~ N(0,
+    STUB_AMP^2). Noise alone gives a near-uniform softmax over the 1664
+    patches whose output averages to ~0, so the cross path would carry no
+    weight; the rank-one part spreads the scores and gives the values a
+    common direction."""
+    if cfg.family == "encdec":
+        seq, name = cfg.enc_seq, "frames"
+    elif cfg.family == "vlm":
+        seq, name = cfg.vision_seq, "patches"
+    else:
+        return {}
+    dev = gen.device
+    x = torch.randn((SLOTS, seq, cfg.d_model), generator=gen, device=dev)
+    u = torch.randn((SLOTS, 1, cfg.d_model), generator=gen, device=dev)
+    a = torch.randn((SLOTS, seq, 1), generator=gen, device=dev) * STUB_AMP
+    return {name: (x + a * u).to(cfg.dtype)}
+
+
+def set_gates(params, gen) -> None:
+    """The vlm cross layers' tanh gates, drawn from +-[0.5, 1.5] by
+    ``gen`` (the published init of 0 makes every cross layer add
+    nothing)."""
+    for pc in params.get("cross", ()):
+        for name in ("gate_attn", "gate_mlp"):
+            u = torch.rand(2, generator=gen, device=gen.device).tolist()
+            pc[name].fill_((0.5 + u[0]) * (1.0 if u[1] < 0.5 else -1.0))
 
 
 def workload(seed: int = 0, device="cuda", arch: str = ARCH,
              cfg=None) -> Workload:
     """The full-width model (random weights from ``seed``) and prompts;
-    ``cfg`` in place of ``arch``'s published config (a smoke config)."""
-    cfg = load_config(arch) if cfg is None else cfg
+    ``cfg`` in place of ``arch``'s config (a smoke config). encdec / vlm
+    get their stub inputs and (vlm) nonzero gates from the seed too."""
+    cfg = config(arch) if cfg is None else cfg
     gen = torch.Generator(device=device).manual_seed(seed)
     params = M.init_params(gen, cfg, device=device)
+    set_gates(params, gen)
+    extras = cross_extras(cfg, gen)
     prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab, size=(REQUESTS, PROMPT_LEN), dtype=np.int32)
     ps = int(registry.tuning.lookup("page_gather")["page_size"])
     cache_len = -(-(PROMPT_LEN + MAX_NEW) // ps) * ps
-    return Workload(cfg, params, prompts, ps, cache_len)
+    return Workload(cfg, params, prompts, ps, cache_len, extras)
+
+
+def fixed(w: Workload) -> bool:
+    """encdec and vlm serve through ``serve_loop``'s fixed-batch loop."""
+    return w.cfg.family in M.CROSS_FAMILIES
 
 
 def paged_default(w: Workload) -> bool:
@@ -102,9 +171,47 @@ def requests(w: Workload, count: int | None = None) -> list:
 
 def run(w: Workload, count: int | None = None, **kw):
     """One engine run of the first ``count`` requests (all by default);
-    returns (tokens {rid: list}, EngineStats)."""
+    returns (tokens {rid: list}, EngineStats). encdec / vlm: one wave of
+    the first SLOTS requests through ``run_fixed``."""
+    if fixed(w):
+        return run_fixed(w, **kw)
     res, stats = engine(w, **kw).run(requests(w, count))
     return {r: v.tokens for r, v in res.items()}, stats
+
+
+def run_fixed(w: Workload, *, temperature=1.0, seed=0):
+    """The first SLOTS prompts and their stub inputs through
+    ``serve_loop``'s fixed-batch loop; returns (tokens {row: list},
+    ServeStats)."""
+    dev = w.params["embed"]["embed"].device
+    toks, stats = serve.serve_loop(
+        w.params, w.cfg, torch.from_numpy(w.prompts[:SLOTS]).to(dev),
+        max_new=MAX_NEW, cache_len=PROMPT_LEN + MAX_NEW,
+        temperature=temperature, top_k=TOP_K, top_p=TOP_P, seed=seed,
+        **w.extras)
+    return {i: row for i, row in enumerate(toks.tolist())}, stats
+
+
+def kv_bytes_per_row(cfg, cache_len: int) -> dict:
+    """Decode-cache bytes of one row: the self-attention K/V at
+    ``cache_len`` and the static cross K/V."""
+    specs = M.cache_specs(cfg, batch=1, cache_len=cache_len)
+    return {"self_kv": _spec_bytes(specs["kv"]),
+            "cross_kv": _spec_bytes(specs["xkv"])}
+
+
+def prefill_ms(w: Workload) -> dict:
+    """CUDA-event ms of the fixed loop's prefill of SLOTS rows, and of its
+    cross K/V part alone (the encoder and every decoder layer's
+    projection, or every cross layer's projection of the patches)."""
+    dev = w.params["embed"]["embed"].device
+    tok = torch.from_numpy(w.prompts[:SLOTS]).to(dev)
+    return {
+        "prefill": _event_ms(lambda: M.prefill(
+            w.params, w.cfg, tok, cache_len=PROMPT_LEN + MAX_NEW,
+            **w.extras), 3),
+        "cross_kv": _event_ms(lambda: M.cross_kv(w.params, w.cfg,
+                                                 **w.extras), 3)}
 
 
 def state_bytes_per_slot(cfg) -> int:
@@ -113,6 +220,11 @@ def state_bytes_per_slot(cfg) -> int:
     (a hybrid model's K/V, one column a group per token, is left out)."""
     specs = M.cache_specs(cfg, batch=1, cache_len=1)
     specs.pop("kv", None)
+    return _spec_bytes(specs)
+
+
+def _spec_bytes(specs) -> int:
+    """Bytes of a tree of ``cache_specs`` (shape, dtype) leaves."""
     leaves = []
     M._tree_map(leaves.append, specs)
     return sum(int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
@@ -155,9 +267,21 @@ def decode_step_inputs(w: Workload, seed: int = 0):
     PROMPT_LEN + MAX_NEW // 2. The paged path's tables run over a full
     pool of random K/V pages (a scattered permutation of page ids); the
     recurrent models' contiguous state, conv history and (zamba2) K/V
-    are random, and their table is None."""
+    are random, and their table is None; encdec / vlm: the fixed loop's
+    contiguous self and cross K/V, random, at one scalar position."""
     cfg, dev = w.cfg, w.params["embed"]["embed"].device
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    if fixed(w):
+        # the fixed loop: contiguous self K/V, random cross K/V, every
+        # row at one scalar position
+        caches = M.zero_caches(cfg, batch=SLOTS,
+                               cache_len=PROMPT_LEN + MAX_NEW, device=dev)
+        M._tree_map(lambda c: c.normal_(generator=gen), caches)
+        tok = torch.randint(0, cfg.vocab, (SLOTS, 1), generator=gen,
+                            device=dev, dtype=torch.int32)
+        keys = serve.request_keys(seed, list(range(SLOTS)), [0] * SLOTS,
+                                  dev)
+        return caches, None, tok, PROMPT_LEN + MAX_NEW // 2, keys
     if paged_default(w):
         T = w.cache_len // w.page_size
         caches = M.zero_paged_caches(cfg, num_pages=SLOTS * T,
@@ -382,7 +506,68 @@ def gather_host_us(w: Workload, inputs, calls: int = 2000) -> dict:
     return {k: per_call_us(fn, calls) for k, fn in parts.items()}
 
 
+def cross_parts(w: Workload, inputs) -> dict:
+    """An encdec / vlm decode step's parts alone, as functions to time at
+    the step's shapes: every weight product (each layer's q, k, v, o of
+    the self-attention, the cross-attention's q and o, the MLPs and the
+    head; the cross K/V are projected at prefill, not here), the
+    self-attention core of every self-attention layer, the
+    cross-attention core of every cross layer, the sampler."""
+    cfg, p = w.cfg, w.params
+    caches, _, tok, pos, keys = inputs
+    dev = tok.device
+    H, hd = cfg.n_heads, cfg.head_dim
+    x = torch.randn(SLOTS, 1, cfg.d_model, device=dev).to(cfg.dtype)
+    f = torch.randn(SLOTS, 1, cfg.d_ff, device=dev).to(cfg.dtype)
+    if cfg.family == "encdec":
+        selfs = crosses = mlps = p["layers"]
+    else:
+        selfs = [lp for g in p["layers"] for lp in g]
+        crosses = p["cross"]
+        mlps = selfs + crosses
+
+    def matmuls():
+        for lp in selfs:
+            for wt in ("wq", "wk", "wv", "wo"):
+                x @ lp["attn"][wt]
+        for lp in crosses:
+            x @ lp["xattn"]["wq"]
+            x @ lp["xattn"]["wo"]
+        for lp in mlps:
+            x @ lp["mlp"]["w_gate"]
+            x @ lp["mlp"]["w_up"]
+            f @ lp["mlp"]["w_down"]
+        x @ p["head"]["unembed"]
+
+    q = torch.randn(SLOTS, 1, H, hd, device=dev).to(cfg.dtype)
+    kv = caches["kv"]
+    sk, sv = (kv["k"][0], kv["v"][0]) if cfg.family == "encdec" \
+        else (kv["k"][0, 0], kv["v"][0, 0])
+    xk, xv = caches["xkv"]["k"][0], caches["xkv"]["v"][0]
+
+    def self_attention():
+        for _ in selfs:
+            L.blockwise_attention(q, sk, sv, causal=True, q_offset=pos)
+
+    def cross_attention():
+        for _ in crosses:
+            L.blockwise_attention(q, xk, xv, causal=False)
+
+    logits = torch.randn(SLOTS, cfg.padded_vocab(16), device=dev)
+
+    def sampler():
+        with registry.tuning.preset("sampler"):
+            serve.sample_logits(keys, logits, top_k=TOP_K, top_p=TOP_P,
+                                vocab=cfg.vocab)
+
+    return {"weight matmuls": matmuls,
+            "self-attention core": self_attention,
+            "cross-attention core": cross_attention, "sampler": sampler}
+
+
 def _parts(w: Workload, inputs) -> dict:
+    if fixed(w):
+        return cross_parts(w, inputs)
     return (parts if paged_default(w) else recurrent_parts)(w, inputs)
 
 
@@ -447,6 +632,11 @@ def breakdown(w: Workload, reps: int = 3, seed: int = 0) -> dict:
 
 
 def summary(stats) -> dict:
+    if isinstance(stats, serve.ServeStats):
+        # the fixed-batch loop: no engine, one prefill, one wave
+        return {"tokens": stats.tokens, "decode_s": stats.decode_s,
+                "tokens_per_s": stats.tokens_per_s,
+                "prefill_s": stats.prefill_s}
     tt = stats.ttft_s
     return {"tokens": stats.tokens, "steps": stats.steps,
             "decode_s": stats.decode_s, "tokens_per_s": stats.tokens_per_s,
@@ -469,7 +659,12 @@ def main() -> int:
     w = workload(args.seed, arch=args.config)
     _, stats = run(w, seed=args.seed)
     out = {"device": torch.cuda.get_device_name(0), "config": args.config,
-           "engine": summary(stats), "decode_step": breakdown(w)}
+           "engine": summary(stats)}
+    if fixed(w):
+        out["prefill_ms"] = prefill_ms(w)
+        out["kv_bytes_per_row"] = kv_bytes_per_row(
+            w.cfg, PROMPT_LEN + MAX_NEW)
+    out["decode_step"] = breakdown(w)
     print(json.dumps(out, indent=1))
     if args.out:
         with open(args.out, "w") as f:

@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port's main paths: the AK sort primitives at 2^28 float32 keys
 and SIHSort over 4 ranks on the one card (2^26 keys + int32 payload per
 rank), then the streaming and segmented primitives, then the serving path
-on full-width internlm2-1.8B, granite-moe-1b, mamba2-1.3b and zamba2-7b.
+on full-width internlm2-1.8B, granite-moe-1b, mamba2-1.3b, zamba2-7b,
+whisper-medium and llama-3.2-vision (10 of its 100 layers).
 Phases:
 
   1. environment: card name and power limit, torch / CUDA / nvcc
@@ -128,15 +129,38 @@ Phases:
      tokens/s, TTFT, prefill ms at 256 tokens, state bytes a slot; the
      CLI; and on float32 smoke models: the engine's sampled tokens equal
      a sequential one-request run, and the chunked prefill's caches a
-     token-by-token recurrence from zero.
+     token-by-token recurrence from zero;
+ 12. the encdec and vlm families through ``serve_loop``'s fixed-batch
+     loop: whisper-medium (24 encoder + 24 decoder layers, d_model 1024,
+     1536 stub frames) at full depth and llama-3.2-vision at published
+     widths and 10 of its 100 layers (2 groups of 4 dense layers and a
+     gated cross-attention layer; d_model 8192, 1664 stub patches; 100
+     layers are ~175 GB of bf16, past one card), random bf16 weights,
+     stub inputs and nonzero cross gates from the seed (the published
+     gate init of 0 would make every cross layer add nothing), 8 rows of
+     256 prompt tokens and 64 new tokens in one wave; the sampler's
+     in-block, window and mask launches per sampler call against their
+     closed forms and its portable calls (0); greedy decode logits
+     against the teacher-forced forward's (2^-4 of the largest |logit|);
+     the prompt's logits with stub and with zero cross inputs differing
+     by more than 16 times the bf16 path's own noise (the stubs carry a
+     rank-one part from the seed, so the cross softmax is not uniform);
+     the first cross layer's attention against a float32 softmax
+     attention at the phase's shapes (2^-5 of its largest |value|), and
+     that reference off a uniform softmax's output; the batched network
+     and the nucleus mask against their plain versions on the sampler's
+     inputs, their device us at the two vocabularies; tok/s, prefill ms (and its cross K/V
+     part), the decode step by CUDA events, parameters, self and cross
+     K/V bytes a row; the CLI.
 
-Last, the decode-step breakdowns of phases 7, 9 and 11 (``torch.profiler``
+Last, the decode-step breakdowns of phases 7, 9, 11 and 12 (``torch.profiler``
 device ms by kernel class, the step by CUDA events and the host clock, its
 idle share and parts), on the same seeded weights rebuilt: a profiler
 run slows every later launch on that machine.
 
-Launch counters are set to 0 just before phases 3, 4, 6, 7, 8, 9 and
-each family's engine run of phase 11, and
+Launch counters are set to 0 just before phases 3, 4, 6, 7, 8, 9, each
+family's engine run of phase 11 and each model's fixed-batch run of phase
+12, and
 before each run of the ``sort_hyper`` sweep, the tune pass and
 ``sortperm_lowmem`` of phase 10 (the ranks' own counts are read from each
 rank), and read just after; the
@@ -2023,6 +2047,176 @@ def _smoke_recurrent(arch, seed: int) -> dict:
     return out
 
 
+def run_capturing_sampler(registry, C, run, rows: int):
+    """``run()`` with the registry's stats and the launch counters set to
+    0 just before it, the ``topk`` and ``nucleus_mask`` primitives' first
+    inputs of ``rows`` rows captured; returns (run's result, wall s,
+    launches by primitive, kernel launches, registry stats, {primitive:
+    (input clone, kwargs)})."""
+    prims = {n: registry.get(n) for n in ("topk", "nucleus_mask")}
+    originals = {n: p.cuda_impl for n, p in prims.items()}
+    captured = {}
+
+    def capturing(name, impl):
+        def call(*a, **kw):
+            if name not in captured and a[0].shape[0] == rows:
+                captured[name] = (a[0].clone(), dict(kw))
+            return impl(*a, **kw)
+        return call
+
+    for n, p in prims.items():
+        p.cuda_impl = capturing(n, originals[n])
+    try:
+        registry.reset_stats()
+        torch.cuda.synchronize()
+        C.reset_launch_count()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, kern = C.launch_counts(), C.kernel_launches()
+        pstats = registry.stats()
+    finally:
+        for n, p in prims.items():
+            p.cuda_impl = originals[n]
+    return result, wall, counts, kern, pstats, captured
+
+
+def check_sampler_launches(C, label, V, samples, counts, kern, pstats
+                           ) -> dict:
+    """The sampler's launches in a run of ``samples`` calls at the padded
+    vocabulary V against their closed forms (checked): each call runs two
+    networks of one schedule (topk's and the mask's sortperm) and one
+    mask launch; ``portable_calls == 0``. Returns the closed forms."""
+    from repro_torch.kernels import nucleus_kernel as NK
+    from repro_torch.kernels import sort_kernel as SK
+
+    _, _, block = SK._geometry()
+    sched = SK.network_schedule(max(C.next_pow2(V), block),
+                                hyper=SK._hyper_order(),
+                                block=SK.inblock_tile(block, 8))
+    n_in = sum(it[0] == "inblock" for it in sched)
+    want = {("kernel", "nucleus_mask"): samples,
+            ("kernel", "bitonic_inblock"): samples * 2 * n_in,
+            ("kernel", "bitonic_window"): samples * 2 * (len(sched) - n_in),
+            ("primitive", "topk"):
+                samples * SK.cross_launches(V, elem_bytes=8),
+            ("primitive", "nucleus_mask"): samples * NK.nucleus_launches(V)}
+    for (kind, name), n in want.items():
+        got = (kern if kind == "kernel" else counts).get(name, 0)
+        check(got == n, f"{label}: {kind} {name} launched {got} times, "
+                        f"closed form {n}")
+    for name in ("topk", "nucleus_mask"):
+        check(pstats[name]["portable_calls"] == 0
+              and pstats[name]["calls"] == samples,
+              f"{label}: {name} stats {pstats[name]}")
+    return {f"{k} {n}": v for (k, n), v in want.items()}
+
+
+def greedy_vs_forward(w, label, extras=None) -> tuple[dict, torch.Tensor]:
+    """Greedy decode logits of the workload's first prompt,
+    ``GREEDY_STEPS`` steps after its prefill, against the teacher-forced
+    forward's at the same positions, and the prefill's against the
+    forward's over the prompt: each within ``BF16_LOGIT_TOL`` of the
+    forward's largest |logit| (checked). ``extras``: frames / patches of
+    one row. Returns the comparison and the prefill's logits (S, vocab)
+    in float32."""
+    from benchmarks_torch import serving as SV
+    from repro_torch.models import model as M
+
+    cfg, extras = w.cfg, extras or {}
+    prompt = torch.from_numpy(w.prompts[:1]).cuda()
+    lg, caches, _ = M.prefill(w.params, cfg, prompt, cache_len=w.cache_len,
+                              **extras)
+    toks, dec = [int(torch.argmax(lg[0, -1, :cfg.vocab]))], []
+    for i in range(GREEDY_STEPS):
+        lg1, caches = M.decode_step(
+            w.params, cfg, torch.tensor([[toks[-1]]], device="cuda",
+                                        dtype=torch.int32),
+            caches, SV.PROMPT_LEN + i)
+        dec.append(lg1[0, 0])
+        toks.append(int(torch.argmax(lg1[0, 0, :cfg.vocab])))
+    seq = torch.cat([prompt, torch.tensor([toks[:-1]], device="cuda",
+                                          dtype=torch.int32)], dim=1)
+    fl, _ = M.forward(w.params, cfg, seq, **extras)
+    want_l = fl[0, SV.PROMPT_LEN:, :cfg.vocab].float()
+    got_l = torch.stack(dec)[:, :cfg.vocab].float()
+    pre_l = lg[0, :, :cfg.vocab].float()
+    top = float(want_l.abs().max())
+    diff = float((got_l - want_l).abs().max())
+    pre = float((pre_l - fl[0, :SV.PROMPT_LEN, :cfg.vocab].float()
+                 ).abs().max())
+    out = {"steps": GREEDY_STEPS, "max_abs_diff": diff, "largest": top,
+           "share_of_tol": diff / (BF16_LOGIT_TOL * top),
+           "prefill_max_abs_diff": pre,
+           "argmax_equal": int((got_l.argmax(-1)
+                                == want_l.argmax(-1)).sum())}
+    check(diff <= BF16_LOGIT_TOL * top and pre <= BF16_LOGIT_TOL * top,
+          f"{label}: greedy decode logits off the forward's by {diff} "
+          f"(prefill {pre}; limit 2^-4 x largest {top})")
+    return out, pre_l
+
+
+def sampler_kernels(errs, captured, V, label) -> dict:
+    """The batched network and the nucleus mask against their plain
+    versions on the sampler's captured inputs of a decode batch (the
+    network bitwise, the mask equal away from the cut, counted), the
+    mask timed (one call by events, device us by queued events) beside
+    its bound, and the sampler's primitives beside ``torch.topk``.
+    Returns {"nucleus_mask", "sampler_ms"}."""
+    from benchmarks_torch.launch_path import queued_device_us
+    from repro_torch.kernels import nucleus_kernel as NK
+    from repro_torch.kernels import sort_kernel as SK
+
+    check(set(captured) == {"topk", "nucleus_mask"},
+          f"{label}: sampler calls captured {sorted(captured)}")
+    lk, kw = captured["topk"]
+    k = kw["k"]
+    tv, ti = SK.bitonic_topk_batched(lk, k)
+    ptv, pti = SK.bitonic_topk_batched(lk, k, plain=True)
+    errs.same(["bitonic_inblock", "bitonic_window"], [tv, ti], [ptv, pti],
+              f"{label}: topk of a decode batch's logits")
+    check(torch.equal(tv, torch.topk(lk, k).values),
+          f"{label}: batched topk != torch.topk")
+    lg_m, kw = captured["nucleus_mask"]
+    top_p = kw["top_p"]
+    neg, perm = NK.sorted_rows(lg_m, cuda=True)
+    pneg, pperm = NK.sorted_rows(lg_m, cuda=False)
+    errs.same(["bitonic_inblock", "bitonic_window"], [neg, perm],
+              [pneg, pperm], f"{label}: the nucleus mask's sort network")
+    got = NK.mask_kernel(neg, perm, n=V, top_p=top_p, cuda=True)
+    plain = NK.mask_kernel(neg, perm, n=V, top_p=top_p, cuda=False)
+    far = (_exclusive_cum64(neg, perm, V) - top_p).abs() >= 1e-5
+    check(torch.equal(got[far], plain[far]),
+          f"{label}: nucleus mask differs from its plain version away "
+          f"from the cut")
+    errs.record("nucleus_mask", float((got[far].int()
+                                       - plain[far].int()).abs().max()))
+    R, kept, cc = lg_m.shape[0], int(got.sum()), NK.cluster_size(V)
+    b, by = bound(R * V * 5 + 4 * kept, R * V * 3)
+    out = {"nucleus_mask": {
+        "shape": [R, V], "cluster": cc,
+        "ms": cuda_ms(lambda: NK.mask_kernel(neg, perm, n=V, top_p=top_p,
+                                             cuda=True), reps=20),
+        "device_us": queued_device_us(lambda: NK.mask_kernel(
+            neg, perm, n=V, top_p=top_p, cuda=True)),
+        "plain_ms": cuda_ms(lambda: NK.mask_kernel(
+            neg, perm, n=V, top_p=top_p, cuda=False), reps=20),
+        "bound_ms": b, "bound_by": by, "ranks_kept": kept,
+        "ranks_near_cut": int((~far).sum()),
+        "lanes_differ": int((got != plain).sum())}}
+    out["sampler_ms"] = {
+        "topk_primitive": cuda_ms(lambda: SK.bitonic_topk_batched(lk, k),
+                                  reps=10),
+        "torch_topk": cuda_ms(lambda: torch.topk(lk, k), reps=10),
+        "nucleus_mask_primitive": cuda_ms(
+            lambda: NK.nucleus_mask_blocks(lg_m, top_p=top_p), reps=10)}
+    log(f"{label}: topk and the nucleus mask (top_p {top_p}) == plain "
+        f"versions on {R} x {V} logits of a decode step: "
+        + json.dumps(out))
+    return out
+
+
 def phase_recurrent(registry, C, errs, seed: int) -> dict:
     """Phase 11: mamba2-1.3b and zamba2-7b at published widths and full
     depth (random bf16 weights from the seed) through ``Engine(paged=
@@ -2036,9 +2230,6 @@ def phase_recurrent(registry, C, errs, seed: int) -> dict:
     ``_smoke_recurrent``. Each part's seconds go to ``parts_s``; the
     decode-step breakdown runs last (``phase_breakdowns``)."""
     from benchmarks_torch import serving as SV
-    from benchmarks_torch.launch_path import queued_device_us
-    from repro_torch.kernels import nucleus_kernel as NK
-    from repro_torch.kernels import sort_kernel as SK
     from repro_torch.launch import serve
     from repro_torch.launch.engine import COMPLETED
     from repro_torch.models import model as M
@@ -2063,32 +2254,9 @@ def phase_recurrent(registry, C, errs, seed: int) -> dict:
             f"{r['init_s']:.1f} s")
 
         # the main path; capture the sampler's first full-batch inputs
-        prims = {n: registry.get(n) for n in ("topk", "nucleus_mask")}
-        originals = {n: p.cuda_impl for n, p in prims.items()}
-        captured = {}
-
-        def capturing(name, impl):
-            def call(*a, **kw):
-                if name not in captured and a[0].shape[0] == SV.SLOTS:
-                    captured[name] = (a[0].clone(), dict(kw))
-                return impl(*a, **kw)
-            return call
-
-        for n, p in prims.items():
-            p.cuda_impl = capturing(n, originals[n])
-        try:
-            registry.reset_stats()
-            torch.cuda.synchronize()
-            C.reset_launch_count()
-            t0 = time.perf_counter()
-            sampled, st = SV.run(w, seed=seed)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts, kern = C.launch_counts(), C.kernel_launches()
-            pstats = registry.stats()
-        finally:
-            for n, p in prims.items():
-                p.cuda_impl = originals[n]
+        (sampled, st), wall, counts, kern, pstats, captured = \
+            run_capturing_sampler(registry, C,
+                                  lambda: SV.run(w, seed=seed), SV.SLOTS)
         r["engine"] = dict(SV.summary(st), wall_s=wall)
         parts["engine"] = wall
         r["launches_by_primitive"] = counts
@@ -2103,24 +2271,9 @@ def phase_recurrent(registry, C, errs, seed: int) -> dict:
               f"{arch}: the engine emitted {st.tokens} tokens")
         check(all(0 <= x < cfg.vocab for t in sampled.values() for x in t),
               f"{arch}: a sampled token outside the vocabulary")
-        samples = st.steps + st.prefills   # one sampler call each
-        want = {("kernel", "nucleus_mask"): samples,
-                ("primitive", "topk"):
-                    samples * SK.cross_launches(V, elem_bytes=8),
-                ("primitive", "nucleus_mask"):
-                    samples * NK.nucleus_launches(V)}
-        for (kind, name), n in want.items():
-            got = (kern if kind == "kernel" else counts).get(name)
-            check(got == n, f"{arch}: {kind} {name} launched {got} times, "
-                            f"closed form {n}")
-        check(kern.get("bitonic_inblock", 0) > 0
-              and kern.get("bitonic_window", 0) > 0,
-              f"{arch}: the sampler's network did not launch {kern}")
-        for name in ("topk", "nucleus_mask"):
-            check(pstats[name]["portable_calls"] == 0
-                  and pstats[name]["calls"] == samples,
-                  f"{arch}: {name} stats {pstats[name]}")
-        r["closed_forms"] = {f"{k} {n}": v for (k, n), v in want.items()}
+        # one sampler call a decode step and a prefill
+        r["closed_forms"] = check_sampler_launches(
+            C, arch, V, st.steps + st.prefills, counts, kern, pstats)
         log(f"recurrent {arch}: {SV.REQUESTS} requests x {SV.MAX_NEW} "
             f"tokens, contiguous, {SV.SLOTS} slots: {st.steps} decode "
             f"steps, {st.tokens} tokens, {st.tokens_per_s:.1f} tok/s, ttft "
@@ -2144,97 +2297,22 @@ def phase_recurrent(registry, C, errs, seed: int) -> dict:
 
         # greedy decode logits against the forward's
         t0 = time.perf_counter()
-        prompt = torch.from_numpy(w.prompts[:1]).cuda()
-        lg, caches, _ = M.prefill(w.params, cfg, prompt,
-                                  cache_len=w.cache_len)
-        toks, dec = [int(torch.argmax(lg[0, -1, :cfg.vocab]))], []
-        for i in range(GREEDY_STEPS):
-            lg1, caches = M.decode_step(
-                w.params, cfg, torch.tensor([[toks[-1]]], device="cuda",
-                                            dtype=torch.int32),
-                caches, SV.PROMPT_LEN + i)
-            dec.append(lg1[0, 0])
-            toks.append(int(torch.argmax(lg1[0, 0, :cfg.vocab])))
-        seq = torch.cat([prompt, torch.tensor([toks[:-1]], device="cuda",
-                                              dtype=torch.int32)], dim=1)
-        fl, _ = M.forward(w.params, cfg, seq)
-        want_l = fl[0, SV.PROMPT_LEN:, :cfg.vocab].float()
-        got_l = torch.stack(dec)[:, :cfg.vocab].float()
-        top = float(want_l.abs().max())
-        diff = float((got_l - want_l).abs().max())
-        pre = float((lg[0, :, :cfg.vocab].float()
-                     - fl[0, :SV.PROMPT_LEN, :cfg.vocab].float()).abs().max())
-        r["greedy_vs_forward"] = {
-            "steps": GREEDY_STEPS, "max_abs_diff": diff, "largest": top,
-            "share_of_tol": diff / (BF16_LOGIT_TOL * top),
-            "prefill_max_abs_diff": pre,
-            "argmax_equal": int((got_l.argmax(-1)
-                                 == want_l.argmax(-1)).sum())}
-        check(diff <= BF16_LOGIT_TOL * top and pre <= BF16_LOGIT_TOL * top,
-              f"{arch}: greedy decode logits off the forward's by {diff} "
-              f"(prefill {pre}; limit 2^-4 x largest {top})")
+        r["greedy_vs_forward"], _ = greedy_vs_forward(w, arch)
         log(f"recurrent {arch}: greedy decode logits (prompt of "
             f"{SV.PROMPT_LEN}, {GREEDY_STEPS} steps) == forward's within "
             f"2^-4 of the largest |logit|: "
             + json.dumps(r["greedy_vs_forward"]))
-        del caches, fl, lg, lg1
         parts["greedy"] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
         # the batched network and the mask against their plain versions
         # on the sampler's inputs of a full decode batch
-        check(set(captured) == {"topk", "nucleus_mask"},
-              f"{arch}: sampler calls captured {sorted(captured)}")
-        lk, kw = captured["topk"]
-        k = kw["k"]
-        tv, ti = SK.bitonic_topk_batched(lk, k)
-        ptv, pti = SK.bitonic_topk_batched(lk, k, plain=True)
-        errs.same(["bitonic_inblock", "bitonic_window"], [tv, ti],
-                  [ptv, pti], f"{arch}: topk of a decode batch's logits")
-        check(torch.equal(tv, torch.topk(lk, k).values),
-              f"{arch}: batched topk != torch.topk")
-        lg_m, kw = captured["nucleus_mask"]
-        top_p = kw["top_p"]
-        neg, perm = NK.sorted_rows(lg_m, cuda=True)
-        pneg, pperm = NK.sorted_rows(lg_m, cuda=False)
-        errs.same(["bitonic_inblock", "bitonic_window"], [neg, perm],
-                  [pneg, pperm], f"{arch}: the nucleus mask's sort network")
-        got = NK.mask_kernel(neg, perm, n=V, top_p=top_p, cuda=True)
-        plain = NK.mask_kernel(neg, perm, n=V, top_p=top_p, cuda=False)
-        far = (_exclusive_cum64(neg, perm, V) - top_p).abs() >= 1e-5
-        check(torch.equal(got[far], plain[far]),
-              f"{arch}: nucleus mask differs from its plain version away "
-              f"from the cut")
-        errs.record("nucleus_mask", float((got[far].int()
-                                           - plain[far].int()).abs().max()))
-        R, kept, cc = lg_m.shape[0], int(got.sum()), NK.cluster_size(V)
-        b, by = bound(R * V * 5 + 4 * kept, R * V * 3)
-        r["nucleus_mask"] = {
-            "shape": [R, V], "cluster": cc,
-            "ms": cuda_ms(lambda: NK.mask_kernel(neg, perm, n=V,
-                                                 top_p=top_p, cuda=True),
-                          reps=20),
-            "device_us": queued_device_us(lambda: NK.mask_kernel(
-                neg, perm, n=V, top_p=top_p, cuda=True)),
-            "plain_ms": cuda_ms(lambda: NK.mask_kernel(
-                neg, perm, n=V, top_p=top_p, cuda=False), reps=20),
-            "bound_ms": b, "bound_by": by, "ranks_kept": kept,
-            "ranks_near_cut": int((~far).sum()),
-            "lanes_differ": int((got != plain).sum())}
-        r["sampler_ms"] = {
-            "topk_primitive": cuda_ms(lambda: SK.bitonic_topk_batched(lk, k),
-                                      reps=10),
-            "torch_topk": cuda_ms(lambda: torch.topk(lk, k), reps=10),
-            "nucleus_mask_primitive": cuda_ms(
-                lambda: NK.nucleus_mask_blocks(lg_m, top_p=top_p), reps=10)}
-        log(f"recurrent {arch}: topk and the nucleus mask (top_p {top_p}) "
-            f"== plain versions on {R} x {V} logits of a decode step: "
-            + json.dumps({"nucleus_mask": r["nucleus_mask"],
-                          "sampler_ms": r["sampler_ms"]}))
-        del lk, lg_m, neg, perm, pneg, pperm, got, plain, far, captured
+        r.update(sampler_kernels(errs, captured, V, f"recurrent {arch}"))
+        del captured
         parts["sampler_kernels"] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
+        prompt = torch.from_numpy(w.prompts[:1]).cuda()
         r["prefill_ms_256"] = cuda_ms(lambda: M.prefill(
             w.params, cfg, prompt, cache_len=w.cache_len), reps=3)
         log(f"recurrent {arch}: prefill of {SV.PROMPT_LEN} tokens "
@@ -2256,20 +2334,292 @@ def phase_recurrent(registry, C, errs, seed: int) -> dict:
     return out
 
 
-# the decode-step breakdowns of phases 7, 9 and 11: the model, the report
-# entry that takes each, and its label in the log
+CROSS_ARCHS = ("whisper_medium", "llama32_vision_90b")
+# the prompt's logits with the stub and with zero cross inputs differ by
+# more than this many times the bf16 path's own noise (the largest of
+# decode against forward and prefill against forward on one input); the
+# stubs' rank-one part (``serving.cross_extras``) gives the cross path its
+# weight: without it llama-3.2-vision's cross softmax is near uniform
+CROSS_OVER_NOISE = 16
+# one cross layer's attention output (before its gate) on the card against
+# a float32 softmax attention written out here, at the phase's shapes:
+# |diff| <= 2^-5 of the reference's largest |value|, and the reference off
+# a uniform softmax's output by more than CROSS_SHAPE_OVER_ERR x that diff
+CROSS_LAYER_TOL = 2 ** -5
+CROSS_SHAPE_OVER_ERR = 16
+
+
+def network_device_us(SK, C, keys2d, k: int) -> dict:
+    """Device us of the batched network ``ak.topk`` runs over the rows
+    ``keys2d`` (R, n): keys and an int32 payload, tie-break on, padded to
+    ``total`` a row. CUDA events around calls queued behind a sleep
+    (``queued_device_us``): the whole network on a fresh copy of its
+    padded input, less the copy; each in-block launch in place (its time
+    does not depend on the keys); the window launches are the rest. The
+    bounds: the topk function (each key read once, k values and indices
+    a row written once), and each kernel's launches reading and writing
+    the padded keys and payload once a launch."""
+    from benchmarks_torch.launch_path import queued_device_us
+
+    _, _, block = SK._geometry()
+    R, n = keys2d.shape
+    total = max(C.next_pow2(n), block)
+    kp = SK._padded(keys2d, total, C.type_max(keys2d.dtype))
+    vp = SK._padded(SK._iota_rows(keys2d, reverse=True), total,
+                    C.type_max(torch.int32))
+    kw, vw = torch.empty_like(kp), torch.empty_like(vp)
+
+    def fresh():
+        kw.copy_(kp)
+        vw.copy_(vp)
+
+    copy_us = queued_device_us(fresh)
+    net_us = queued_device_us(lambda: (fresh(), SK._sort_network(
+        kw, vw, total, True, block=block, cuda=True))) - copy_us
+    tile = SK.inblock_tile(block, 8)
+    sched = SK.network_schedule(total, hyper=SK._hyper_order(), block=tile)
+    inblock = [it for it in sched if it[0] == "inblock"]
+    in_us = sum(queued_device_us(
+        lambda it=it: SK._run_inblock(kw, vw, it[1], it[2], tile, True,
+                                      True, total)) for it in inblock)
+    nb = R * total * 8
+    out = {"shape": [R, n], "total": total, "tile": tile,
+           "network_us": net_us, "copy_us": copy_us}
+    out["bound_ms"], out["bound_by"] = bound(R * n * 4 + R * k * 8, 0)
+    for name, count, us in (
+            ("bitonic_inblock", len(inblock), in_us),
+            ("bitonic_window", len(sched) - len(inblock), net_us - in_us)):
+        b, by = bound(count * 2 * nb, 0)
+        out[name] = {"launches": count, "device_us": us, "bound_ms": b,
+                     "bound_by": by}
+    return out
+
+
+def cross_layer_check(w, arch: str, seed: int) -> dict:
+    """The first cross layer's attention (``transformer._cross_attend``,
+    bf16, the path's own code) on SLOTS rows of PROMPT_LEN N(0, 1) queries
+    against the phase's own cross source (the encoder's output over the
+    stub frames, or the stub patches), held to a float32 softmax
+    attention written out here on the same bf16 weights and source, and
+    that reference to the output of a uniform softmax (checked): a
+    wrong scale, softmax or V shows in the first, a cross path whose
+    scores carry nothing in the second."""
+    from benchmarks_torch import serving as SV
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    cfg, p = w.cfg, w.params
+    if cfg.family == "encdec":
+        src, pa = M._encode(p, cfg, w.extras["frames"], 1024), \
+            p["layers"][0]["xattn"]
+    else:
+        src, pa = w.extras["patches"], p["cross"][0]["xattn"]
+    gen = torch.Generator(device=src.device).manual_seed(seed + 12)
+    z = torch.randn((SV.SLOTS, SV.PROMPT_LEN, cfg.d_model), generator=gen,
+                    device=src.device).to(cfg.dtype)
+    got = T._cross_attend(pa, cfg, z, T.project_cross_kv(pa, cfg, src),
+                          1024).float()
+    B, Sq, Sk = z.shape[0], z.shape[1], src.shape[1]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    f = {n: t.float() for n, t in pa.items()}
+    q = (z.float() @ f["wq"]).view(B, Sq, KV, H // KV, hd)
+    k = (src.float() @ f["wk"]).view(B, Sk, KV, hd)
+    v = (src.float() @ f["wv"]).view(B, Sk, KV, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", q, k) / math.sqrt(hd)
+    del q, k
+
+    def out(probs):
+        o = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+        return o.reshape(B, Sq, H * hd) @ f["wo"]
+
+    ref = out(torch.softmax(s, dim=-1))
+    uni = out(torch.full_like(s, 1.0 / Sk))
+    top = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    shape = float((ref - uni).abs().max())
+    res = {"rows": B, "queries": Sq, "keys": Sk, "largest": top,
+           "max_abs_err": err, "share_of_tol": err / (CROSS_LAYER_TOL * top),
+           "ref_vs_uniform_max_abs_diff": shape,
+           "ref_vs_uniform_over_err": shape / err if err else None,
+           "uniform_largest": float(uni.abs().max())}
+    check(err <= CROSS_LAYER_TOL * top,
+          f"{arch}: the cross layer's attention off a float32 softmax "
+          f"attention by {err} (limit 2^-5 x largest {top})")
+    check(shape > CROSS_SHAPE_OVER_ERR * err,
+          f"{arch}: the cross layer's float32 reference off a uniform "
+          f"softmax's output by {shape}, not {CROSS_SHAPE_OVER_ERR} x the "
+          f"card's error {err}")
+    return res
+
+
+def phase_cross(registry, C, errs, seed: int) -> dict:
+    """Phase 12: whisper-medium (24 encoder + 24 decoder layers) and
+    llama-3.2-vision at 10 of its 100 layers, at published widths with
+    random bf16 weights, stub frames / patches and (vlm) nonzero gates
+    from the seed, through ``serve_loop``'s fixed-batch loop: 8 rows of
+    256 prompt tokens and 64 new tokens (top-k 16, top-p 0.95), the
+    launch counters set to 0 just before each run. Checks the sampler's
+    launches of the in-block, window and mask kernels against their
+    closed forms per sampler call and ``portable_calls == 0``; greedy
+    decode logits against the teacher-forced forward's; that the cross
+    input matters (stub against zero frames / patches); the first cross
+    layer's attention against a float32 softmax attention; the batched
+    network and the nucleus mask against their plain versions on the
+    sampler's captured logits; the CLI. Reports tok/s, prefill ms (and
+    its cross K/V part), the decode step by CUDA events, parameters, the
+    self and cross K/V bytes a row, and the network's and the mask's
+    device us at the two vocabularies."""
+    from benchmarks_torch import serving as SV
+    from repro_torch.kernels import sort_kernel as SK
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    out = {"kernel_launches": {}}
+    for arch in CROSS_ARCHS:
+        t_arch = time.perf_counter()
+        r = out[arch] = {}
+        parts = r["parts_s"] = {}
+        t0 = time.perf_counter()
+        w = SV.workload(seed, arch=arch)
+        torch.cuda.synchronize()
+        cfg = w.cfg
+        V = cfg.padded_vocab(16)
+        r["params"] = M.param_count(w.params)
+        r["layers"] = {"decoder": cfg.n_layers,
+                       "published": SV.load_config(arch).n_layers,
+                       "encoder": cfg.n_enc_layers}
+        r["kv_bytes_per_row"] = SV.kv_bytes_per_row(
+            cfg, SV.PROMPT_LEN + SV.MAX_NEW)
+        r["gates"] = [[float(pc["gate_attn"]), float(pc["gate_mlp"])]
+                      for pc in w.params.get("cross", ())]
+        parts["init"] = time.perf_counter() - t0
+        log(f"cross {arch}: {cfg.n_layers} decoder layers (published "
+            f"{r['layers']['published']}), {cfg.n_enc_layers} encoder "
+            f"layers, d {cfg.d_model}, {r['params']} parameters (random "
+            f"bf16, seed {seed}), vocab {cfg.vocab} padded to {V}; K/V "
+            f"bytes a row {r['kv_bytes_per_row']}; gates {r['gates']}; "
+            f"init {parts['init']:.1f} s")
+
+        # the main path; capture the sampler's first full-batch inputs
+        (sampled, st), wall, counts, kern, pstats, captured = \
+            run_capturing_sampler(registry, C,
+                                  lambda: SV.run(w, seed=seed), SV.SLOTS)
+        r["serve"] = dict(SV.summary(st), wall_s=wall)
+        parts["serve_loop"] = wall
+        r["launches_by_primitive"] = counts
+        r["kernel_launches"] = kern
+        r["registry_stats"] = {n: s for n, s in pstats.items()
+                               if s["calls"]}
+        for name, n in kern.items():
+            out["kernel_launches"][name] = (
+                out["kernel_launches"].get(name, 0) + n)
+        check(st.tokens == SV.SLOTS * SV.MAX_NEW
+              and len(sampled) == SV.SLOTS
+              and all(len(t) == SV.MAX_NEW for t in sampled.values()),
+              f"{arch}: the fixed loop emitted {st.tokens} tokens")
+        check(all(0 <= x < cfg.vocab for t in sampled.values() for x in t),
+              f"{arch}: a sampled token outside the vocabulary")
+        # one sampler call a token
+        r["closed_forms"] = check_sampler_launches(
+            C, arch, V, SV.MAX_NEW, counts, kern, pstats)
+        log(f"cross {arch}: {SV.SLOTS} rows x {SV.MAX_NEW} tokens through "
+            f"the fixed-batch loop: {st.tokens} tokens, "
+            f"{st.tokens_per_s:.1f} tok/s, prefill "
+            f"{st.prefill_s * 1e3:.1f} ms (host clock, first call); "
+            f"kernel launches {kern} == closed forms "
+            + json.dumps(r["closed_forms"]) + "; registry stats "
+            + json.dumps(r["registry_stats"]))
+
+        # greedy decode logits against the teacher-forced forward's, and
+        # the cross input's weight in them
+        t0 = time.perf_counter()
+        one = {k: v[:1] for k, v in w.extras.items()}
+        g, pre_l = greedy_vs_forward(w, arch, one)
+        prompt = torch.from_numpy(w.prompts[:1]).cuda()
+        zero = {k: torch.zeros_like(v) for k, v in one.items()}
+        lz, _, _ = M.prefill(w.params, cfg, prompt, cache_len=w.cache_len,
+                             **zero)
+        cross = float((lz[0, :, :cfg.vocab].float() - pre_l).abs().max())
+        # the bf16 path's own noise: decode against forward, and prefill
+        # against forward, on the same inputs
+        noise = max(g["max_abs_diff"], g["prefill_max_abs_diff"])
+        r["greedy_vs_forward"] = dict(
+            g, stub_vs_zero_cross_input_max_abs_diff=cross,
+            cross_over_noise=cross / noise if noise else None)
+        check(cross > CROSS_OVER_NOISE * noise and cross > 0,
+              f"{arch}: the prompt's logits with the stub and with zero "
+              f"cross inputs differ by {cross}, not {CROSS_OVER_NOISE} x "
+              f"the bf16 path's own noise {noise}: the cross path adds "
+              f"nothing that shows")
+        log(f"cross {arch}: greedy decode logits (prompt of "
+            f"{SV.PROMPT_LEN}, {GREEDY_STEPS} steps) == forward's within "
+            f"2^-4 of the largest |logit|; stub and zero cross inputs "
+            f"differ by more than {CROSS_OVER_NOISE} x that path's noise: "
+            + json.dumps(r["greedy_vs_forward"]))
+        del lz, pre_l
+        r["cross_layer"] = cross_layer_check(w, arch, seed)
+        log(f"cross {arch}: the first cross layer's attention == a "
+            f"float32 softmax attention within 2^-5 of its largest |value|,"
+            f" and off a uniform softmax's by more than "
+            f"{CROSS_SHAPE_OVER_ERR} x that error: "
+            + json.dumps(r["cross_layer"]))
+        parts["greedy"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        # the batched network and the mask against their plain versions
+        # on the sampler's inputs of the first full batch
+        r.update(sampler_kernels(errs, captured, V, f"cross {arch}"))
+        lk, kw = captured["topk"]
+        r["network"] = network_device_us(SK, C, lk, kw["k"])
+        log(f"cross {arch}: the topk network's device us by kernel: "
+            + json.dumps(r["network"]))
+        del lk, captured
+        parts["sampler_kernels"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        # prefill and one decode step by CUDA events
+        r["prefill_ms"] = SV.prefill_ms(w)
+        inputs = SV.decode_step_inputs(w, seed)
+        r["decode_step_ms"] = SV._event_ms(lambda: SV.decode_step(w,
+                                                                  inputs))
+        del inputs
+        log(f"cross {arch}: prefill of {SV.SLOTS} x {SV.PROMPT_LEN} tokens "
+            f"{r['prefill_ms']['prefill']:.2f} ms, of which the cross K/V "
+            f"{r['prefill_ms']['cross_kv']:.2f} ms; one decode step + "
+            f"sampler {r['decode_step_ms']:.2f} ms (CUDA events)")
+        parts["timing"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        toks, cst = serve.main(["--device", "cuda", "--config", arch,
+                                "--slots", "4"])
+        check(tuple(toks.shape) == (4, 32) and cst.tokens == 4 * 32
+              and toks.is_cuda, f"serve CLI ({arch}) emitted "
+                                f"{tuple(toks.shape)}")
+        parts["cli"] = time.perf_counter() - t0
+        del w, prompt, one, zero
+        torch.cuda.empty_cache()
+        r["phase_s"] = time.perf_counter() - t_arch
+        log(f"cross {arch}: done in {r['phase_s']:.1f} s; seconds by part "
+            + json.dumps(parts))
+    return out
+
+
+# the decode-step breakdowns of phases 7, 9, 11 and 12: the model, the
+# report entry that takes each, and its label in the log
 BREAKDOWNS = (("internlm2_1_8b", ("serving",), "serve: one paged decode "
                "step + sampler"),
               ("granite_moe_1b", ("serving_moe",), "moe serve: one paged "
                "decode step + sampler"),
               *((arch, ("recurrent", arch), f"recurrent {arch}: one "
                  f"contiguous decode step + sampler")
-                for arch in RECURRENT_ARCHS))
+                for arch in RECURRENT_ARCHS),
+              *((arch, ("cross", arch), f"cross {arch}: one fixed-batch "
+                 f"decode step + sampler") for arch in CROSS_ARCHS))
 
 
 def phase_breakdowns(report, seed: int) -> None:
     """Where one decode step's time goes, for each served model (phases 7,
-    9 and 11; ``benchmarks_torch/serving.py``): the step and its parts by
+    9, 11 and 12; ``benchmarks_torch/serving.py``): the step and its parts by
     CUDA events for every model first, then device ms by kernel class
     from ``torch.profiler``, and the idle share (1 - device ms / the
     step's event ms). Run after every other phase, on the same seeded
@@ -2720,9 +3070,31 @@ def main() -> int:
             "shape", "cluster", "ms", "device_us", "plain_ms", "bound_ms",
             "bound_by", "ranks_kept")}
     log(f"phase 11 done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 12. the encdec and vlm families through the fixed-batch loop -----
+    t0 = time.perf_counter()
+    cross = phase_cross(registry, C, errs, args.seed)
+    report["cross"] = cross
+    for name, n in cross["kernel_launches"].items():
+        main_kernels[name] = main_kernels.get(name, 0) + n
+    for k in kernels:  # the sampler's kernels' launches include phase 12
+        k["launches"] = main_kernels[k["name"]]
+        k["max_abs_err"] = errs.err[k["name"]]
+    for arch in CROSS_ARCHS:  # the sampler's kernels at both vocabularies
+        mask_row[arch] = {f: cross[arch]["nucleus_mask"][f] for f in (
+            "shape", "cluster", "ms", "device_us", "plain_ms", "bound_ms",
+            "bound_by", "ranks_kept")}
+        net = cross[arch]["network"]
+        for k in kernels:
+            if k["name"] in ("bitonic_inblock", "bitonic_window"):
+                k[arch] = dict(net[k["name"]], shape=net["shape"],
+                               total=net["total"],
+                               network_us=net["network_us"],
+                               topk_bound_ms=net["bound_ms"])
+    log(f"phase 12 done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_breakdowns(report, args.seed)
-    log(f"decode-step breakdowns of phases 7, 9 and 11 done in "
+    log(f"decode-step breakdowns of phases 7, 9, 11 and 12 done in "
         f"{time.perf_counter() - t0:.1f} s")
     for k in kernels:  # the new kernels' registers and spills
         summary = ptxas_summary(ptx, k["name"])

@@ -80,10 +80,10 @@ class ModelConfig:
         return -(-self.vocab // q) * q
 
 
-#: Architectures of the port so far; the others wait for their families.
+#: Architectures of the port: all ten of the reference's.
 ARCH_IDS = ["internlm2_1_8b", "glm4_9b", "yi_34b", "deepseek_67b",
             "granite_moe_1b", "deepseek_moe_16b", "mamba2_1_3b",
-            "zamba2_7b"]
+            "zamba2_7b", "whisper_medium", "llama32_vision_90b"]
 
 
 def _module(arch: str):

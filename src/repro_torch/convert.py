@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models import model as M
+
 
 def _is_bfloat16(dtype: np.dtype) -> bool:
     return dtype.name == "bfloat16"
@@ -20,11 +22,11 @@ def _is_bfloat16(dtype: np.dtype) -> bool:
 def to_torch(a, device="cpu") -> torch.Tensor:
     """A numpy (or array-like) value as a tensor of the same dtype on
     ``device``."""
-    a = np.asarray(a)
+    a = np.array(a, order="C")  # a C-contiguous copy; 0-d stays 0-d
     if _is_bfloat16(a.dtype):
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        t = torch.from_numpy(a.view(np.uint16))
         return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -46,12 +48,11 @@ def params_from_jax(params_np, cfg, device="cuda"):
     weights, router and shared experts included; deepseek-moe's dense
     ``layer0`` is not stacked and stays one dict). A hybrid model's
     (G, gs, ...) ``layers`` become G lists of gs dicts, its ``tail`` a
-    list of dicts (None when empty) and ``shared`` one dict. Dense, moe,
-    ssm and hybrid families, as the port's model."""
+    list of dicts (None when empty) and ``shared`` one dict. An encdec
+    model's ``enc_layers`` and ``layers`` become lists of dicts; a vlm
+    model's (G, gs, ...) ``layers`` G lists of gs dicts and its (G, ...)
+    ``cross`` a list of G dicts. Every family, as the port's model."""
     fam = cfg.family
-    if fam not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {fam!r} is not ported yet")
 
     def tree(node, pick=None):
         if isinstance(node, dict):
@@ -59,18 +60,24 @@ def params_from_jax(params_np, cfg, device="cuda"):
         a = np.asarray(node)
         return to_torch(a if pick is None else a[pick], device)
 
-    stacked = ("layers", "tail")
+    stacked = ("layers", "tail", "enc_layers", "cross")
     out = {k: tree(v) for k, v in params_np.items() if k not in stacked}
     layers = params_np["layers"]
-    if fam == "hybrid":
-        gs = cfg.hybrid_attn_every
-        G = cfg.n_layers // gs
+    if fam in ("hybrid", "vlm"):
+        if fam == "hybrid":
+            G, gs, n_tail = M._hybrid_shape(cfg)
+            tail = params_np["tail"]
+            out["tail"] = None if tail is None else [
+                tree(tail, i) for i in range(n_tail)]
+        else:
+            G, gs = M._vlm_shape(cfg)
+            out["cross"] = [tree(params_np["cross"], g) for g in range(G)]
         out["layers"] = [[tree(layers, (g, j)) for j in range(gs)]
                          for g in range(G)]
-        tail = params_np["tail"]
-        out["tail"] = None if tail is None else [
-            tree(tail, i) for i in range(cfg.n_layers - G * gs)]
         return out
+    if fam == "encdec":
+        out["enc_layers"] = [tree(params_np["enc_layers"], i)
+                             for i in range(cfg.n_enc_layers)]
     n = cfg.n_layers - int(fam == "moe" and cfg.first_layer_dense)
     out["layers"] = [tree(layers, i) for i in range(n)]
     return out

@@ -89,7 +89,8 @@ from repro_torch.runtime.supervisor import (
 )
 
 #: Families the slot scheduler supports (per-slot positions + slot-indexed
-#: cache refill), as in the reference; encdec and vlm wait for their slice.
+#: cache refill), as in the reference; encdec and vlm serve through
+#: ``serve.serve_loop``'s fixed-batch loop.
 ENGINE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 # -- request status lifecycle (RequestResult.status) -------------------------

@@ -1,5 +1,9 @@
 """Serving entry point — a thin CLI over the continuous-batching engine
-(counterpart of ``repro/launch/serve.py``).
+(counterpart of ``repro/launch/serve.py``). ``serve_loop`` hands the
+engine's families to the engine and keeps a fixed-batch loop for encdec
+and vlm (and for any call given ``frames=`` / ``patches=``): one prefill
+that projects the cross K/V, then one decode step a token at a shared
+scalar position, no EOS and no refill, as in the reference.
 
 The sampler is built from the paper's primitives — "sorting is the hot
 path of real applications" made executable:
@@ -20,6 +24,10 @@ rides in, on every device. It cannot reproduce ``jax.random``'s bits.
 
     python -m repro_torch.launch.serve [--config ARCH] [--device cuda|cpu]
         [--paged] ...
+
+``--config whisper_medium`` / ``llama32_vision_90b`` serve the smoke
+config through the fixed-batch loop, ``--slots`` rows at once, with zero
+frames / patches.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import argparse
 import contextlib
 import dataclasses
 import operator
+import time
 
 import numpy as np
 import torch
@@ -34,7 +43,7 @@ import torch
 from repro_torch import core as ak
 from repro_torch.core import registry
 from repro_torch.kernels.common import NEG_MASK
-from repro_torch.launch.engine import ENGINE_FAMILIES, Engine, Request
+from repro_torch.launch.engine import ENGINE_FAMILIES, Engine, Request, _sync
 from repro_torch.models import model as M
 
 # Registry tuning for the decode-step sampler: rows shorter than 4096 run on
@@ -151,23 +160,30 @@ class ServeStats:
 
 def serve_loop(params, cfg, prompts, *, max_new: int = 32, cache_len: int,
                temperature=1.0, top_k=0, top_p=1.0, seed=0, eos_id=None,
-               ak_tuning=None, fused=True, paged=False, page_size=None,
-               num_pages=None, preempt=False, queue_cap=None, deadline=None,
-               chaos=None):
+               frames=None, patches=None, ak_tuning=None, fused=True,
+               paged=False, page_size=None, num_pages=None, preempt=False,
+               queue_cap=None, deadline=None, chaos=None):
     """prompts: (B, S_prompt) int32. Returns (generated (B, max_new) int32
     on the parameters' device, stats).
 
-    One engine slot per prompt row; a sequence that stops early at
-    ``eos_id`` pads its output row with ``eos_id`` and stops counting.
-    ``paged``/``page_size``/``num_pages``, ``preempt``, ``deadline``,
-    ``queue_cap`` and ``chaos`` (a fault-plan seed) as in the engine and
-    the reference (DESIGN.md §8a, §9). Families the engine does not
-    schedule yet raise ``NotImplementedError``.
+    The engine's families: one engine slot per prompt row; a sequence
+    that stops early at ``eos_id`` pads its output row with ``eos_id`` and
+    stops counting. ``paged``/``page_size``/``num_pages``, ``preempt``,
+    ``deadline``, ``queue_cap`` and ``chaos`` (a fault-plan seed) as in the
+    engine and the reference (DESIGN.md §8a, §9). encdec / vlm, or any
+    call with ``frames`` (B, enc_seq, d) / ``patches`` (B, vision_seq, d),
+    take the fixed-batch loop (``_serve_loop_fixed``), which ignores
+    ``eos_id`` and the engine's options.
     """
-    if cfg.family not in ENGINE_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (serving: "
-            f"{ENGINE_FAMILIES})")
+    if cfg.family not in ENGINE_FAMILIES or frames is not None \
+            or patches is not None:
+        scope = (registry.tuning.preset("sampler") if ak_tuning is None
+                 else registry.tuning.overrides(ak_tuning))
+        with scope:
+            return _serve_loop_fixed(
+                params, cfg, prompts, max_new=max_new, cache_len=cache_len,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                seed=seed, frames=frames, patches=patches, fused=fused)
     B, S = prompts.shape
     sup = None
     if chaos is not None:
@@ -205,6 +221,45 @@ def serve_loop(params, cfg, prompts, *, max_new: int = 32, cache_len: int,
     )
 
 
+def _serve_loop_fixed(params, cfg, prompts, *, max_new, cache_len,
+                      temperature, top_k, top_p, seed, frames, patches,
+                      fused):
+    """The fixed-batch loop (encdec / vlm): prefill (the cross K/V
+    projected once), then ``decode_step`` at the shared position ``S +
+    step``; no EOS, no refill. Row b's token i is sampled with
+    ``request_keys(seed, b, i)``, the key the engine gives request b's
+    token i, so a row samples what the engine would sample from the same
+    logits. Returns (tokens (B, max_new) int32, ServeStats)."""
+    dev = params["embed"]["embed"].device
+    prompts = torch.as_tensor(np.asarray(
+        prompts.cpu() if isinstance(prompts, torch.Tensor) else prompts,
+        np.int32), device=dev)
+    B, S = prompts.shape
+    rows = list(range(B))
+
+    def sample(step, lg):
+        return sample_logits(request_keys(seed, rows, [step] * B, dev), lg,
+                             temperature=temperature, top_k=top_k,
+                             top_p=top_p, vocab=cfg.vocab, fused=fused)
+
+    t0 = time.perf_counter()
+    logits, caches, pos = M.prefill(params, cfg, prompts,
+                                    cache_len=cache_len, frames=frames,
+                                    patches=patches)
+    _sync(logits)
+    t1 = time.perf_counter()
+    out = [sample(0, logits[:, -1])]
+    for step in range(max_new - 1):
+        logits, caches = M.decode_step(params, cfg, out[-1][:, None],
+                                       caches, pos + step)
+        out.append(sample(step + 1, logits[:, 0]))
+    toks = torch.stack(out, dim=1)
+    _sync(toks)
+    t2 = time.perf_counter()
+    return toks, ServeStats(prefill_s=t1 - t0, decode_s=t2 - t1,
+                            tokens=B * max_new)
+
+
 def main(argv=None):
     from repro_torch.configs import load_smoke_config
 
@@ -213,7 +268,8 @@ def main(argv=None):
                     default="internlm2_1_8b",
                     help="architecture whose smoke config is served "
                          "(internlm2_1_8b, granite_moe_1b, "
-                         "deepseek_moe_16b, mamba2_1_3b, zamba2_7b, ...)")
+                         "deepseek_moe_16b, mamba2_1_3b, zamba2_7b, "
+                         "whisper_medium, llama32_vision_90b, ...)")
     ap.add_argument("--device", default="cuda",
                     help="device to serve on (default: the card; 'cpu' "
                          "runs the plain versions of the kernels)")
@@ -260,14 +316,43 @@ def main(argv=None):
     if args.trace:
         telemetry.enable()
 
+    def export_obs():
+        if args.trace:
+            doc = telemetry.export(args.trace)
+            telemetry.disable()
+            print(f"trace: {len(doc['traceEvents'])} events -> "
+                  f"{args.trace}")
+        if args.metrics:
+            metrics.write(args.metrics)
+            print(f"metrics: snapshot -> {args.metrics}")
+
     cfg = load_smoke_config(args.arch)
-    if cfg.family not in ENGINE_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet")
     gen = torch.Generator(device=args.device).manual_seed(0)
     params = M.init_params(gen, cfg, device=args.device)
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab, size=(args.requests, args.prompt_len), dtype=np.int32)
+
+    if cfg.family not in ENGINE_FAMILIES:
+        # encdec / vlm: the fixed-batch loop over the first ``slots``
+        # prompts, with zero frames / patches (the stub front ends)
+        extras = {}
+        if cfg.family == "encdec":
+            extras["frames"] = torch.zeros(
+                (args.slots, cfg.enc_seq, cfg.d_model), dtype=cfg.dtype,
+                device=args.device)
+        else:
+            extras["patches"] = torch.zeros(
+                (args.slots, cfg.vision_seq, cfg.d_model), dtype=cfg.dtype,
+                device=args.device)
+        toks, stats = serve_loop(
+            params, cfg, prompts[:args.slots], max_new=args.max_new,
+            cache_len=args.prompt_len + args.max_new, top_k=args.top_k,
+            top_p=args.top_p, fused=not args.unfused, **extras)
+        print(f"generated {tuple(toks.shape)} tokens ({toks.device}); "
+              f"prefill {stats.prefill_s:.3f}s; decode "
+              f"{stats.tokens_per_s:.1f} tok/s")
+        export_obs()
+        return toks, stats
 
     cache_len = args.prompt_len + args.max_new
     if args.paged:
@@ -337,13 +422,7 @@ def main(argv=None):
             f"resumes={stats.resumes} retries={stats.step_retries} "
             f"rejections={stats.rejections} timeouts={stats.timeouts}"
         )
-    if args.trace:
-        doc = telemetry.export(args.trace)
-        telemetry.disable()
-        print(f"trace: {len(doc['traceEvents'])} events -> {args.trace}")
-    if args.metrics:
-        metrics.write(args.metrics)
-        print(f"metrics: snapshot -> {args.metrics}")
+    export_obs()
     return results, stats
 
 

@@ -1,13 +1,12 @@
-"""Transformer layers of the dense family: RMSNorm, RoPE, GQA attention
-over contiguous, per-slot and paged KV caches, SwiGLU, embedding and head
+"""Transformer layers: RMSNorm, RoPE, GQA self-attention over contiguous,
+per-slot and paged KV caches, blockwise attention, SwiGLU, embedding and head
 (counterpart of ``repro/models/layers.py``).
 
 Parameters are plain dicts of tensors, as in the reference. The large
 products are ``torch.matmul``, which the JAX package also left to its
 compiler; the one kernel on this path is the paged cache's gather, reached
 through the ``page_gather`` registry primitive. The reference's sharding
-hooks are the identity on one device and are left out, as is its
-cross-attention (encdec/vlm families, a later slice).
+hooks are the identity on one device and are left out.
 
 Caches are written IN PLACE (the reference's functional ``.at[].set`` on
 donated buffers): ``attention_apply`` returns the same cache dict it was
@@ -170,6 +169,8 @@ def attention_apply(p, cfg, x, *, positions, causal=True, cache=None,
                     cache_index=None, block_table=None, page_size=None,
                     chunk=1024):
     """Self-attention with an optional KV cache; returns (out, cache).
+    Cross-attention is ``transformer._cross_attend`` over K/V projected by
+    ``transformer.project_cross_kv``.
 
     ``cache``: dict(k=(B, S_cache, KV, hd), v=...), written at
     ``cache_index`` (a scalar: every row at one position, or a (B,)

@@ -1,6 +1,6 @@
-"""Top-level model of the dense, moe, ssm and hybrid families: init,
-forward, prefill, decode step, contiguous and paged caches (counterpart
-of ``repro/models/model.py``).
+"""Top-level model of all six families: init, forward, prefill, decode
+step, contiguous and paged caches (counterpart of
+``repro/models/model.py``).
 
 Parameters are a plain dict of tensors on one device; the reference's
 stacked (L, ...) layer leaves are a list of per-layer dicts here (a
@@ -21,8 +21,17 @@ block (``params["shared"]``) with that group's own K/V cache, then a
 tail of ``n_layers - G * gs`` Mamba2 layers (``params["tail"]``, None
 when empty).
 
-The encdec and vlm families raise ``NotImplementedError``: they come
-with a later slice of the port.
+An encdec model (whisper) runs an encoder of ``n_enc_layers`` dense
+non-causal layers (``params["enc_layers"]``) over the caller's frame
+embeddings plus sinusoidal positions, with RoPE at the frame positions
+and no final norm; each decoder layer (``params["layers"]``) adds
+cross-attention to the encoder's output. A vlm model (llama-3.2-vision)
+runs G groups of gs dense layers (``params["layers"]``, G lists of gs
+dicts), each group followed by one gated cross-attention layer
+(``params["cross"]``, G dicts) over the caller's patch embeddings. Both
+serve from a contiguous cache: the self-attention ``kv`` and the static
+cross K/V ``xkv``, projected once at prefill (``frames=`` /
+``patches=``) and read by every decode step. Neither pages.
 """
 from __future__ import annotations
 
@@ -34,24 +43,27 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 TP_DEFAULT = 16
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 #: Families whose decode cache is attention K/V alone (padded prompts,
-#: paged pools); the others carry recurrent state.
+#: paged pools); the others carry recurrent state or cross K/V.
 ATTENTION_FAMILIES = ("dense", "moe")
+#: Families that attend to a second input (frames / patches) through a
+#: static cross K/V cache.
+CROSS_FAMILIES = ("encdec", "vlm")
 
 
 def _check_family(cfg):
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ported: {FAMILIES}); "
-            f"encdec and vlm come with a later slice")
+        raise ValueError(f"unknown family {cfg.family!r} (families: "
+                         f"{FAMILIES})")
 
 
 def _check_paged(cfg):
     if cfg.family not in ATTENTION_FAMILIES:
         raise ValueError(
             f"paged KV cache needs an attention-family cache; family "
-            f"{cfg.family!r} has recurrent state (nothing to page)")
+            f"{cfg.family!r} has recurrent state or cross K/V (nothing to "
+            f"page)")
 
 
 def _vocab(cfg):
@@ -61,8 +73,8 @@ def _vocab(cfg):
 def init_params(gen: torch.Generator, cfg, device="cuda"):
     """Random parameters with the reference's distributions (embedding
     N(0, 0.02^2), projections U(+-1/sqrt(d_in)), norm scales 1, the SSM
-    block's as ``ssm.ssm_init``), drawn from ``gen`` on ``device``; the
-    draws are not the reference's."""
+    block's as ``ssm.ssm_init``, the vlm cross layers' gates 0), drawn
+    from ``gen`` on ``device``; the draws are not the reference's."""
     _check_family(cfg)
     V, d = _vocab(cfg), cfg.d_model
     p = {
@@ -83,6 +95,17 @@ def init_params(gen: torch.Generator, cfg, device="cuda"):
     elif fam == "ssm":
         p["layers"] = [T.ssm_layer_init(gen, cfg, device)
                        for _ in range(cfg.n_layers)]
+    elif fam == "encdec":
+        p["enc_layers"] = [T.dense_layer_init(gen, cfg, device)
+                           for _ in range(cfg.n_enc_layers)]
+        p["layers"] = [T.encdec_dec_layer_init(gen, cfg, device)
+                       for _ in range(cfg.n_layers)]
+    elif fam == "vlm":
+        G, gs = _vlm_shape(cfg)
+        p["layers"] = [[T.dense_layer_init(gen, cfg, device)
+                        for _ in range(gs)] for _ in range(G)]
+        p["cross"] = [T.cross_layer_init(gen, cfg, device)
+                      for _ in range(G)]
     else:
         G, gs, tail = _hybrid_shape(cfg)
         p["layers"] = [[T.ssm_layer_init(gen, cfg, device)
@@ -112,6 +135,31 @@ def _hybrid_shape(cfg) -> tuple[int, int, int]:
     return G, gs, cfg.n_layers - G * gs
 
 
+def _vlm_shape(cfg) -> tuple[int, int]:
+    """(G groups, gs dense layers a group before its cross layer)."""
+    return cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
+
+
+def _sinusoidal(seq, d, device):
+    """(seq, d) float32 sinusoidal positions: sines then cosines."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device), 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _encode(params, cfg, frames, chunk):
+    """The encoder over the frame embeddings (B, Se, d): sinusoidal
+    positions added, dense non-causal layers with RoPE at the frame
+    positions, no final norm."""
+    Se = frames.shape[1]
+    h = frames + _sinusoidal(Se, cfg.d_model, frames.device).to(frames.dtype)
+    pos = torch.arange(Se, device=frames.device)
+    for p in params["enc_layers"]:
+        h, _ = T.dense_block(p, cfg, h, pos, causal=False, chunk=chunk)
+    return h
+
+
 def param_count(params) -> int:
     def count(t):
         if t is None:
@@ -124,15 +172,27 @@ def param_count(params) -> int:
     return count(params)
 
 
-def forward(params, cfg, tokens, *, chunk=1024):
+def forward(params, cfg, tokens, *, frames=None, patches=None, chunk=1024):
     """A full sequence (no cache) -> (logits over the padded vocab, the
-    MoE balance loss summed over layers: 0 for the other families)."""
+    MoE balance loss summed over layers: 0 for the other families).
+    ``frames`` (B, enc_seq, d) for encdec, ``patches`` (B, vision_seq, d)
+    for vlm."""
     _check_family(cfg)
     x = L.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     fam = cfg.family
-    if fam == "hybrid":
+    if fam == "encdec":
+        enc = _encode(params, cfg, frames, chunk)
+        for p in params["layers"]:
+            x, _ = T.encdec_dec_block(p, cfg, x, positions, enc_out=enc,
+                                      chunk=chunk)
+    elif fam == "vlm":
+        for group, pc in zip(params["layers"], params["cross"]):
+            for p in group:
+                x, _ = T.dense_block(p, cfg, x, positions, chunk=chunk)
+            x = T.cross_block(pc, cfg, x, patches, positions, chunk=chunk)
+    elif fam == "hybrid":
         for group in params["layers"]:
             for p in group:
                 x, _, _ = T.ssm_block(p, cfg, x)
@@ -167,17 +227,25 @@ def cache_specs(cfg, *, batch, cache_len):
     the attention families; ``{"ssm", "conv"}`` for ssm; for hybrid the
     groups' ``ssm`` (G, gs, B, ...) and ``conv``, one K/V cache a group
     (``kv`` over G) and, when the tail is not empty, ``ssm_tail`` and
-    ``conv_tail``."""
+    ``conv_tail``; for encdec ``kv`` and the cross ``xkv`` (L, B,
+    enc_seq, ...); for vlm ``kv`` (G, gs, B, S, ...) and ``xkv`` (G, B,
+    vision_seq, ...)."""
     _check_family(cfg)
     B, S, dt = batch, cache_len, cfg.dtype
 
-    def kv(n):
-        shape = (n, B, S, cfg.n_kv_heads, cfg.head_dim)
+    def kv(*lead, seq=S):
+        shape = (*lead, B, seq, cfg.n_kv_heads, cfg.head_dim)
         return {"k": (shape, dt), "v": (shape, dt)}
 
     fam = cfg.family
     if fam in ATTENTION_FAMILIES:
         return {"kv": kv(cfg.n_layers)}
+    if fam == "encdec":
+        return {"kv": kv(cfg.n_layers),
+                "xkv": kv(cfg.n_layers, seq=cfg.enc_seq)}
+    if fam == "vlm":
+        G, gs = _vlm_shape(cfg)
+        return {"kv": kv(G, gs), "xkv": kv(G, seq=cfg.vision_seq)}
     state = (B, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
     conv = (B, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state)
     if fam == "ssm":
@@ -229,11 +297,16 @@ def zero_paged_caches(cfg, *, num_pages, page_size, device="cuda"):
 
 def cache_batch_axes(cfg):
     """Each cache leaf's batch axis (the slot scheduler's row), the same
-    tree as ``cache_specs``: the hybrid's group axes come first."""
+    tree as ``cache_specs``: the hybrid's and the vlm's group axes come
+    first."""
     _check_family(cfg)
     kv1 = {"k": 1, "v": 1}
     if cfg.family in ATTENTION_FAMILIES:
         return {"kv": kv1}
+    if cfg.family == "encdec":
+        return {"kv": kv1, "xkv": kv1}
+    if cfg.family == "vlm":
+        return {"kv": {"k": 2, "v": 2}, "xkv": kv1}
     if cfg.family == "ssm":
         return {"ssm": 1, "conv": 1}
     out = {"ssm": 2, "conv": 2, "kv": kv1}
@@ -297,6 +370,26 @@ def _decode(params, cfg, tokens, caches, position, *, chunk=1024,
     elif fam == "ssm":
         x = _ssm_stack(params["layers"], cfg, x, caches["ssm"],
                        caches["conv"])
+    elif fam == "encdec":
+        kvs, xkv = caches["kv"], caches["xkv"]
+        for i, p in enumerate(params["layers"]):
+            x, _ = T.encdec_dec_block(
+                p, cfg, x, positions,
+                enc_kv={"k": xkv["k"][i], "v": xkv["v"][i]},
+                cache={"k": kvs["k"][i], "v": kvs["v"][i]},
+                cache_index=position, chunk=chunk)
+    elif fam == "vlm":
+        kvs, xkv = caches["kv"], caches["xkv"]
+        for g, (group, pc) in enumerate(zip(params["layers"],
+                                            params["cross"])):
+            for j, p in enumerate(group):
+                x, _ = T.dense_block(p, cfg, x, positions,
+                                     cache={"k": kvs["k"][g, j],
+                                            "v": kvs["v"][g, j]},
+                                     cache_index=position, chunk=chunk)
+            x = T.cross_block_cached(pc, cfg, x, {"k": xkv["k"][g],
+                                                  "v": xkv["v"][g]},
+                                     positions, chunk=chunk)
     else:
         kvs = caches["kv"]
         for g, group in enumerate(params["layers"]):
@@ -326,11 +419,37 @@ def _ssm_stack(layers, cfg, x, states, convs):
     return x
 
 
-def prefill(params, cfg, tokens, *, cache_len, chunk=1024):
-    """Run the prompt into fresh caches: (logits (B, S, V), caches, S)."""
+def cross_kv(params, cfg, *, frames=None, patches=None, chunk=1024):
+    """The static cross K/V of every cross layer, in ``cfg.dtype``: for
+    encdec each decoder layer's projection of the encoder's output over
+    ``frames`` ((L, B, Se, KV, hd) leaves), for vlm each cross layer's
+    projection of the raw ``patches`` ((G, B, Sv, KV, hd))."""
+    if cfg.family == "encdec":
+        src, layers = _encode(params, cfg, frames, chunk), params["layers"]
+    else:
+        src, layers = patches, params["cross"]
+    shape = (len(layers), *src.shape[:2], cfg.n_kv_heads, cfg.head_dim)
+    out = {n: torch.empty(shape, dtype=cfg.dtype, device=src.device)
+           for n in ("k", "v")}
+    for i, p in enumerate(layers):
+        for n, t in T.project_cross_kv(p["xattn"], cfg, src).items():
+            out[n][i] = t
+    return out
+
+
+def prefill(params, cfg, tokens, *, cache_len, frames=None, patches=None,
+            chunk=1024):
+    """Run the prompt into fresh caches: (logits (B, S, V), caches, S).
+    For encdec / vlm the cross K/V is projected from ``frames`` /
+    ``patches`` once, here, before the prompt runs."""
     B, S = tokens.shape
-    caches = zero_caches(cfg, batch=B, cache_len=cache_len,
-                         device=tokens.device)
+    specs = cache_specs(cfg, batch=B, cache_len=cache_len)
+    if cfg.family in CROSS_FAMILIES:
+        del specs["xkv"]
+    caches = _zeros(specs, tokens.device)
+    if cfg.family in CROSS_FAMILIES:
+        caches["xkv"] = cross_kv(params, cfg, frames=frames,
+                                 patches=patches, chunk=chunk)
     logits, caches = _decode(params, cfg, tokens, caches, 0, chunk=chunk)
     return logits, caches, S
 

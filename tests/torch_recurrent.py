@@ -61,27 +61,34 @@ def _node(tree, keys):
     return tree
 
 
+#: the reference's stacked parameter subtrees, split per layer by the port
+STACKED = ("layers", "tail", "enc_layers", "cross")
+
+
 def params_keep_every_leaf(arch, stacked_index):
     """``params_from_jax`` of the bfloat16 (served) smoke model keeps
     every leaf, bit for bit and in its dtype. ``stacked_index(params,
     key, i)`` gives the port's layer dict of stacked index ``i`` under
-    ``key`` ("layers" or "tail")."""
+    ``key`` (one of ``STACKED``)."""
     rcfg = ref_smoke(arch)
     cfg = load_smoke_config(arch)
     assert cfg == dataclasses.replace(
         cfg, **{f.name: getattr(rcfg, f.name)
                 for f in dataclasses.fields(cfg) if f.name != "dtype"})
-    rparams = RM.init_params(jax.random.PRNGKey(1), rcfg)
+    # jitted: the same draws as eager, in a third of the time
+    rparams = jax.jit(RM.init_params, static_argnums=1)(
+        jax.random.PRNGKey(1), rcfg)
     params = params_from_jax(jax.tree.map(np.asarray, rparams), cfg,
                              device="cpu")
     assert M.param_count(params) == RM.param_count(rparams)
     dtypes = set()
     for path, leaf in jax.tree_util.tree_flatten_with_path(rparams)[0]:
         keys, leaf = [p.key for p in path], np.asarray(leaf)
-        if keys[0] in ("layers", "tail"):
-            # the hybrid's (G, gs, ...) groups count as G * gs layers
-            lead = 2 if cfg.family == "hybrid" and keys[0] == "layers" \
-                else 1
+        if keys[0] in STACKED:
+            # the hybrid's and the vlm's (G, gs, ...) groups count as
+            # G * gs layers
+            lead = 2 if cfg.family in ("hybrid", "vlm") \
+                and keys[0] == "layers" else 1
             arrays = list(leaf.reshape((-1,) + leaf.shape[lead:]))
             tensors = [_node(stacked_index(params, keys[0], i), keys[1:])
                        for i in range(len(arrays))]
