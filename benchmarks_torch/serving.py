@@ -238,16 +238,18 @@ def _spec_bytes(specs) -> int:
 CATEGORIES = (
     ("page gathers", ("page_gather",)),
     ("expert grouped GEMMs", ("groupproblemshape", "grouped")),
-    ("sampler sort network", ("inblock_kernel", "cross_kernel")),
+    ("sampler sort network", ("inblock_kernel", "window_kernel")),
     ("sampler mask", ("nucleus_kernel",)),
     ("matmuls", ("gemm", "gemv", "nvjet", "cutlass", "sm90_", "xmma",
                  "splitk", "cublas")),
 )
 
 
-def _category(name: str) -> str:
+def _category(name: str, categories=CATEGORIES) -> str:
+    """The class of kernel ``name``: the first of ``categories`` ((class,
+    name fragments) pairs) one of whose fragments it holds."""
     low = name.lower()
-    for cat, keys in CATEGORIES:
+    for cat, keys in categories:
         if any(k in low for k in keys):
             return cat
     if "softmax" in low:

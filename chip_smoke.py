@@ -8,7 +8,8 @@ drives the port's main paths: the AK sort primitives at 2^28 float32 keys
 and SIHSort over 4 ranks on the one card (2^26 keys + int32 payload per
 rank), then the streaming and segmented primitives, then the serving path
 on full-width internlm2-1.8B, granite-moe-1b, mamba2-1.3b, zamba2-7b,
-whisper-medium and llama-3.2-vision (10 of its 100 layers).
+whisper-medium and llama-3.2-vision (10 of its 100 layers), then the
+training path on full-width granite-moe-1b.
 Phases:
 
   1. environment: card name and power limit, torch / CUDA / nvcc
@@ -152,15 +153,32 @@ Phases:
      inputs, their device us at the two vocabularies; tok/s, prefill ms (and its cross K/V
      part), the decode step by CUDA events, parameters, self and cross
      K/V bytes a row; the CLI.
+ 13. training (``benchmarks_torch/training.py``): granite-moe-1b at
+     published widths and all 24 layers (bf16 params from the seed,
+     float32 AdamW moments, remat on) through ``train_loop``, 30 steps
+     of 8 x 1024 tokens at lr 1e-3: the loss's drop (the mean of the last
+     5 steps at least 0.5 below the first 5's), step ms by CUDA events,
+     tokens/s, peak memory, the routing sortperm network's launches
+     against the closed form (24 layers x 2, forward and remat
+     recompute, a step), every primitive's portable calls, the MoE
+     combine's own memory; one step with the kernels and one with every
+     primitive on its plain path (routing bitwise in every layer; loss
+     and gradient groups within stated tolerances; the argsort kernels
+     against their plain version on that step's ids); a checkpoint
+     restart at 2 layers (resumes at the committed step, state restored
+     bitwise); ``moe_ffn_ep`` over 4 card ranks against ``moe_ffn``
+     forward and backward; ``global_shuffle_by_sort`` of 2^24 ids over
+     4 card ranks; the training CLI on the smoke config.
 
-Last, the decode-step breakdowns of phases 7, 9, 11 and 12 (``torch.profiler``
-device ms by kernel class, the step by CUDA events and the host clock, its
-idle share and parts), on the same seeded weights rebuilt: a profiler
-run slows every later launch on that machine.
+Last, the decode-step breakdowns of phases 7, 9, 11 and 12 and one
+training step's (``torch.profiler`` device ms by kernel class, the step
+by CUDA events and the host clock, its idle share and parts), on the
+same seeded weights rebuilt: a profiler run slows every later launch on
+that machine.
 
 Launch counters are set to 0 just before phases 3, 4, 6, 7, 8, 9, each
-family's engine run of phase 11 and each model's fixed-batch run of phase
-12, and
+family's engine run of phase 11, each model's fixed-batch run of phase
+12 and phase 13's training run (the shuffle's ranks count their own), and
 before each run of the ``sort_hyper`` sweep, the tune pass and
 ``sortperm_lowmem`` of phase 10 (the ranks' own counts are read from each
 rank), and read just after; the
@@ -2604,6 +2622,286 @@ def phase_cross(registry, C, errs, seed: int) -> dict:
     return out
 
 
+# -- phase 13: training -----------------------------------------------------
+# tolerances set before the first run (PERF.md section 5)
+TRAIN_LOSS_DROP = 0.5         # tests/test_system.py:25's margin
+ROUTE_LOSS_RTOL = 1e-3        # kernel route vs plain route, one step
+ROUTE_GRAD_SHARE = 2.0 ** -4  # of each gradient group's largest |value|
+EP_Y_SHARE = 2.0 ** -5        # moe_ffn_ep vs moe_ffn: y, of max |y|
+EP_AUX_RTOL = 1e-3
+EP_GRAD_SHARE = 2.0 ** -4     # expert / router gradients, of their max
+CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, CKPT_RESTART = 2, 20, 10, 30
+CLI_STEPS = 20
+
+
+def phase_training(registry, C, errs, seed: int) -> dict:
+    """Phase 13: the training path (``benchmarks_torch/training.py``).
+
+    1. granite-moe-1b at published widths and all 24 layers, bf16
+       params from the seed, float32 AdamW moments, remat on:
+       ``train_loop`` of ``TB.STEPS`` steps of 8 x 1024 tokens, lr 1e-3,
+       on ``make_host_mesh()``, with the launch counters and registry
+       stats set to 0 just before it; the loss's drop, each step's
+       CUDA-event ms, tokens/s, peak device memory, the routing
+       network's launches against the closed form (one sortperm of
+       T*k = 65536 ids a layer, in forward and in the remat recompute),
+       every primitive's calls and portable calls, and the combine's
+       own peak memory;
+    2. one step of the same model and batch with the registry's kernels
+       and with every primitive on its plain path: routing (ids, perm)
+       bitwise in every layer call, the loss and each gradient group
+       within the stated tolerances; the routing argsort's kernels
+       against their plain version on that step's ids, bitwise;
+    3. checkpoint restart at published widths and ``CKPT_LAYERS``
+       layers: ``CKPT_STEPS`` steps saving every ``CKPT_EVERY``, then a
+       run to ``CKPT_RESTART`` that resumes at the committed step; the
+       restored params and moments bitwise the saved ones;
+    4. ``moe_ffn_ep`` at granite's widths over 4 card ranks (gloo,
+       staged through host memory), 4 x 2048 tokens, no drops, against
+       the single-rank ``moe_ffn``: y, aux, the expert and router
+       gradients;
+    5. ``global_shuffle_by_sort`` of 2^24 ids over 4 card ranks: a
+       permutation in the order of its keys, no overflow, 19 collectives
+       and the closed-form sort and merge launches a rank;
+    6. the training CLI on the smoke config.
+    """
+    import shutil
+
+    from benchmarks_torch import training as TB
+    from repro_torch import ckpt as CK
+    from repro_torch import tree
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import merge_kernel as MK
+    from repro_torch.kernels import sort_kernel as SK
+    from repro_torch.launch import train as TR
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+
+    out = {"card": nvidia_smi()}
+    cfg = TB.config()
+    tokens = TB.BATCH * TB.SEQ
+    flops = TB.step_flops(cfg)
+    out["flops"] = flops
+    log(f"train: {cfg.name} at full width, {cfg.n_layers} layers, remat "
+        f"{cfg.remat}; {flops['step_tflop']:.2f} TFLOP a step, bf16 bound "
+        f"{flops['bound_ms']:.2f} ms")
+
+    # -- 13.1 the main path -------------------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    st = {}
+    torch.cuda.synchronize()
+    C.reset_launch_count()
+    registry.reset_stats()
+    t0 = time.perf_counter()
+    losses = TR.train_loop(cfg, make_host_mesh(), steps=TB.STEPS,
+                           batch=TB.BATCH, seq=TB.SEQ, lr=TB.LR, seed=seed,
+                           log=lambda m: log("train: " + m), stats=st)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, kern = C.launch_counts(), C.kernel_launches()
+    prims = {n: s for n, s in registry.stats().items() if s["calls"]}
+    peak = torch.cuda.max_memory_allocated()
+    params, opt = st.pop("state")
+    first, last = (statistics.mean(losses[:5]),
+                   statistics.mean(losses[-5:]))
+    check(len(losses) == TB.STEPS and all(math.isfinite(v) for v in losses),
+          f"train: losses {losses}")
+    check(st["retries"] == 0,
+          f"train: the supervisor retried {st['retries']} failed steps")
+    check(last < first - TRAIN_LOSS_DROP,
+          f"train: mean loss of the last 5 steps {last} not below the "
+          f"first 5's {first} by {TRAIN_LOSS_DROP}")
+    n_ids = tokens * cfg.top_k
+    per_sort = SK.cross_launches(n_ids)
+    sorts = TB.STEPS * cfg.n_layers * (2 if cfg.remat else 1)
+    net = kern.get("bitonic_inblock", 0) + kern.get("bitonic_window", 0)
+    check(counts.get("argsort") == sorts * per_sort == net,
+          f"train: routing sortperm launches {counts.get('argsort')} / "
+          f"network {net} vs closed form {sorts} x {per_sort}")
+    check(kern.get("bitonic_inblock", 0) > 0
+          and kern.get("bitonic_window", 0) > 0,
+          f"train: kernels {kern}")
+    step_ms = statistics.median(st["step_ms"][1:])
+    n_params = M.param_count(params)
+    out["main"] = {
+        "steps": TB.STEPS, "batch": TB.BATCH, "seq": TB.SEQ, "lr": TB.LR,
+        "losses": losses, "first5": first, "last5": last,
+        "step_ms": st["step_ms"], "step_ms_median": step_ms,
+        "tokens_per_s": tokens / step_ms * 1e3,
+        "bound_share": flops["bound_ms"] / step_ms,
+        "peak_bytes": peak, "params": n_params,
+        "param_bytes": sum(t.numel() * t.element_size()
+                           for t in tree.leaves(params)),
+        "moment_bytes": sum(t.numel() * t.element_size()
+                            for t in tree.leaves((opt.m, opt.v))),
+        "wall_s": wall, "retries": st["retries"], "launches": counts,
+        "kernel_launches": kern,
+        "closed_form": {"sorts": sorts, "per_sort": per_sort,
+                        "ids_per_sort": n_ids},
+        "primitives": prims,
+    }
+    log(f"train: loss {first:.3f} -> {last:.3f} (first / last 5 steps); "
+        f"step {step_ms:.1f} ms median (CUDA events), "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s, bound "
+        f"{flops['bound_ms']:.1f} ms; peak {peak / 2**30:.2f} GiB; "
+        f"{n_params} parameters; routing network {net} launches = "
+        f"{sorts} sorts x {per_sort}; primitives " + json.dumps(prims))
+    del opt
+    torch.cuda.empty_cache()
+    out["combine"] = TB.combine_peak(cfg)
+    log("train: one layer's combine (segmented_reduce over (T*k, d), "
+        "forward + backward): " + json.dumps(out["combine"]))
+
+    # -- 13.2 kernel route against plain route, one step --------------------
+    batch = TB.batch_of(cfg, 0)
+    res = TB.route_step(cfg, params, batch)
+    cmp = TB.compare_routes(res)
+    out["routes"] = cmp
+    check(cmp["routing_equal"] and cmp["routing_calls"]
+          == cfg.n_layers * (2 if cfg.remat else 1),
+          f"train: routing differs between the kernel and plain routes "
+          f"({cmp['routing_calls']} calls)")
+    lk, lp = cmp["loss"]
+    check(abs(lk - lp) <= ROUTE_LOSS_RTOL * abs(lp),
+          f"train: loss {lk} (kernels) vs {lp} (plain)")
+    for name, g in cmp["groups"].items():
+        check(g["share"] <= ROUTE_GRAD_SHARE,
+              f"train: gradient group {name} differs by {g['share']} of "
+              f"its largest |value| between the routes")
+    for ids, perm in res["kernels"]["routing"][:cfg.n_layers]:
+        flat = ids.reshape(-1)
+        errs.same(["bitonic_inblock", "bitonic_window"],
+                  [SK.bitonic_argsort(flat)],
+                  [SK.bitonic_argsort(flat, plain=True)],
+                  "routing argsort of a training step's ids")
+        check(torch.equal(SK.bitonic_argsort(flat), perm),
+              "routing perm != the argsort kernels on its ids")
+    log("train: kernel vs plain route, one step: " + json.dumps(cmp))
+    del res, params, batch
+    torch.cuda.empty_cache()
+
+    # -- 13.3 checkpoint restart --------------------------------------------
+    ccfg = TB.config(CKPT_LAYERS)
+    d = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    kw = dict(batch=TB.BATCH, seq=TB.SEQ, lr=TB.LR, seed=seed,
+              ckpt_dir=d, ckpt_every=CKPT_EVERY, log=lambda m: None)
+    t0 = time.perf_counter()
+    a = {}
+    la = TR.train_loop(ccfg, make_host_mesh(), steps=CKPT_STEPS, stats=a,
+                       **kw)
+    check(CK.latest_step(d) == CKPT_STEPS, f"ckpt: latest {CK.latest_step(d)}")
+    saved, step = CK.restore(d, a["state"])
+    same = all(x.dtype == y.dtype and torch.equal(x, y) for x, y in
+               zip(tree.leaves(saved), tree.leaves(a["state"])))
+    check(step == CKPT_STEPS and same,
+          "ckpt: restored params / moments != the saved ones")
+    save_bytes = sum(os.path.getsize(os.path.join(d, f"step_{step:08d}", f))
+                     for f in os.listdir(os.path.join(d,
+                                                      f"step_{step:08d}")))
+    retries = a["retries"]
+    del saved, a
+    b = {}
+    lb = TR.train_loop(ccfg, make_host_mesh(), steps=CKPT_RESTART, stats=b,
+                       **kw)
+    check(b["start"] == CKPT_STEPS and len(lb) == CKPT_RESTART - CKPT_STEPS,
+          f"ckpt: restart began at {b['start']} and ran {len(lb)} steps")
+    check(retries == 0 and b["retries"] == 0,
+          f"ckpt: the supervisor retried {retries} + {b['retries']} "
+          f"failed steps")
+    out["ckpt"] = {"layers": CKPT_LAYERS, "first_run": la,
+                   "restart": lb, "save_bytes": save_bytes,
+                   "seconds": time.perf_counter() - t0,
+                   "latest": CK.latest_step(d)}
+    shutil.rmtree(d, ignore_errors=True)
+    del b
+    torch.cuda.empty_cache()
+    log(f"ckpt: {CKPT_LAYERS}-layer run to {CKPT_STEPS}, restart resumed "
+        f"at {CKPT_STEPS} and ran {len(lb)} steps; state bitwise restored; "
+        f"{save_bytes / 2**30:.2f} GiB a save; "
+        f"{out['ckpt']['seconds']:.1f} s")
+
+    # -- 13.4 expert parallelism over 4 card ranks --------------------------
+    ep = TB.ep_check(seed)
+    out["ep"] = ep
+    check(ep["y_share"] <= EP_Y_SHARE, f"ep: y differs by {ep['y_share']}")
+    check(ep["aux_rel"] <= EP_AUX_RTOL, f"ep: aux {ep['aux']}")
+    for w, sh in ep["grad_share"].items():
+        check(sh <= EP_GRAD_SHARE, f"ep: gradient of {w} differs by {sh}")
+    for c in ep["rank_collectives"]:
+        check(c.get("all_to_all") == 2, f"ep: collectives {c}")
+    log("ep: moe_ffn_ep over 4 card ranks vs moe_ffn: " + json.dumps(ep))
+
+    # -- 13.5 the shuffle ----------------------------------------------------
+    sh = TB.shuffle_check(seed)
+    n = TB.SHUFFLE_N
+    check(int(sh["count"].sum()) == n, f"shuffle: counts {sh['count']}")
+    ids = sh["ids"]
+    check(torch.equal(torch.sort(ids).values,
+                      torch.arange(n, dtype=torch.int32)),
+          "shuffle: not a permutation of the ids")
+    check(torch.equal(sh["keys"][ids.long()], torch.sort(sh["keys"]).values),
+          "shuffle: ids not in the order of their keys")
+    R = TB.SHUFFLE_RANKS
+    cap = D.exchange_capacity(n // R, R, 2.0, [torch.float32, torch.int32])
+    shuffle_kern = {}
+    for r, rs in enumerate(sh["stats"]):
+        check(sum(rs.collectives.values()) == 19,
+              f"shuffle: rank {r} collectives {rs.collectives}")
+        check(rs.launches.get("sort_kv") == SK.cross_launches(n // R),
+              f"shuffle: rank {r} sort launches {rs.launches}")
+        check(rs.launches.get("merge_kv") == MK.merge_launches(R * cap, R),
+              f"shuffle: rank {r} merge launches {rs.launches}")
+        for k, v in rs.kernel_launches.items():
+            shuffle_kern[k] = shuffle_kern.get(k, 0) + v
+    for k in SORT_KERNELS:
+        check(shuffle_kern.get(k, 0) > 0, f"shuffle: {k} never launched")
+    out["shuffle"] = {"n": n, "ranks": R, "wall_s": sh["wall_s"],
+                      "count": sh["count"].tolist(),
+                      "rank_collectives": [rs.collectives
+                                           for rs in sh["stats"]],
+                      "rank_launches": [rs.launches for rs in sh["stats"]],
+                      "rank_seconds": [rs.traced_s for rs in sh["stats"]],
+                      "kernel_launches": shuffle_kern}
+    log("shuffle: 2^24 ids over 4 card ranks, a permutation in key order, "
+        "no overflow, 19 collectives a rank: " + json.dumps(
+            {k: out["shuffle"][k] for k in ("wall_s", "rank_seconds",
+                                            "kernel_launches")}))
+    del sh, ids
+
+    # -- 13.6 the CLI --------------------------------------------------------
+    cli = TR.main(["--steps", str(CLI_STEPS)])
+    check(len(cli) == CLI_STEPS and all(math.isfinite(v) for v in cli),
+          "train CLI did not complete")
+    out["cli"] = {"steps": CLI_STEPS, "first": cli[0], "last": cli[-1]}
+    torch.cuda.empty_cache()
+
+    launches = dict(kern)
+    for k, v in shuffle_kern.items():
+        launches[k] = launches.get(k, 0) + v
+    out["kernel_launches"] = launches
+    return out
+
+
+def training_breakdown(report, seed: int) -> None:
+    """Where one full-width training step's time goes (phase 13's model
+    rebuilt from the seed): the step by CUDA events, device ms by kernel
+    class from ``torch.profiler``, the idle share. Runs with the other
+    breakdowns, after everything else."""
+    from benchmarks_torch import training as TB
+    from repro_torch.launch.train import init_sharded
+
+    cfg = TB.config()
+    params, opt = init_sharded(cfg, None, seed)
+    report["training"]["step_breakdown"] = TB.profiled_step(
+        cfg, params, opt, TB.batch_of(cfg))
+    log("train: one step's breakdown: "
+        + json.dumps(report["training"]["step_breakdown"]))
+    del params, opt
+    torch.cuda.empty_cache()
+
+
 # the decode-step breakdowns of phases 7, 9, 11 and 12: the model, the
 # report entry that takes each, and its label in the log
 BREAKDOWNS = (("internlm2_1_8b", ("serving",), "serve: one paged decode "
@@ -3092,9 +3390,21 @@ def main() -> int:
                                network_us=net["network_us"],
                                topk_bound_ms=net["bound_ms"])
     log(f"phase 12 done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 13. training ---------------------------------------------------------
+    t0 = time.perf_counter()
+    training = phase_training(registry, C, errs, args.seed)
+    report["training"] = training
+    for name, n in training["kernel_launches"].items():
+        main_kernels[name] = main_kernels.get(name, 0) + n
+    for k in kernels:  # the sort path's launches include phase 13
+        k["launches"] = main_kernels[k["name"]]
+        k["max_abs_err"] = errs.err[k["name"]]
+    log(f"phase 13 done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_breakdowns(report, args.seed)
-    log(f"decode-step breakdowns of phases 7, 9, 11 and 12 done in "
+    training_breakdown(report, args.seed)
+    log(f"breakdowns of phases 7, 9, 11, 12 and 13 done in "
         f"{time.perf_counter() - t0:.1f} s")
     for k in kernels:  # the new kernels' registers and spills
         summary = ptxas_summary(ptx, k["name"])

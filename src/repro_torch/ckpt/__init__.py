@@ -1,0 +1,7 @@
+"""The port's checkpoints (counterpart of ``repro/ckpt``)."""
+from repro_torch.ckpt.checkpoint import (  # noqa: F401
+    AsyncCheckpointer,
+    latest_step,
+    restore,
+    save,
+)

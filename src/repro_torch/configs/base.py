@@ -4,9 +4,9 @@ One ``<arch>.py`` per ported architecture lives next to this file; each
 exports ``CONFIG`` (the published numbers) and ``smoke_config()`` (a
 reduced same-family config for CPU tests). The reference's dry-run
 surface (``input_specs``, ``cells``, ``SHAPES``) is not ported: nothing
-on the serving path reads it. The fields keep the reference's names and
-defaults, with ``dtype`` a torch dtype; its training-only fields
-(``remat``, ``remat_policy``, ``unroll_layers``) are left out.
+on the serving or training path reads it. The fields keep the
+reference's names and defaults, with ``dtype`` a torch dtype; its
+cost-model field ``unroll_layers`` belongs to the dry run and is left out.
 """
 from __future__ import annotations
 
@@ -58,7 +58,13 @@ class ModelConfig:
     cross_attn_every: int = 0
     vision_seq: int = 1664
 
+    # training
     dtype: Any = torch.bfloat16
+    remat: bool = True
+    # "full" recomputes each layer in backward (least memory); the
+    # reference's "dots" is refused; remat=False keeps every activation
+    # (models/model.py::_maybe_remat)
+    remat_policy: str = "full"
 
     def __post_init__(self):
         if self.head_dim == 0 and self.n_heads:

@@ -36,4 +36,5 @@ def smoke_config():
         top_k=2,
         moe_capacity_factor=8.0,  # drop-free: decode/forward logits agree
         first_layer_dense=True,
+        remat=False,
     )

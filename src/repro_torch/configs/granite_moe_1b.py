@@ -32,4 +32,5 @@ def smoke_config():
         n_experts=8,
         top_k=2,
         moe_capacity_factor=8.0,  # drop-free: decode/forward logits agree
+        remat=False,
     )

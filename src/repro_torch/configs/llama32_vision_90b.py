@@ -38,4 +38,5 @@ def smoke_config():
         vocab=256,
         cross_attn_every=2,
         vision_seq=16,
+        remat=False,
     )

@@ -33,4 +33,5 @@ def smoke_config():
         ssm_state=16,
         ssm_headdim=16,
         ssm_chunk=8,
+        remat=False,
     )

@@ -36,4 +36,5 @@ def smoke_config():
         d_ff=128,
         vocab=256,
         enc_seq=32,
+        remat=False,
     )

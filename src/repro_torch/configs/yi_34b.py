@@ -27,4 +27,5 @@ def smoke_config():
         n_kv_heads=1,
         d_ff=128,
         vocab=256,
+        remat=False,
     )

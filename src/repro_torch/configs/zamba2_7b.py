@@ -41,4 +41,5 @@ def smoke_config():
         ssm_headdim=16,
         hybrid_attn_every=2,
         ssm_chunk=8,
+        remat=False,
     )

@@ -1,8 +1,10 @@
 """Carry arrays between the reference and the port.
 
 ``to_torch`` / ``to_numpy`` round-trip the reference's numpy arrays
-with their dtypes, and ``params_from_jax`` turns the reference model's
-parameter tree into the port's. bfloat16
+with their dtypes, ``params_from_jax`` turns the reference model's
+parameter tree into the port's (and any tree of its structure: the
+reference's gradients, its AdamW moments), and ``adamw_from_jax`` the
+reference's ``AdamWState``. bfloat16
 arrives from JAX as an ``ml_dtypes`` array, which ``torch.from_numpy``
 refuses, so it travels through a ``uint16`` view; ``int32`` stays
 ``int32``.
@@ -51,7 +53,9 @@ def params_from_jax(params_np, cfg, device="cuda"):
     list of dicts (None when empty) and ``shared`` one dict. An encdec
     model's ``enc_layers`` and ``layers`` become lists of dicts; a vlm
     model's (G, gs, ...) ``layers`` G lists of gs dicts and its (G, ...)
-    ``cross`` a list of G dicts. Every family, as the port's model."""
+    ``cross`` a list of G dicts. Every family, as the port's model. A
+    tree of the same structure (the reference's gradients or AdamW
+    moments) converts leaf for leaf the same way."""
     fam = cfg.family
 
     def tree(node, pick=None):
@@ -81,3 +85,14 @@ def params_from_jax(params_np, cfg, device="cuda"):
     n = cfg.n_layers - int(fam == "moe" and cfg.first_layer_dense)
     out["layers"] = [tree(layers, i) for i in range(n)]
     return out
+
+
+def adamw_from_jax(state, cfg, device="cuda"):
+    """The reference's ``AdamWState`` (step, m, v: moments with the
+    parameters' structure, float32) as the port's ``optim.AdamWState``
+    on ``device``."""
+    from repro_torch.optim import AdamWState
+
+    return AdamWState(step=to_torch(np.asarray(state.step), device),
+                      m=params_from_jax(state.m, cfg, device),
+                      v=params_from_jax(state.v, cfg, device))

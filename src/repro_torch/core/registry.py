@@ -16,6 +16,15 @@ device, as for ``bincount``) and its tunable defaults.
      (or a dtype their kernels lack) runs on the portable path under
      ``auto``, counted in ``stats(name)["portable_calls"]``, and raises
      ``TypeError`` under an explicit ``cuda``;
+  2b. the same refusal when an operand requires grad (autograd on) and
+     the primitive's kernel route returns tensors its launch wrote,
+     which carry no ``grad_fn``: the kernels have no backward, so such
+     a call takes the portable path, whose torch ops autograd records.
+     Each record declares it (``kernel_grad``): True where the kernel
+     route's result keeps the graph (``topk``'s values are gathered from
+     the input) or is integer or boolean (``argsort``, ``searchsorted``,
+     ``nucleus_mask``), which torch's own ops leave without a gradient
+     too;
   3. call the implementation inside the tuning scope its knobs select and
      under a launch-attribution label, so the launch counter breaks its
      total down per primitive;
@@ -335,8 +344,9 @@ class PrimitiveStats:
     kernel library had to be built or loaded; ``portable_calls``: calls
     that ``auto`` would have sent to the kernels but that ran on the
     portable path, because the kernels cannot take their op, body or
-    dtype, or because the attached autotune cache measured the portable
-    path faster for the call's key."""
+    dtype, or because an operand requires grad and the kernel's result
+    would carry no graph, or because the attached autotune cache
+    measured the portable path faster for the call's key."""
 
     calls: int = 0
     cache_hits: int = 0
@@ -359,6 +369,7 @@ class Primitive:
         tuning_defaults: dict | None = None,
         refusal: Callable | None = None,
         switch_measure: str = "size",
+        kernel_grad: bool = False,
         doc: str = "",
     ):
         if switch_measure not in ("size", "last_axis"):
@@ -368,6 +379,10 @@ class Primitive:
         self.torch_impl = torch_impl
         self.cuda_impl = cuda_impl
         self.refusal = refusal
+        #: whether the kernel route's result keeps the autograd graph of
+        #: its operands (or is integer/boolean); False: an operand that
+        #: requires grad is refused to the portable path
+        self.kernel_grad = kernel_grad
         self.doc = doc
         self.tunables = tuple(tunables) if cuda_impl is not None else ()
         self.stats = PrimitiveStats()
@@ -420,8 +435,13 @@ class Primitive:
         if switch_below is None:
             switch_below = tune["switch_below"]
         resolved = self._select_backend(backend, x, n, switch_below, hint)
-        if resolved == "cuda" and self.refusal is not None:
-            why = self.refusal(*operands, **opts)
+        if resolved == "cuda":
+            why = None
+            if not self.kernel_grad and _requires_grad(operands):
+                why = ("an operand requires grad and this kernel's output "
+                       "is not built from differentiable torch ops")
+            elif self.refusal is not None:
+                why = self.refusal(*operands, **opts)
             if why is not None:
                 if (backend or dispatch.default_backend()) == "cuda":
                     raise TypeError(
@@ -462,6 +482,18 @@ class Primitive:
     def reset_stats(self) -> None:
         with self._lock:
             self.stats = PrimitiveStats()
+
+
+def _requires_grad(operands) -> bool:
+    """Whether autograd is on and a tensor operand (or one of a tuple of
+    them) requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    for o in operands:
+        for t in (o if isinstance(o, (tuple, list)) else (o,)):
+            if isinstance(t, torch.Tensor) and t.requires_grad:
+                return True
+    return False
 
 
 # --------------------------------------------------------------------------
@@ -614,7 +646,7 @@ sort_kv_p = register(Primitive(
 
 argsort_p = register(Primitive(
     "argsort", kref.argsort_ref, sort_kernel.bitonic_argsort,
-    tunables=_SORT_TUNABLES,
+    tunables=_SORT_TUNABLES, kernel_grad=True,
     doc="stable int32 index permutation (AK sortperm)",
 ))
 
@@ -636,6 +668,7 @@ searchsorted_p = register(Primitive(
     lambda hay, q, *, side="left": search_kernel.searchsorted_blocks(
         hay, q, side=side
     ),
+    kernel_grad=True,
     doc="0-based int32 insertion indices into a sorted haystack",
 ))
 
@@ -792,21 +825,21 @@ sort_batched_p = register(Primitive(
 argsort_batched_p = register(Primitive(
     "argsort_batched", _torch_argsort_batched,
     sort_kernel.bitonic_argsort_batched,
-    tunables=_SORT_TUNABLES, switch_measure="last_axis",
+    tunables=_SORT_TUNABLES, switch_measure="last_axis", kernel_grad=True,
     doc="stable last-axis int32 argsort of (..., n) (batched AK sortperm)",
 ))
 
 topk_p = register(Primitive(
     "topk", _torch_topk,
     lambda x, *, k: sort_kernel.bitonic_topk_batched(x, k),
-    tunables=_SORT_TUNABLES, switch_measure="last_axis",
+    tunables=_SORT_TUNABLES, switch_measure="last_axis", kernel_grad=True,
     doc="last-axis top-k (values, int32 indices), descending, ties by index",
 ))
 
 nucleus_mask_p = register(Primitive(
     "nucleus_mask", nucleus_kernel.nucleus_mask_ref,
     nucleus_kernel.nucleus_mask_blocks,
-    tunables=_SORT_TUNABLES, switch_measure="last_axis",
+    tunables=_SORT_TUNABLES, switch_measure="last_axis", kernel_grad=True,
     doc="fused top-p keep mask: batched descending sortperm + one mask "
         "launch (softmax, prefix sum, cut, keep scatter)",
 ))

@@ -473,7 +473,9 @@ def bitonic_topk_batched(keys: torch.Tensor, k: int, *,
     n = keys.shape[-1]
     if not 0 <= k <= n:
         raise ValueError(f"top-k needs 0 <= k <= {n}, got {k}")
-    k2 = _rows(keys)
+    # the network orders a detached copy; the values are gathered from
+    # ``keys``, so autograd sees them (the kernel has no backward)
+    k2 = _rows(keys).detach()
     if k2.numel() == 0:
         order = torch.zeros((k2.shape[0], k), dtype=torch.int32,
                             device=keys.device)

@@ -11,18 +11,136 @@ is here each process running its own backend.
 throughput into the partition weights ``core.distributed.sihsort`` cuts
 its splitters by, and :func:`co_sort` wires both into one call.
 
-The reference's production meshes (``make_production_mesh``,
-``make_host_mesh``) belong with ``models/sharding.py`` and are not ported
-yet.
+:func:`make_host_mesh` is the trainer's small mesh: a ``data`` x
+``model`` grid over the processes of the default ``torch.distributed``
+group (one process a rank; a single process without a group is the 1 x 1
+mesh), with a process group a row and a column and the differentiable
+collectives ``models.moe.moe_ffn_ep`` exchanges its tokens through. The
+reference's ``make_production_mesh`` (a 16 x 16 or 2 x 16 x 16 TPU mesh)
+belongs with ``models/sharding.py`` and is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import distributed as D
+
+AXES = ("data", "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class HostMesh:
+    """A ``data`` x ``model`` grid of processes, rank ``i * model + j`` at
+    (data i, model j) as a row-major device mesh lays them out.
+    ``shape``: {"data": d, "model": m}; ``coords``: this rank's index on
+    each axis; ``groups``: the process group of this rank's row
+    (``model``) and column (``data``), None on an axis of size 1, where
+    every collective is the identity.
+
+    The collectives take and return tensors on the rank's device and are
+    differentiable (``torch.distributed.nn``: each one's backward is
+    the same collective over the cotangents, summed over the ranks). On a
+    gloo group a card tensor is staged through host memory, as SIHSort's
+    exchange is (``.cpu()`` and ``.to(device)`` are differentiable)."""
+
+    shape: dict
+    coords: dict
+    groups: dict
+
+    def index(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def _run(self, fn, t, axis):
+        group = self.groups[axis]
+        staged = t.is_cuda and dist.get_backend(group) == "gloo"
+        with warnings.catch_warnings():
+            # newer torch releases mark torch.distributed.nn.functional
+            # deprecated; its collectives still record their backward
+            warnings.simplefilter("ignore", FutureWarning)
+            out = fn(t.cpu() if staged else t, group)
+        return out.to(t.device) if staged else out
+
+    def all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """Sum of ``t`` over ``axis`` (psum)."""
+        if self.groups[axis] is None:
+            return t
+        from torch.distributed.nn import functional as F
+
+        D._count_collective("all_reduce_sum")
+        return self._run(lambda h, g: F.all_reduce(h, group=g), t, axis)
+
+    def mean(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """Mean of ``t`` over ``axis`` (pmean)."""
+        return self.all_reduce(t, axis) / self.shape[axis]
+
+    def all_to_all(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """Row q of ``t`` (leading axis of the axis size) goes to rank q;
+        row q of the result came from rank q (``lax.all_to_all`` with
+        split and concat axis 0)."""
+        if self.groups[axis] is None:
+            return t
+        from torch.distributed.nn import functional as F
+
+        D._count_collective("all_to_all")
+        return self._run(lambda h, g: F.all_to_all_single(
+            torch.empty(h.shape, dtype=h.dtype, device=h.device),
+            h.contiguous(), group=g), t, axis)
+
+    def all_gather(self, t: torch.Tensor, axis: str, dim: int
+                   ) -> torch.Tensor:
+        """The ranks' ``t`` concatenated along ``dim`` in rank order; the
+        backward sums the cotangents over the ranks and keeps this rank's
+        slice (``all_gather``'s). Built from one differentiable SUM
+        all-reduce of ``t`` placed in zeros, which gloo runs on every
+        device."""
+        n = self.shape[axis]
+        if self.groups[axis] is None:
+            return t
+        r, w = self.index(axis), t.shape[dim]
+        pad = list(t.shape)
+        parts = []
+        for width in (r * w, (n - r - 1) * w):
+            pad[dim] = width
+            parts.append(t.new_zeros(pad))
+        return self.all_reduce(torch.cat([parts[0], t, parts[1]], dim=dim),
+                               axis)
+
+
+def make_host_mesh(data: int = 1, model: int = 1) -> HostMesh:
+    """The trainer's mesh over the processes of the default group (the
+    reference's over whatever devices exist): ``data`` is cut to what
+    ``world // model`` allows, as there. A single process with no group
+    gives {"data": 1, "model": 1}. Every rank of the default group must
+    call it (it makes the row and column groups collectively)."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if model < 1 or n % model:
+        raise ValueError(f"model axis {model} does not divide the {n} "
+                         f"ranks")
+    data = min(data, n // model) or 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if rank >= data * model:
+        raise ValueError(f"rank {rank} lies outside the {data} x {model} "
+                         f"mesh")
+    coords = {"data": rank // model, "model": rank % model}
+    groups = {"data": None, "model": None}
+    # every rank creates every group, in one order
+    for i in range(data):
+        ranks = list(range(i * model, (i + 1) * model))
+        g = dist.new_group(ranks) if model > 1 else None
+        if coords["data"] == i:
+            groups["model"] = g
+    for j in range(model):
+        ranks = list(range(j, data * model, model))
+        g = dist.new_group(ranks) if data > 1 else None
+        if coords["model"] == j:
+            groups["data"] = g
+    return HostMesh(shape={"data": data, "model": model}, coords=coords,
+                    groups=groups)
 
 
 def axis_domain(axis_name: str) -> str:

@@ -32,6 +32,12 @@ dicts), each group followed by one gated cross-attention layer
 serve from a contiguous cache: the self-attention ``kv`` and the static
 cross K/V ``xkv``, projected once at prefill (``frames=`` /
 ``patches=``) and read by every decode step. Neither pages.
+
+Training: ``loss_fn`` is the reference's next-token cross-entropy plus
+the MoE balance loss over ``forward``, which recomputes each layer body
+in backward under ``cfg.remat`` and runs the MoE layers expert-parallel
+under ``use_ep`` and a mesh. Every family backpropagates through eager
+torch ops; the routing's kernels need no backward (``moe.py``).
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels.common import NEG_MASK
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -155,8 +162,10 @@ def _encode(params, cfg, frames, chunk):
     Se = frames.shape[1]
     h = frames + _sinusoidal(Se, cfg.d_model, frames.device).to(frames.dtype)
     pos = torch.arange(Se, device=frames.device)
+    body = _maybe_remat(lambda h, p: T.dense_block(
+        p, cfg, h, pos, causal=False, chunk=chunk)[0], cfg)
     for p in params["enc_layers"]:
-        h, _ = T.dense_block(p, cfg, h, pos, causal=False, chunk=chunk)
+        h = body(h, p)
     return h
 
 
@@ -172,48 +181,123 @@ def param_count(params) -> int:
     return count(params)
 
 
-def forward(params, cfg, tokens, *, frames=None, patches=None, chunk=1024):
+def _maybe_remat(fn, cfg):
+    """``fn`` with its activations recomputed in backward (the reference's
+    ``jax.checkpoint`` around each scanned layer body) when ``cfg.remat``
+    and autograd is on: ``torch.utils.checkpoint.checkpoint`` without
+    reentry, saving the inputs only (policy ``"full"``). The reference's
+    ``"dots"`` (save the matmul outputs too) is set by no config and is
+    refused."""
+    if cfg.remat_policy != "full":
+        raise ValueError(f"remat_policy {cfg.remat_policy!r} is not "
+                         f"supported: the port recomputes whole layer "
+                         f"bodies (\"full\")")
+    if not cfg.remat:
+        return fn
+    from torch.utils.checkpoint import checkpoint
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+    return wrapped
+
+
+def forward(params, cfg, tokens, *, frames=None, patches=None, mesh=None,
+            dp_axes=("data",), use_ep=True, chunk=1024):
     """A full sequence (no cache) -> (logits over the padded vocab, the
     MoE balance loss summed over layers: 0 for the other families).
     ``frames`` (B, enc_seq, d) for encdec, ``patches`` (B, vision_seq, d)
-    for vlm."""
+    for vlm. With ``use_ep`` and a ``mesh`` (``launch.mesh.HostMesh``)
+    the MoE layers run expert-parallel over its ``model`` ranks
+    (``moe.moe_ffn_ep``). With ``cfg.remat`` each layer body (an encdec
+    encoder or decoder layer, a vlm or hybrid group, a moe, dense or ssm
+    layer) is recomputed in backward, as the reference's scan bodies
+    are."""
     _check_family(cfg)
     x = L.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     fam = cfg.family
+
+    def remat(fn, *args):
+        return _maybe_remat(fn, cfg)(*args)
+
     if fam == "encdec":
+        def dec_body(x, p, enc):
+            return T.encdec_dec_block(p, cfg, x, positions, enc_out=enc,
+                                      chunk=chunk)[0]
+
         enc = _encode(params, cfg, frames, chunk)
         for p in params["layers"]:
-            x, _ = T.encdec_dec_block(p, cfg, x, positions, enc_out=enc,
-                                      chunk=chunk)
+            x = remat(dec_body, x, p, enc)
     elif fam == "vlm":
-        for group, pc in zip(params["layers"], params["cross"]):
+        def group_body(x, group, pc):
             for p in group:
                 x, _ = T.dense_block(p, cfg, x, positions, chunk=chunk)
-            x = T.cross_block(pc, cfg, x, patches, positions, chunk=chunk)
+            return T.cross_block(pc, cfg, x, patches, positions, chunk=chunk)
+
+        for group, pc in zip(params["layers"], params["cross"]):
+            x = remat(group_body, x, group, pc)
     elif fam == "hybrid":
-        for group in params["layers"]:
+        def group_body(x, group):
             for p in group:
                 x, _, _ = T.ssm_block(p, cfg, x)
-            x, _ = T.dense_block(params["shared"], cfg, x, positions,
-                                 chunk=chunk)
+            return T.dense_block(params["shared"], cfg, x, positions,
+                                 chunk=chunk)[0]
+
+        def ssm_body(x, p):
+            return T.ssm_block(p, cfg, x)[0]
+
+        for group in params["layers"]:
+            x = remat(group_body, x, group)
         for p in params["tail"] or ():
-            x, _, _ = T.ssm_block(p, cfg, x)
+            x = remat(ssm_body, x, p)
     else:
-        if _first_dense(cfg):
-            x, _ = T.dense_block(params["layer0"], cfg, x, positions,
-                                 chunk=chunk)
+        def dense_body(x, p):
+            return T.dense_block(p, cfg, x, positions, chunk=chunk)[0]
+
+        def moe_body(x, p):
+            x, aux, _ = T.moe_block(p, cfg, x, positions, mesh=mesh,
+                                    dp_axes=dp_axes, use_ep=use_ep,
+                                    chunk=chunk)
+            return x, aux
+
+        def ssm_body(x, p):
+            return T.ssm_block(p, cfg, x)[0]
+
+        if _first_dense(cfg):   # not scanned in the reference: no remat
+            x = dense_body(x, params["layer0"])
+        body = {"dense": dense_body, "moe": moe_body, "ssm": ssm_body}[fam]
         for p in params["layers"]:
-            if fam == "dense":
-                x, _ = T.dense_block(p, cfg, x, positions, chunk=chunk)
-            elif fam == "moe":
-                x, aux, _ = T.moe_block(p, cfg, x, positions, chunk=chunk)
+            if fam == "moe":
+                x, aux = remat(body, x, p)
                 aux_total = aux_total + aux
             else:
-                x, _, _ = T.ssm_block(p, cfg, x)
+                x = remat(body, x, p)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.lm_head(params["head"], x), aux_total
+
+
+def loss_fn(params, cfg, tokens, labels, *, frames=None, patches=None,
+            mesh=None, dp_axes=("data",), use_ep=True, aux_weight=0.01):
+    """Next-token cross-entropy over the true vocab -> (ce + aux_weight *
+    aux, (ce, aux)), as the reference's: logits in float32, the padded
+    columns set to ``NEG_MASK`` before the log-sum-exp, the mean over
+    every (row, position). The label's logit is a gather, which equals
+    the reference's masked sum exactly (one nonzero term)."""
+    logits, aux = forward(params, cfg, tokens, frames=frames,
+                          patches=patches, mesh=mesh, dp_axes=dp_axes,
+                          use_ep=use_ep)
+    logits = logits.to(torch.float32)
+    V = _vocab(cfg)
+    iota = torch.arange(V, device=logits.device)
+    logits = torch.where(iota < cfg.vocab, logits, NEG_MASK)
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+    label_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ce = torch.mean(lse - label_logit)
+    return ce + aux_weight * aux, (ce, aux)
 
 
 # ---------------------------------------------------------------------------

@@ -24,10 +24,23 @@ library call stands in for it: ``torch._grouped_mm`` with the bucket ends
 computed on the device from the ``accumulate`` (no host sync), where its
 dtype and stride checks pass on the card (bfloat16, 16-byte aligned rows,
 sm_90); otherwise, and on the CPU, a loop over experts with
-``torch.matmul``. The router's product runs in IEEE float32 (no TF32): a
-flipped top-k id changes a token.
+``torch.matmul``, whose per-expert products are joined by ``torch.cat``
+(no ``out=``, so autograd records them). The router's product runs in
+IEEE float32 (no TF32): a flipped top-k id changes a token.
 
-The shard_map expert-parallel ``moe_ffn_ep`` is not ported yet.
+``moe_ffn_ep`` is the reference's shard_map expert-parallel path over the
+ranks of a ``launch.mesh.HostMesh``: each rank takes its slice of the
+sequence, owns ``n_experts / ep`` experts and exchanges the capacity
+buffers with two differentiable all_to_alls a layer.
+
+Training: both dispatches backpropagate. The kernels under the routing
+(``topk``, ``sortperm``; kernel rows 1-2 of PERF.md) need no backward of
+their own: ``sortperm``'s and ``bincount``'s results are integers that
+feed only index arithmetic, and ``topk``'s values are gathered from the
+differentiable probabilities (``sort_kernel.bitonic_topk_batched``).
+The reference has no ``custom_vjp`` either. The combine's
+``segmented_reduce`` over (T*k, d) values carries its graph on the
+portable path, where the registry sends any operand that requires grad.
 """
 from __future__ import annotations
 
@@ -130,13 +143,14 @@ def grouped_matmul(x, w, counts, ends, *, grouped=None):
         grouped = grouped_mm_applies(x, w)
     if grouped:
         return torch._grouped_mm(x, w, offs=ends.to(torch.int32))
-    out = x.new_empty((x.shape[0], w.shape[2]))
-    start = 0
+    parts, start = [], 0
     for e, n in enumerate(counts.tolist()):
         if n:
-            torch.matmul(x[start:start + n], w[e], out=out[start:start + n])
+            parts.append(x[start:start + n] @ w[e])
         start += n
-    return out
+    if start < x.shape[0] or not parts:   # rows past the last bucket
+        parts.append(x.new_zeros((x.shape[0] - start, w.shape[2])))
+    return torch.cat(parts)
 
 
 def _expert_ffn_bucketed(p, xs, counts, offsets, grouped=None):
@@ -180,11 +194,17 @@ def _scatter_to_slots(rows, slot, keep, n_slots):
     return buf[:n_slots]
 
 
-def moe_ffn(p, cfg, x, *, capacity_factor=None, dispatch="bucketed"):
+def moe_ffn(p, cfg, x, *, capacity_factor=None, dispatch="bucketed",
+            mesh=None, dp_axes=("data",)):
     """Single-program MoE FFN. x: (B, S, d) -> (y, aux_loss).
 
     ``dispatch``: ``"bucketed"`` (the reference's default) or
-    ``"padded"``; both apply the same capacity drop policy."""
+    ``"padded"``; both apply the same capacity drop policy. With a
+    ``mesh`` (data-parallel training, x this rank's rows) ``occ`` and
+    ``imp`` are averaged over ``dp_axes`` before their product, so
+    ``aux`` is the whole batch's balance loss, as the reference's jit
+    computes it over the sharded batch; the capacity is the rank's own,
+    as in its shard_map body (``moe_ffn_ep``)."""
     if dispatch not in DISPATCHES:
         raise ValueError(f"unknown dispatch {dispatch!r}")
     B, S, d = x.shape
@@ -195,6 +215,9 @@ def moe_ffn(p, cfg, x, *, capacity_factor=None, dispatch="bucketed"):
 
     xf = x.reshape(T, d)
     ids, gates, occ, imp = _route(p, cfg, xf)
+    for ax in dp_axes if mesh is not None else ():
+        occ = mesh.mean(occ, ax)
+        imp = mesh.mean(imp, ax)
     aux = _aux_loss(cfg, occ, imp)
     perm, slot, keep, _, counts, offsets = _dispatch_indices(
         cfg, ids, T, capacity)
@@ -226,3 +249,80 @@ def moe_ffn(p, cfg, x, *, capacity_factor=None, dispatch="bucketed"):
     if cfg.n_shared_experts:
         out = out + L.swiglu(p["shared"], xf)
     return out.reshape(B, S, d), aux
+
+
+def moe_ffn_ep(p, cfg, x, *, mesh, dp_axes=("data",), ep_axis="model",
+               capacity_factor=None):
+    """Expert-parallel MoE FFN over the ``ep_axis`` ranks of ``mesh`` (a
+    ``launch.mesh.HostMesh``, one process a rank). x: (B, S, d), this
+    data rank's batch, the same on every rank of ``ep_axis`` -> (y (B,
+    S, d), aux), both the same on those ranks.
+
+    As the reference's shard_map body: rank r takes sequence slice r
+    (S must divide by the axis size) and owns experts [r * E_l, (r + 1) *
+    E_l) of ``p``'s stacks (E_l = n_experts / ep); its tokens are routed
+    and scattered into capacity-padded (E, C, d) buffers, exchanged so
+    each rank receives its experts' tokens from every peer, run through
+    the batched expert FFN and exchanged back (two all_to_alls), then
+    combined. ``occ`` and ``imp`` are averaged over ``ep_axis`` and
+    ``dp_axes`` before their product, so ``aux`` is the global balance
+    loss. The slices of y are gathered over ``ep_axis`` at the end
+    (the reference's GSPMD gathers its sequence-sharded output where it
+    is used). Shared experts, when the config has them, run replicated
+    on the rank's tokens (the reference column-shards them over the
+    axis).
+
+    The collectives are differentiable (``torch.distributed.nn``), and
+    their backward sums the cotangents over the ranks. Gradient
+    convention: every rank backpropagates the same replicated loss, and
+    the rank-MEAN of the ranks' parameter gradients (a DP all-reduce
+    mean) is the single-program gradient: the gather and the all_reduce
+    of ``occ``/``imp`` each count the replicated loss once a rank, and
+    an expert's weights get their gradient on the rank that owns them
+    only. Summing instead of averaging gives ep times the gradient.
+    """
+    ep = mesh.shape[ep_axis]
+    if cfg.n_experts % ep or x.shape[1] % ep:
+        raise ValueError(f"n_experts {cfg.n_experts} and sequence "
+                         f"{x.shape[1]} must divide by the {ep_axis!r} "
+                         f"axis size {ep}")
+    E_l = cfg.n_experts // ep
+    B, S, d = x.shape
+    S_l = S // ep
+    r = mesh.index(ep_axis)
+    k = cfg.top_k
+    cf = capacity_factor or cfg.moe_capacity_factor
+    T_l = B * S_l
+    capacity = max(int(T_l * k * cf / cfg.n_experts), 4)
+
+    xf = x[:, r * S_l:(r + 1) * S_l].reshape(T_l, d)
+    ids, gates, occ, imp = _route(p, cfg, xf)
+    for ax in (ep_axis, *dp_axes):   # the global balance loss exactly
+        occ = mesh.mean(occ, ax)
+        imp = mesh.mean(imp, ax)
+    aux = _aux_loss(cfg, occ, imp)
+    perm, slot, keep, _, _, _ = _dispatch_indices(cfg, ids, T_l, capacity)
+    perm = perm.long()
+    token_of = perm // k
+    gate_of = gates.reshape(-1)[perm]
+
+    buf = _scatter_to_slots(xf[token_of], slot, keep,
+                            cfg.n_experts * capacity)
+    # (ep, E_l, C, d): row q of what a rank receives holds peer q's tokens
+    # for this rank's experts
+    buf = mesh.all_to_all(buf.reshape(ep, E_l, capacity, d), ep_axis)
+    local = {w: p[w][r * E_l:(r + 1) * E_l]
+             for w in ("w_gate", "w_up", "w_down")}
+    ye = _expert_ffn(local, buf.transpose(0, 1).reshape(
+        E_l, ep * capacity, d))
+    ye = ye.reshape(E_l, ep, capacity, d).transpose(0, 1)
+    ye = mesh.all_to_all(ye, ep_axis).reshape(cfg.n_experts * capacity, d)
+
+    contrib = torch.where(keep[:, None], ye[slot.long()] * gate_of[:, None],
+                          0)
+    out = torch.zeros((T_l, d), dtype=x.dtype, device=x.device).index_add(
+        0, token_of, contrib.to(x.dtype))
+    if cfg.n_shared_experts:
+        out = out + L.swiglu(p["shared"], xf)
+    y = mesh.all_gather(out.reshape(B, S_l, d), ep_axis, dim=1)
+    return y, aux

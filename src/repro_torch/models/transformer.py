@@ -72,9 +72,13 @@ def dense_block(p, cfg, x, positions, *, cache=None, cache_index=None,
     return x, new_cache
 
 
-def moe_block(p, cfg, x, positions, *, cache=None, cache_index=None,
-              block_table=None, page_size=None, chunk=1024):
-    """Attention + the single-program MoE FFN: (x, aux_loss, cache)."""
+def moe_block(p, cfg, x, positions, *, mesh=None, dp_axes=("data",),
+              cache=None, cache_index=None, block_table=None,
+              page_size=None, chunk=1024, use_ep=True):
+    """Attention + the MoE FFN: (x, aux_loss, cache). With ``use_ep`` and
+    a ``mesh`` (``launch.mesh.HostMesh``) the FFN is the expert-parallel
+    ``moe_ffn_ep`` over its ``model`` ranks, else the single-program
+    ``moe_ffn`` (its balance loss over the mesh's ``dp_axes``)."""
     h, new_cache = L.attention_apply(
         p["attn"], cfg, L.rmsnorm(p["ln1"], x, cfg.norm_eps),
         positions=positions, causal=True, cache=cache,
@@ -82,7 +86,11 @@ def moe_block(p, cfg, x, positions, *, cache=None, cache_index=None,
         page_size=page_size, chunk=chunk,
     )
     x = x + h
-    y, aux = MOE.moe_ffn(p["moe"], cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    z = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if use_ep and mesh is not None:
+        y, aux = MOE.moe_ffn_ep(p["moe"], cfg, z, mesh=mesh, dp_axes=dp_axes)
+    else:
+        y, aux = MOE.moe_ffn(p["moe"], cfg, z, mesh=mesh, dp_axes=dp_axes)
     return x + y, aux, new_cache
 
 

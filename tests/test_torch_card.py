@@ -1161,6 +1161,94 @@ def test_grouped_mm_equals_the_expert_loop(gen):
                                atol=1e-2)
 
 
+def test_grouped_mm_gradients_equal_the_expert_loop(gen):
+    """The training path's backward through ``torch._grouped_mm`` against
+    the per-expert loop's (``grouped=False``) at granite-moe-1b's widths,
+    empty buckets included: the rows' and the weights' gradients of a
+    random bf16 cotangent, within one bf16 ulp of each (rtol 2^-7) and
+    2^-7 of the gradient's largest |value|."""
+    E, K, N = 32, 1024, 512
+    counts = torch.randint(0, 40, (E,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    counts[5] = 0
+    rows = int(counts.sum())
+    x = torch.randn(rows, K, generator=gen, device="cuda").bfloat16()
+    w = ((torch.rand(E, K, N, generator=gen, device="cuda") * 2 - 1)
+         / 32).bfloat16()
+    c = torch.randn(rows, N, generator=gen, device="cuda").bfloat16()
+    ends = torch.cumsum(counts, 0).to(torch.int32)
+    assert MOE.grouped_mm_applies(x, w)
+    grads = []
+    for grouped in (True, False):
+        xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(
+            True)
+        y = MOE.grouped_matmul(xl, wl, counts, ends, grouped=grouped)
+        grads.append(torch.autograd.grad((y * c).float().sum(), (xl, wl)))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(
+            got.float(), want.float(), rtol=2 ** -7,
+            atol=2 ** -7 * float(want.float().abs().max()))
+
+
+def test_requires_grad_is_refused_on_the_card(gen):
+    """A card operand that requires grad never reaches a kernel whose
+    output has no grad_fn: ``backend="cuda"`` raises; ``auto`` runs the
+    portable path, counted, and backpropagates; the same call without
+    autograd launches the kernels."""
+    from repro_torch.kernels import common as KC
+
+    x = torch.randn(1 << 16, generator=gen, device="cuda")
+    off = torch.arange(0, (1 << 16) + 1, 64, dtype=torch.int32,
+                       device="cuda")
+    calls = (("sort", lambda v, **kw: ak.merge_sort(v, **kw)),
+             ("mapreduce", lambda v, **kw: ak.reduce(torch.add, v, init=0.0,
+                                                     **kw)),
+             ("accumulate", lambda v, **kw: ak.accumulate(torch.add, v,
+                                                          init=0.0, **kw)),
+             ("segmented_reduce", lambda v, **kw: ak.segmented_reduce(
+                 torch.add, v, off, init=0.0, **kw)))
+    for name, call in calls:
+        live = x.clone().requires_grad_(True)
+        with pytest.raises(TypeError, match="requires grad"):
+            call(live, backend="cuda")
+        registry.reset_stats()
+        KC.reset_launch_count()
+        got = call(live)
+        torch.cuda.synchronize()
+        assert registry.stats(name)["portable_calls"] == 1, name
+        assert KC.launch_count() == 0 and got.grad_fn is not None, name
+        (g,) = torch.autograd.grad(got.float().sum(), live)
+        assert bool(torch.isfinite(g).all()), name
+        with torch.no_grad():
+            call(live)
+        torch.cuda.synchronize()
+        assert KC.launch_count() > 0, name
+
+
+def test_topk_kernel_route_keeps_the_gradient(gen):
+    """The router's top-k on the kernel route (``switch_below`` 0) with
+    probabilities that require grad: launched, not refused, the same ids
+    and a bitwise equal gradient as the portable route's."""
+    from repro_torch.kernels import common as KC
+
+    probs = torch.softmax(torch.randn(8192, 32, generator=gen,
+                                      device="cuda"), dim=-1)
+    w = torch.randn(8192, 8, generator=gen, device="cuda")
+    out = {}
+    for route in ("cuda", "torch"):
+        live = probs.clone().requires_grad_(True)
+        KC.reset_launch_count()
+        with registry.tuning.overrides(topk={"switch_below": 0}):
+            vals, idx = ak.topk(live, 8, backend=route)
+        torch.cuda.synchronize()
+        launched = KC.launch_counts().get("topk", 0)
+        (g,) = torch.autograd.grad((vals * w).sum(), live)
+        out[route] = (vals.detach(), idx, g, launched)
+    assert out["cuda"][3] > 0 and out["torch"][3] == 0
+    for a, b in zip(out["cuda"][:3], out["torch"][:3]):
+        assert torch.equal(a, b)
+
+
 def test_moe_ffn_on_the_card(gen):
     """The granite smoke MoE FFN in bfloat16 at prefill size: the prefill
     sortperm reaches the bitonic kernels (closed-form launches), the

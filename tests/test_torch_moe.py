@@ -120,3 +120,32 @@ def test_routing_presets_keep_the_reference_values():
             assert registry.tuning.lookup(name)["switch_below"] == 2048
     with pytest.raises(ValueError, match="unknown dispatch"):
         MOE.moe_ffn(None, None, torch.zeros(1, 1, 1), dispatch="ragged")
+
+
+@pytest.mark.parametrize("dispatch", ["bucketed", "padded"])
+def test_moe_ffn_backward_matches_jax_grad(dispatch):
+    """Backward through ``moe_ffn`` (the reference's
+    ``test_moe_differentiable``, tests/test_moe.py:84): every gradient of
+    sum(y^2) + 0.01 aux against ``jax.grad`` of the reference's on the
+    same parameters, each leaf within rtol 2e-4 and 2e-5 of its largest
+    |value|; the router's is nonzero (the gates are differentiable)."""
+    rcfg, cfg, rp, p, _ = _setup(4)
+    x = np.random.default_rng(4).standard_normal(
+        (1, 16, cfg.d_model)).astype(np.float32)
+
+    def rloss(rp):
+        y, aux = RMOE.moe_ffn(rp, rcfg, jnp.asarray(x), dispatch=dispatch)
+        return jnp.sum(y * y) + 0.01 * aux
+
+    want = jax.grad(rloss)(rp)
+    live = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    y, aux = MOE.moe_ffn(live, cfg, torch.from_numpy(x), dispatch=dispatch)
+    grads = torch.autograd.grad(torch.sum(y * y) + 0.01 * aux,
+                                list(live.values()))
+    for (name, w), g in zip(live.items(), grads):
+        wg = np.asarray(want[name])
+        assert torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.numpy(), wg, rtol=2e-4,
+                                   atol=2e-5 * float(np.abs(wg).max()),
+                                   err_msg=name)
+    assert float(grads[0].abs().sum()) > 0    # the router

@@ -230,6 +230,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
         import repro_torch.launch.mesh, repro_torch.core.paging
         import repro_torch.models.ssm, repro_torch.models.model
         import repro_torch.configs.mamba2_1_3b, repro_torch.configs.zamba2_7b
+        import repro_torch.optim, repro_torch.data, repro_torch.ckpt
+        import repro_torch.launch.train, repro_torch.tree
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
@@ -264,7 +266,11 @@ def test_no_port_file_imports_jax_or_reference():
                 "tune/search.py", "tune/__main__.py", "launch/mesh.py",
                 "configs/glm4_9b.py", "configs/yi_34b.py",
                 "configs/deepseek_67b.py", "models/ssm.py",
-                "configs/mamba2_1_3b.py", "configs/zamba2_7b.py"):
+                "configs/mamba2_1_3b.py", "configs/zamba2_7b.py",
+                "optim/__init__.py", "optim/adamw.py",
+                "optim/compression.py", "data/__init__.py",
+                "data/pipeline.py", "ckpt/__init__.py",
+                "ckpt/checkpoint.py", "launch/train.py", "tree.py"):
         assert any(f.endswith("repro_torch/" + new) for f in files), new
     for f in files:
         bad = {m for m in _imported_roots(f)} & {"jax", "jaxlib", "repro"}
@@ -301,3 +307,76 @@ def test_metrics_collector_snapshot_equals_registry_stats():
                 for s in snap.get("ak_kernel_launches_total",
                                   {"samples": []})["samples"]}
     assert launches == {k: float(v) for k, v in KC.kernel_launches().items()}
+
+
+# -- a kernel route never cuts the autograd graph ----------------------------
+
+def _grad_calls():
+    """(name, call on a float operand) of the primitives whose kernel
+    route writes its result through a launch (no grad_fn)."""
+    off = torch.tensor([0, 3, 3, 7, 12], dtype=torch.int32)
+    return [
+        ("sort", lambda x, **kw: ak.merge_sort(x, **kw)),
+        ("mapreduce", lambda x, **kw: ak.reduce(torch.add, x, init=0.0,
+                                                **kw)),
+        ("accumulate", lambda x, **kw: ak.accumulate(torch.add, x,
+                                                     init=0.0, **kw)),
+        ("segmented_reduce", lambda x, **kw: ak.segmented_reduce(
+            torch.add, x, off, init=0.0, **kw)),
+        ("segmented_scan", lambda x, **kw: ak.segmented_scan(
+            torch.add, x, off, init=0.0, **kw)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_requires_grad_is_refused_by_kernels_without_a_graph(case,
+                                                             monkeypatch):
+    """An operand that requires grad never reaches a kernel whose output
+    carries no grad_fn: ``backend="cuda"`` raises ``TypeError``; under
+    ``auto`` on a card operand (modelled by resolving auto to cuda) the
+    call runs portable, counted, and backpropagates; without autograd,
+    or on a plain operand, the kernel route is taken as before."""
+    name, call = _grad_calls()[case]
+    x = torch.randn(12, requires_grad=True)
+    with pytest.raises(TypeError, match="requires grad"):
+        call(x, backend="cuda")
+    want = call(x, backend="torch")
+    with torch.no_grad():
+        call(x, backend="cuda")
+    call(x.detach(), backend="cuda")
+    assert registry.get(name).cache_backends() == ("cuda", "torch")
+    registry.reset_stats()
+    monkeypatch.setattr(dispatch, "resolve", lambda *a, **k: "cuda")
+    got = call(x)
+    assert registry.stats(name)["portable_calls"] == 1
+    assert got.grad_fn is not None
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    (g,) = torch.autograd.grad(got.sum(), x)
+    assert bool(torch.isfinite(g).all()) and bool(g.abs().sum() > 0)
+
+
+def test_kernel_grad_is_declared_per_primitive():
+    """The records whose kernel route keeps the graph (topk's values are
+    gathered from its input) or returns integers or booleans; every other
+    kernel route is refused an operand that requires grad."""
+    keeps = {n for n in registry.names() if registry.get(n).kernel_grad}
+    assert keeps == {"argsort", "argsort_batched", "searchsorted", "topk",
+                     "nucleus_mask"}
+
+
+def test_topk_kernel_route_keeps_the_gradient():
+    """topk on the kernel route (its plain version here) with keys that
+    require grad: not refused, and the same gradient as the portable
+    route; integer routing ids stay on the kernel route."""
+    x = torch.randn(6, 32, requires_grad=True)
+    vals_k, idx_k = ak.topk(x, 4, backend="cuda")
+    vals_t, idx_t = ak.topk(x, 4, backend="torch")
+    assert registry.get("topk").cache_backends() == ("cuda", "torch")
+    assert torch.equal(idx_k, idx_t) and vals_k.grad_fn is not None
+    w = torch.randn(6, 4)
+    (gk,) = torch.autograd.grad((vals_k * w).sum(), x)
+    (gt,) = torch.autograd.grad((vals_t * w).sum(), x)
+    assert torch.equal(gk, gt)
+    ids = torch.randint(0, 8, (64,), dtype=torch.int32)
+    ak.sortperm(ids, backend="cuda")
+    assert registry.get("argsort").cache_backends() == ("cuda",)
