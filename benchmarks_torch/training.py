@@ -20,7 +20,17 @@ corpus through ``launch.train.train_loop``; and the pieces around it:
     processes on the card (gloo, staged through host memory), against
     the single-rank ``moe_ffn`` forward and backward;
   * ``shuffle_check``: ``data.global_shuffle_by_sort`` of ``SHUFFLE_N``
-    ids over 4 card ranks.
+    ids over 4 card ranks;
+  * ``sharded_check``: the sharded train step (FSDP x TP x EP,
+    ``launch.train.jitted_train_step``) over 4 card ranks on a 2 x 2
+    ("data", "model") mesh: ``train_loop`` at full width and
+    ``SHARD_LAYERS`` layers, then
+    one step's loss and gradients at ``SHARD_PARITY_LAYERS`` layers, held
+    by the caller to the one-rank step; ``state_closed_form`` gives each
+    rank's state bytes from the placements;
+  * ``gloo_cuda_probe``: which gloo collectives take card tensors
+    directly (the sharded step stages every card tensor through host
+    memory either way).
 
     PYTHONPATH=src:. python -m benchmarks_torch.training [--layers N]
         [--steps S] [--seed S] [--out F]
@@ -33,6 +43,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import tempfile
 import time
@@ -53,6 +64,10 @@ ARCH = "granite_moe_1b"
 BATCH, SEQ, STEPS, LR = 8, 1024, 30, 1e-3
 EP_RANKS, EP_BATCH, EP_SEQ = 4, 4, 2048
 SHUFFLE_RANKS, SHUFFLE_N = 4, 1 << 24
+SHARD_MESH, SHARD_STEPS, SHARD_PARITY_LAYERS = (2, 2), 3, 2
+#: the sharded run's depth: 16 of 24 layers keeps phase 14 within its
+#: 150 s on a slower host (all 24 took 131.9-157.8 s; PERF.md section 4)
+SHARD_LAYERS = 16
 BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 DEVICE = "cuda"
 
@@ -242,8 +257,9 @@ def profiled_step(cfg, params, opt, batch, lr: float = LR) -> dict:
 def _ep_rank(rank: int, tmp: str, nranks: int, device: str,
              cfg) -> None:
     """One rank of ``ep_check``: join the gloo group, run ``moe_ffn_ep``
-    forward and backward on the card, save its expert slice's gradients,
-    the router's, y and aux (rank 0), and its times."""
+    forward and backward on the card on its experts of the stacks, save
+    their gradients, the router's, y and aux (rank 0), the forward's
+    collectives and its times."""
     import torch.distributed as dist
 
     try:
@@ -251,8 +267,8 @@ def _ep_rank(rank: int, tmp: str, nranks: int, device: str,
         dist.init_process_group("gloo", store=store, rank=rank,
                                 world_size=nranks)
         try:
-            from repro_torch.core import distributed as D
             from repro_torch.launch.mesh import make_host_mesh
+            from repro_torch.models import sharding as SH
 
             cuda = torch.device(device).type == "cuda"
             sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -260,29 +276,30 @@ def _ep_rank(rank: int, tmp: str, nranks: int, device: str,
                 torch.cuda.set_device(0)
             inp = torch.load(os.path.join(tmp, "in.pt"))
             mesh = make_host_mesh(1, nranks)
+            grid = SH.grid_of(mesh)
+            specs = SH.param_spec_tree({"moe": inp["p"]}, cfg,
+                                       fsdp=("data",))["moe"]
             x = inp["x"].to(device)
-            live = {k: v.to(device).requires_grad_(True)
+            live = {k: SH.local_shard(v, grid, specs[k]).contiguous()
+                    .to(device).requires_grad_(True)
                     for k, v in inp["p"].items()}
             dist.barrier()
-            D.reset_collective_counts()
+            SH.reset_collective_stats()
             sync()
             t0 = time.perf_counter()
             y, aux = MOE.moe_ffn_ep(live, cfg, x, mesh=mesh,
                                     capacity_factor=float(cfg.n_experts))
             sync()
             t1 = time.perf_counter()
+            coll = {k: v["count"] for k, v in SH.collective_stats().items()}
             loss = torch.sum(y.float() ** 2) + 0.01 * aux
             grads = dict(zip(live, torch.autograd.grad(loss,
                                                        list(live.values()))))
             sync()
             t2 = time.perf_counter()
-            E_l = cfg.n_experts // nranks
-            lo = rank * E_l
-            out = {"router": grads["router"].cpu(),
-                   **{w: grads[w][lo:lo + E_l].cpu()
-                      for w in ("w_gate", "w_up", "w_down")},
+            out = {**{w: g.cpu() for w, g in grads.items()},
                    "forward_s": t1 - t0, "backward_s": t2 - t1,
-                   "collectives": D.collective_counts()}
+                   "collectives": coll}
             if rank == 0:
                 out.update(y=y.detach().cpu(), aux=float(aux.detach()))
             torch.save(out, os.path.join(tmp, f"out{rank}.pt"))
@@ -301,40 +318,24 @@ def ep_check(seed: int, nranks: int = EP_RANKS, batch: int = EP_BATCH,
     over ``nranks`` card processes with ``capacity_factor = n_experts``
     (nothing drops) against the single-rank ``moe_ffn`` on the same
     inputs, forward and backward of sum(y^2) + 0.01 aux: y and aux, and
-    each expert weight's and the router's gradient (the ranks' mean:
-    ``moe_ffn_ep``'s convention), as the largest |EP - local| over the
-    largest |local|. ``cfg``: granite's published config by default."""
+    each expert weight's and the router's gradient (each rank's gradient
+    of its experts is their whole gradient, and every rank's router
+    gradient is the whole one: ``moe_ffn_ep``'s Megatron convention), as
+    the largest |EP - local| over the largest |local|. ``cfg``: granite's
+    published config by default."""
     cfg = config() if cfg is None else cfg
     gen = torch.Generator(device=device).manual_seed(seed)
     p = MOE.moe_init(gen, cfg, device)
     x = torch.randn((batch, seq, cfg.d_model), generator=gen,
                     device=device).to(cfg.dtype)
-    ctx = torch.multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         torch.save({"x": x.cpu(), "p": {k: v.cpu() for k, v in p.items()}},
                    os.path.join(tmp, "in.pt"))
         t0 = time.perf_counter()
-        procs = [ctx.Process(target=_ep_rank,
-                             args=(r, tmp, nranks, device, cfg))
-                 for r in range(nranks)]
-        for pr in procs:
-            pr.start()
-        deadline = time.monotonic() + timeout
-        try:
-            for pr in procs:
-                pr.join(max(deadline - time.monotonic(), 0.0))
-        finally:
-            for pr in procs:
-                if pr.is_alive():
-                    pr.kill()
-                    pr.join()
+        procs = _spawn(_ep_rank, (tmp, nranks, device, cfg), nranks)
+        _join_ranks(procs, tmp, nranks, time.monotonic() + timeout,
+                    "moe_ffn_ep")
         wall = time.perf_counter() - t0
-        errs = [open(os.path.join(tmp, f"err{r}.txt")).read()
-                for r in range(nranks)
-                if os.path.exists(os.path.join(tmp, f"err{r}.txt"))]
-        if errs or any(pr.exitcode != 0 for pr in procs):
-            raise RuntimeError("moe_ffn_ep ranks failed:\n" + "\n".join(
-                errs or [f"exit codes {[pr.exitcode for pr in procs]}"]))
         outs = [torch.load(os.path.join(tmp, f"out{r}.pt"))
                 for r in range(nranks)]
     live = {k: v.clone().requires_grad_(True) for k, v in p.items()}
@@ -346,9 +347,9 @@ def ep_check(seed: int, nranks: int = EP_RANKS, batch: int = EP_BATCH,
         got, ref = got.float().to(ref.device), ref.float()
         return float((got - ref).abs().max() / ref.abs().max())
 
-    got_g = {w: torch.cat([o[w] for o in outs]) / nranks
+    got_g = {w: torch.cat([o[w] for o in outs])
              for w in ("w_gate", "w_up", "w_down")}
-    got_g["router"] = sum(o["router"] for o in outs) / nranks
+    got_g["router"] = outs[0]["router"]
     return {
         "tokens": batch * seq, "ranks": nranks,
         "y_share": share(outs[0]["y"], y.detach()),
@@ -359,6 +360,8 @@ def ep_check(seed: int, nranks: int = EP_RANKS, batch: int = EP_BATCH,
         "rank_forward_s": [o["forward_s"] for o in outs],
         "rank_backward_s": [o["backward_s"] for o in outs],
         "rank_collectives": [o["collectives"] for o in outs],
+        "router_grads_equal": all(torch.equal(o["router"], outs[0]["router"])
+                                  for o in outs),
         "launcher_wall_s": wall,
     }
 
@@ -380,6 +383,289 @@ def shuffle_check(seed: int, n: int | None = None,
     got = torch.cat([per[r, :int(count[r])] for r in range(nranks)])
     return {"ids": got, "count": count, "stats": stats,
             "keys": shuffle_keys(n, seed), "wall_s": wall}
+
+
+# -- the sharded step over card ranks ----------------------------------------
+
+def _join_ranks(procs, tmp, nranks, deadline, what):
+    """Wait for the ranks (killing them at ``deadline``) and raise with
+    their tracebacks when any failed."""
+    try:
+        for pr in procs:
+            pr.join(max(deadline - time.monotonic(), 0.0))
+    finally:
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+    errs = [open(os.path.join(tmp, f"err{r}.txt")).read()
+            for r in range(nranks)
+            if os.path.exists(os.path.join(tmp, f"err{r}.txt"))]
+    if errs or any(pr.exitcode != 0 for pr in procs):
+        raise RuntimeError(f"{what} ranks failed:\n" + "\n".join(
+            errs or [f"exit codes {[pr.exitcode for pr in procs]}"]))
+
+
+def _spawn(target, args, nranks):
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, *args))
+             for r in range(nranks)]
+    for pr in procs:
+        pr.start()
+    return procs
+
+
+def _init_rank(rank, tmp, nranks, device, timeout_s):
+    import datetime
+
+    import torch.distributed as dist
+
+    store = dist.FileStore(os.path.join(tmp, "store"), nranks)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=nranks,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    torch.set_num_threads(2)   # four ranks share the host's cores
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(0)
+
+
+PROBE_OPS = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+             "reduce_scatter_tensor", "all_to_all_single")
+
+
+def _probe_rank(rank: int, tmp: str, nranks: int, device: str) -> None:
+    import torch.distributed as dist
+
+    try:
+        _init_rank(rank, tmp, nranks, device, 60)
+        x = torch.full((nranks * 4,), float(rank + 1), device=device)
+        calls = {
+            "all_reduce": lambda: dist.all_reduce(x.clone()),
+            "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+            "all_gather": lambda: dist.all_gather(
+                [torch.empty_like(x) for _ in range(nranks)], x),
+            "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                torch.empty(nranks * x.numel(), device=device), x),
+            "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+                torch.empty(4, device=device), x),
+            "all_to_all_single": lambda: dist.all_to_all_single(
+                torch.empty_like(x), x),
+        }
+        out = {}
+        for name in PROBE_OPS:
+            try:
+                calls[name]()
+                if x.is_cuda:
+                    torch.cuda.synchronize()
+                out[name] = "ok"
+            except Exception as e:  # recorded: the probe's finding
+                out[name] = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+            dist.barrier()
+        torch.save(out, os.path.join(tmp, f"out{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(tmp, f"err{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def gloo_cuda_probe(nranks: int = 4, device: str = DEVICE,
+                    timeout: float = 120.0) -> dict:
+    """Each collective of ``PROBE_OPS`` called by ``nranks`` gloo
+    processes on ``device`` tensors directly: "ok" or the error each
+    rank saw (rank 0's; the ranks agree or the dict says so)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = _spawn(_probe_rank, (tmp, nranks, device), nranks)
+        _join_ranks(procs, tmp, nranks, time.monotonic() + timeout,
+                    "gloo probe")
+        outs = [torch.load(os.path.join(tmp, f"out{r}.pt"))
+                for r in range(nranks)]
+    return {name: outs[0][name] if all(o[name] == outs[0][name]
+                                       for o in outs)
+            else [o[name] for o in outs] for name in PROBE_OPS}
+
+
+def state_closed_form(cfg, mesh_shape=SHARD_MESH) -> list:
+    """Each rank's bytes of params and of the two float32 moments, from
+    ``param_spec_tree``'s placements of the meta params (row-major ranks
+    on the ("data", "model") grid)."""
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.launch.train import param_shapes
+    from repro_torch.models import sharding as SH
+
+    like = param_shapes(cfg)
+    specs = SH.param_spec_tree(like, cfg, fsdp=("data",))
+    out = []
+    for rank in range(mesh_shape[0] * mesh_shape[1]):
+        grid = SH.grid_of(HostMesh(
+            shape={"data": mesh_shape[0], "model": mesh_shape[1]},
+            coords={"data": rank // mesh_shape[1],
+                    "model": rank % mesh_shape[1]},
+            groups={"data": None, "model": None}))
+        sizes = []
+        SH.map_with_specs(lambda t, s: sizes.append(
+            (math.prod(SH.local_shape(t.shape, grid, s)),
+             t.element_size())), like, specs)
+        out.append({"param_bytes": sum(n * b for n, b in sizes),
+                    "moment_bytes": 2 * 4 * sum(n for n, _ in sizes)})
+    return out
+
+
+def _sharded_rank(rank: int, tmp: str, nranks: int, device: str, cfg,
+                  pcfg, seed: int, steps: int, batch: int, seq: int) -> None:
+    """One rank of ``sharded_check``."""
+    import torch.distributed as dist
+
+    try:
+        _init_rank(rank, tmp, nranks, device, 900)
+        from repro_torch.core import registry
+        from repro_torch.kernels import common as C
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.train import (init_sharded, sharded_grads,
+                                              train_loop)
+        from repro_torch.models import sharding as SH
+
+        cuda = torch.device(device).type == "cuda"
+        sync = torch.cuda.synchronize if cuda else (lambda: None)
+        mesh = make_host_mesh(*SHARD_MESH)
+        grid = SH.grid_of(mesh)
+        out = {"coords": dict(mesh.coords)}
+        # -- the main path: train_loop at full width
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        st = {}
+        dist.barrier()
+        sync()
+        C.reset_launch_count()
+        registry.reset_stats()
+        SH.reset_collective_stats()
+        t0 = time.perf_counter()
+        losses = train_loop(cfg, mesh, steps=steps, batch=batch, seq=seq,
+                            lr=LR, use_ep=True, seed=seed, device=device,
+                            stats=st, log=lambda m: None)
+        sync()
+        wall = time.perf_counter() - t0
+        params, opt = st.pop("state")
+        leaves = tree.leaves(params)
+        out["main"] = {
+            "losses": losses, "step_ms": st["step_ms"],
+            "retries": st["retries"], "wall_s": wall,
+            "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0,
+            "launches": C.launch_counts(),
+            "kernel_launches": C.kernel_launches(),
+            "primitives": {n: v for n, v in registry.stats().items()
+                           if v["calls"]},
+            "collectives": SH.collective_stats(),
+            "param_bytes": sum(SH.unwrap(t).numel()
+                               * SH.unwrap(t).element_size()
+                               for t in leaves),
+            "moment_bytes": sum(SH.unwrap(t).numel()
+                                * SH.unwrap(t).element_size()
+                                for t in tree.leaves((opt.m, opt.v))),
+            "shapes_follow_placements": all(
+                tuple(SH.unwrap(t).shape) == SH.local_shape(
+                    t.shape, grid, SH.spec_of(t, grid)) for t in leaves),
+            "dtensors": all(type(t).__name__ == "DTensor" for t in leaves),
+        }
+        del params, opt, st, leaves
+        if cuda:
+            torch.cuda.empty_cache()
+        # -- parity: one step's loss and gradients at a few layers
+        params, _ = init_sharded(pcfg, mesh, seed, device=device)
+        rows = batch // mesh.shape["data"]
+        d = mesh.index("data")
+        full = batch_of(pcfg, 0, batch, seq, device)
+        local = {k: v[d * rows:(d + 1) * rows] for k, v in full.items()}
+        (loss, ce, aux), grads = sharded_grads(pcfg, mesh, params, local,
+                                               use_ep=True)
+        same = True
+        for g, p in zip(tree.leaves(grads), tree.leaves(params)):
+            spec = SH.spec_of(p, grid)
+            if "model" in [a for e in spec for a in SH._axes(e)]:
+                continue
+            got = SH._all_gather(g[None], grid, ("model",), 0)
+            same &= all(torch.equal(got[0], x) for x in got)
+        whole = tree.map(lambda g, p: SH.gather_full(
+            g, grid, SH.spec_of(p, grid)).cpu(), grads, params)
+        out["parity"] = {"loss": float(loss), "ce": float(ce),
+                         "aux": float(aux), "model_rank_equal": same}
+        if rank == 0:
+            out["parity"]["grads"] = whole
+        torch.save(out, os.path.join(tmp, f"out{rank}.pt"))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(tmp, f"err{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def sharded_check(seed: int, cfg=None, pcfg=None, steps: int = SHARD_STEPS,
+                  batch: int = BATCH, seq: int = SEQ, device: str = DEVICE,
+                  timeout: float = 900.0) -> dict:
+    """The sharded step over the 2 x 2 mesh of 4 ``device`` processes
+    (gloo, card tensors staged through host memory): ``train_loop`` of
+    ``steps`` steps of ``batch`` x ``seq`` global tokens with EP over
+    ``model`` (``cfg``: granite-moe-1b's published widths at
+    ``SHARD_LAYERS`` layers), then one
+    step's loss and gradients at ``pcfg`` (its widths at
+    ``SHARD_PARITY_LAYERS`` layers, capacity factor ``n_experts``: no
+    drops) and the same batch; against the one-rank loss and gradients
+    of the same seed. Returns the ranks' records, rank 0's whole
+    parity gradients and the one-rank ones (on ``device``)."""
+    from repro_torch.launch.train import init_sharded
+
+    cfg = config(SHARD_LAYERS) if cfg is None else cfg
+    if pcfg is None:
+        pcfg = dataclasses.replace(config(SHARD_PARITY_LAYERS),
+                                   moe_capacity_factor=float(
+                                       config().n_experts))
+    nranks = SHARD_MESH[0] * SHARD_MESH[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = _spawn(_sharded_rank, (tmp, nranks, device, cfg, pcfg, seed,
+                                       steps, batch, seq), nranks)
+        _join_ranks(procs, tmp, nranks, time.monotonic() + timeout,
+                    "sharded step")
+        wall = time.perf_counter() - t0
+        outs = [torch.load(os.path.join(tmp, f"out{r}.pt"))
+                for r in range(nranks)]
+    grads = outs[0]["parity"].pop("grads")
+    params, _ = init_sharded(pcfg, None, seed, device=device)
+    b = batch_of(pcfg, 0, batch, seq, device)
+    (loss, _), want = value_and_grad(
+        lambda p, b: M.loss_fn(p, pcfg, b["tokens"], b["labels"],
+                               use_ep=False), params, b)
+    # the same parameters' values in float32: how far each bf16 run is
+    # from the float32 gradient (a measurement beside the check)
+    f32 = dataclasses.replace(pcfg, dtype=torch.float32)
+    (loss32, _), truth = value_and_grad(
+        lambda p, b: M.loss_fn(p, f32, b["tokens"], b["labels"],
+                               use_ep=False),
+        tree.map(lambda t: t.float(), params), b)
+    del params
+    return {"ranks": outs, "grads": grads, "one_rank": {
+        "loss": float(loss), "grads": want},
+        "float32": {"loss": float(loss32),
+                    "sharded": compare_grads(grads, truth),
+                    "one_rank": compare_grads(want, truth)},
+        "launcher_wall_s": wall, "cfg": cfg, "pcfg": pcfg,
+        "closed_form": state_closed_form(cfg)}
+
+
+def compare_grads(got, want) -> dict:
+    """Per gradient group (``GROUPS``): the largest |got - want| over the
+    group's largest |want|."""
+    groups: dict[str, list] = {}
+    for (key, a), (_, b) in zip(tree.leaves_with_path(got),
+                                tree.leaves_with_path(want)):
+        a, b = a.float().to(b.device), b.float()
+        g = groups.setdefault(group_of(key), [0.0, 0.0])
+        g[0] = max(g[0], float((a - b).abs().max()))
+        g[1] = max(g[1], float(b.abs().max()))
+    return {n: {"max_abs_diff": v[0], "max_abs": v[1],
+                "share": v[0] / v[1] if v[1] else 0.0}
+            for n, v in groups.items()}
 
 
 def main() -> int:

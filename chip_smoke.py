@@ -169,6 +169,24 @@ Phases:
      bitwise); ``moe_ffn_ep`` over 4 card ranks against ``moe_ffn``
      forward and backward; ``global_shuffle_by_sort`` of 2^24 ids over
      4 card ranks; the training CLI on the smoke config.
+ 14. training across devices (``benchmarks_torch/training.py``
+     ``sharded_check``): which gloo collectives take card tensors; 4
+     card ranks on a 2 x 2 ("data", "model") mesh train granite-moe-1b
+     at published widths and 16 of its 24 layers (bf16 params, float32
+     moments, remat "full", EP over ``model``) for 3 steps of 8 x 1024
+     global tokens through ``train_loop``'s sharded step: losses equal
+     on every rank and finite, each rank's local state bytes against the
+     closed form of ``param_spec_tree``'s placements, every local block's
+     shape against its placements, the routing sortperm launches a rank
+     against the closed form, step ms by CUDA events, peak memory and
+     collectives a rank; one sharded step at 2 layers (capacity factor
+     32: no drops) against the one-rank step from the same seed and
+     batch (loss, gradient groups; replicated leaves' gradients bitwise
+     across the ``model`` ranks); the argsort kernels against their plain
+     version at a rank's routing size; and the dry run's
+     ``granite_moe_1b x train_4k x single`` cell (``launch/dryrun.py``,
+     on the host beside the ranks), its argument bytes against the
+     closed form.
 
 Last, the decode-step breakdowns of phases 7, 9, 11 and 12 and one
 training step's (``torch.profiler`` device ms by kernel class, the step
@@ -178,7 +196,8 @@ that machine.
 
 Launch counters are set to 0 just before phases 3, 4, 6, 7, 8, 9, each
 family's engine run of phase 11, each model's fixed-batch run of phase
-12 and phase 13's training run (the shuffle's ranks count their own), and
+12 and phase 13's training run (the shuffle's and phase 14's ranks count
+their own), and
 before each run of the ``sort_hyper`` sweep, the tune pass and
 ``sortperm_lowmem`` of phase 10 (the ranks' own counts are read from each
 rank), and read just after; the
@@ -1550,11 +1569,11 @@ def phase_moe_serving(registry, C, errs, seed: int) -> dict:
     captured = {}
     original = MOE._expert_ffn_bucketed
 
-    def capturing(p, xs, counts, offsets, grouped=None):
+    def capturing(p, xs, counts, offsets, grouped=None, **kw):
         if xs.shape[0] not in captured:
             captured[xs.shape[0]] = (p, xs.clone(), counts.clone(),
                                      offsets.clone())
-        return original(p, xs, counts, offsets, grouped)
+        return original(p, xs, counts, offsets, grouped, **kw)
 
     mask = registry.get("nucleus_mask")
     mask_impl = mask.cuda_impl
@@ -2831,6 +2850,7 @@ def phase_training(registry, C, errs, seed: int) -> dict:
         check(sh <= EP_GRAD_SHARE, f"ep: gradient of {w} differs by {sh}")
     for c in ep["rank_collectives"]:
         check(c.get("all_to_all") == 2, f"ep: collectives {c}")
+    check(ep["router_grads_equal"], "ep: router gradients differ by rank")
     log("ep: moe_ffn_ep over 4 card ranks vs moe_ffn: " + json.dumps(ep))
 
     # -- 13.5 the shuffle ----------------------------------------------------
@@ -2881,6 +2901,159 @@ def phase_training(registry, C, errs, seed: int) -> dict:
     for k, v in shuffle_kern.items():
         launches[k] = launches.get(k, 0) + v
     out["kernel_launches"] = launches
+    return out
+
+
+# -- phase 14: training across devices ----------------------------------------
+# tolerances set before the first run (PERF.md section 6)
+SHARD_LOSS_RTOL = 1e-3        # sharded step vs one rank, 2 layers
+SHARD_GRAD_SHARE = 2.0 ** -4  # each gradient group, of its largest |value|
+
+
+def phase_sharded(errs, seed: int) -> dict:
+    """Phase 14: the sharded train step over 4 card ranks
+    (``benchmarks_torch/training.py`` ``sharded_check``), the gloo probe
+    and the dry-run cell; see the module docstring."""
+    import shutil
+
+    from benchmarks_torch import training as TB
+    from repro_torch.kernels import sort_kernel as SK
+
+    out = {"card": nvidia_smi()}
+    dry_dir = os.path.join(ROOT, "build", "dryrun")
+    shutil.rmtree(dry_dir, ignore_errors=True)
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+         "single", "--arch", "granite_moe_1b", "--shape", "train_4k",
+         "--out", dry_dir],
+        env=dict(os.environ, PYTHONPATH=SRC), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    out["gloo_cuda"] = TB.gloo_cuda_probe()
+    log("sharded: gloo collectives on card tensors (the step stages "
+        "through host memory either way): " + json.dumps(out["gloo_cuda"]))
+
+    res = TB.sharded_check(seed)
+    cfg, pcfg = res["cfg"], res["pcfg"]
+    ranks = res["ranks"]
+    data, model = TB.SHARD_MESH
+    tokens = TB.BATCH * TB.SEQ
+    # -- 14.1 the main path, each rank's record
+    losses = ranks[0]["main"]["losses"]
+    check(len(losses) == TB.SHARD_STEPS
+          and all(math.isfinite(v) for v in losses),
+          f"sharded: losses {losses}")
+    per_sort = SK.cross_launches(
+        TB.BATCH // data * TB.SEQ // model * cfg.top_k)
+    sorts = TB.SHARD_STEPS * cfg.n_layers * (2 if cfg.remat else 1)
+    rows, kern_sum = [], {}
+    for r, o in enumerate(ranks):
+        m, cf = o["main"], res["closed_form"][r]
+        check(m["losses"] == losses,
+              f"sharded: rank {r} losses {m['losses']} != rank 0's")
+        check(m["retries"] == 0, f"sharded: rank {r} retried")
+        check(m["param_bytes"] == cf["param_bytes"]
+              and m["moment_bytes"] == cf["moment_bytes"],
+              f"sharded: rank {r} state {m['param_bytes']} + "
+              f"{m['moment_bytes']} bytes vs closed form {cf}")
+        check(m["shapes_follow_placements"] and m["dtensors"],
+              f"sharded: rank {r} local blocks off their placements")
+        kern = m["kernel_launches"]
+        net = kern.get("bitonic_inblock", 0) + kern.get("bitonic_window", 0)
+        check(m["launches"].get("argsort") == sorts * per_sort == net,
+              f"sharded: rank {r} routing launches "
+              f"{m['launches'].get('argsort')} / network {net} vs closed "
+              f"form {sorts} x {per_sort}")
+        for k, v in kern.items():
+            kern_sum[k] = kern_sum.get(k, 0) + v
+        step_ms = statistics.median(m["step_ms"][1:])
+        coll = {k: {f: v[f] / TB.SHARD_STEPS for f in
+                    ("count", "bytes", "staged_bytes")}
+                for k, v in m["collectives"].items()}
+        rows.append({"coords": o["coords"], "step_ms": m["step_ms"],
+                     "step_ms_median": step_ms,
+                     "peak_bytes": m["peak_bytes"],
+                     "param_bytes": m["param_bytes"],
+                     "moment_bytes": m["moment_bytes"],
+                     "routing_launches": net, "collectives_a_step": coll,
+                     "staged_bytes_a_step": sum(v["staged_bytes"]
+                                                for v in coll.values()),
+                     "primitives": m["primitives"], "wall_s": m["wall_s"]})
+    for k in ("bitonic_inblock", "bitonic_window"):
+        check(kern_sum.get(k, 0) > 0, f"sharded: {k} never launched")
+    step_ms = max(r["step_ms_median"] for r in rows)
+    out["main"] = {
+        "mesh": {"data": data, "model": model}, "layers": cfg.n_layers,
+        "steps": TB.SHARD_STEPS, "batch": TB.BATCH, "seq": TB.SEQ,
+        "losses": losses, "tokens_per_s": tokens / step_ms * 1e3,
+        "step_ms": step_ms, "ranks": rows, "kernel_launches": kern_sum,
+        "closed_form": {"sorts": sorts, "per_sort": per_sort,
+                        "state": res["closed_form"]},
+        "launcher_wall_s": res["launcher_wall_s"]}
+    log(f"sharded: granite-moe-1b, {cfg.n_layers} layers, {data} x {model} "
+        f"mesh, {TB.SHARD_STEPS} steps: losses "
+        f"{losses}; step {step_ms:.1f} ms (slowest rank's median, CUDA "
+        f"events), {tokens / step_ms * 1e3:.0f} tokens/s; per rank: "
+        + json.dumps([{k: r[k] for k in ("coords", "step_ms", "peak_bytes",
+                                         "param_bytes", "moment_bytes",
+                                         "routing_launches",
+                                         "staged_bytes_a_step")}
+                      for r in rows]))
+    log("sharded: collectives a step, rank 0: "
+        + json.dumps(rows[0]["collectives_a_step"]))
+
+    # -- 14.2 parity at 2 layers against the one-rank step
+    ones = res["one_rank"]
+    par = [o["parity"] for o in ranks]
+    check(all(p["loss"] == par[0]["loss"] for p in par),
+          f"sharded: parity losses differ across ranks {par}")
+    check(abs(par[0]["loss"] - ones["loss"]) <= SHARD_LOSS_RTOL
+          * abs(ones["loss"]),
+          f"sharded: loss {par[0]['loss']} vs one rank {ones['loss']}")
+    groups = TB.compare_grads(res["grads"], ones["grads"])
+    log("sharded: 2-layer step vs one rank, loss "
+        f"{par[0]['loss']} vs {ones['loss']}; gradient groups "
+        + json.dumps(groups) + "; each against the float32 step: "
+        + json.dumps(res["float32"]))
+    for name, g in groups.items():
+        check(g["share"] <= SHARD_GRAD_SHARE,
+              f"sharded: gradient group {name} differs by {g['share']} of "
+              f"its largest |value| from the one-rank step")
+    check(all(p["model_rank_equal"] for p in par),
+          "sharded: a replicated leaf's gradient differs across the "
+          "model ranks")
+    out["parity"] = {"layers": pcfg.n_layers, "loss": par[0]["loss"],
+                     "one_rank_loss": ones["loss"], "groups": groups,
+                     "model_rank_equal": True, "float32": res["float32"]}
+    del res, ones
+    torch.cuda.empty_cache()
+
+    # -- 14.3 the routing argsort kernels at a rank's routing size
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_ids = TB.BATCH // data * TB.SEQ // model * cfg.top_k
+    ids = torch.randint(0, cfg.n_experts, (n_ids,), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    errs.same(["bitonic_inblock", "bitonic_window"],
+              [SK.bitonic_argsort(ids)], [SK.bitonic_argsort(ids, plain=True)],
+              "routing argsort at a sharded rank's ids")
+
+    # -- 14.4 the dry-run cell
+    stdout, stderr = dry.communicate(timeout=600)
+    check(dry.returncode == 0, f"dry run failed: {stderr[-2000:]}")
+    with open(os.path.join(dry_dir,
+                           "granite_moe_1b.train_4k.single.json")) as f:
+        rec = json.load(f)
+    full = TB.state_closed_form(TB.config(), (16, 16))[0]   # 24 layers
+    rows16 = 256 // 16
+    want = (full["param_bytes"] + full["moment_bytes"] + 4
+            + 2 * rows16 * 4096 * 4)
+    check(rec["memory"]["argument_bytes"] == want,
+          f"dry run: argument bytes {rec['memory']['argument_bytes']} vs "
+          f"closed form {want}")
+    out["dryrun"] = rec
+    log("dry run, granite_moe_1b x train_4k x single: " + json.dumps(rec))
+    out["phase_s"] = time.perf_counter() - t0
+    out["kernel_launches"] = kern_sum
     return out
 
 
@@ -3401,6 +3574,17 @@ def main() -> int:
         k["launches"] = main_kernels[k["name"]]
         k["max_abs_err"] = errs.err[k["name"]]
     log(f"phase 13 done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 14. training across devices -----------------------------------------
+    t0 = time.perf_counter()
+    sharded = phase_sharded(errs, args.seed)
+    report["sharded"] = sharded
+    for name, n in sharded["kernel_launches"].items():
+        main_kernels[name] = main_kernels.get(name, 0) + n
+    for k in kernels:  # the sort path's launches include phase 14's ranks
+        k["launches"] = main_kernels[k["name"]]
+        k["max_abs_err"] = errs.err[k["name"]]
+    log(f"phase 14 done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_breakdowns(report, args.seed)
     training_breakdown(report, args.seed)

@@ -2,11 +2,10 @@
 
 One ``<arch>.py`` per ported architecture lives next to this file; each
 exports ``CONFIG`` (the published numbers) and ``smoke_config()`` (a
-reduced same-family config for CPU tests). The reference's dry-run
-surface (``input_specs``, ``cells``, ``SHAPES``) is not ported: nothing
-on the serving or training path reads it. The fields keep the
-reference's names and defaults, with ``dtype`` a torch dtype; its
-cost-model field ``unroll_layers`` belongs to the dry run and is left out.
+reduced same-family config for CPU tests). ``input_specs`` builds the
+``meta`` tensors the dry run (``launch/dryrun.py``) traces against: no
+allocation. The fields keep the reference's names and defaults, with
+``dtype`` a torch dtype.
 """
 from __future__ import annotations
 
@@ -61,10 +60,16 @@ class ModelConfig:
     # training
     dtype: Any = torch.bfloat16
     remat: bool = True
-    # "full" recomputes each layer in backward (least memory); the
-    # reference's "dots" is refused; remat=False keeps every activation
-    # (models/model.py::_maybe_remat)
+    # "full" recomputes each layer in backward (least memory); "dots"
+    # saves the matmul outputs and recomputes the rest; remat=False keeps
+    # every activation (models/model.py::_maybe_remat)
     remat_policy: str = "full"
+
+    # the reference's cost-model mode (unroll every scanned layer so XLA's
+    # cost analysis counts each iteration). Eager PyTorch runs every layer
+    # anyway and the port's loops are Python loops, so it changes nothing
+    # here; kept so a config reads the same in both packages.
+    unroll_layers: bool = False
 
     def __post_init__(self):
         if self.head_dim == 0 and self.n_heads:
@@ -86,10 +91,33 @@ class ModelConfig:
         return -(-self.vocab // q) * q
 
 
-#: Architectures of the port: all ten of the reference's.
-ARCH_IDS = ["internlm2_1_8b", "glm4_9b", "yi_34b", "deepseek_67b",
-            "granite_moe_1b", "deepseek_moe_16b", "mamba2_1_3b",
-            "zamba2_7b", "whisper_medium", "llama32_vision_90b"]
+# ---------------------------------------------------------------------------
+# the assigned shape suite (seq_len, global_batch, kind), the reference's
+# ---------------------------------------------------------------------------
+SHAPES = {
+    "train_4k":    dict(seq=4_096,   batch=256, kind="train"),
+    "prefill_32k": dict(seq=32_768,  batch=32,  kind="prefill"),
+    "decode_32k":  dict(seq=32_768,  batch=128, kind="decode"),
+    "long_500k":   dict(seq=524_288, batch=1,   kind="decode"),
+}
+
+#: Architectures of the port: all ten of the reference's, in its order.
+ARCH_IDS = [
+    "whisper_medium",
+    "zamba2_7b",
+    "llama32_vision_90b",
+    "glm4_9b",
+    "internlm2_1_8b",
+    "deepseek_67b",
+    "yi_34b",
+    "granite_moe_1b",
+    "deepseek_moe_16b",
+    "mamba2_1_3b",
+]
+
+# long_500k needs sub-quadratic sequence mixing; only SSM/hybrid archs run
+# it (the reference's DESIGN.md §6 records the skip)
+SUBQUADRATIC = {"zamba2_7b", "mamba2_1_3b"}
 
 
 def _module(arch: str):
@@ -105,3 +133,57 @@ def load_config(arch: str) -> ModelConfig:
 
 def load_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
+
+
+def cells(include_skipped: bool = False):
+    """All (arch, shape, skipped) dry-run cells, honouring the long_500k
+    rule."""
+    out = []
+    for arch in ARCH_IDS:
+        for shape in SHAPES:
+            skipped = shape == "long_500k" and arch not in SUBQUADRATIC
+            if skipped and not include_skipped:
+                continue
+            out.append((arch, shape, skipped))
+    return out
+
+
+def input_specs(cfg: ModelConfig, shape_name):
+    """``meta`` tensors standing in for every model input of a cell (the
+    reference's ShapeDtypeStructs; nothing is allocated):
+
+    train   -> {tokens, labels [, frames | patches]}
+    prefill -> {tokens [, frames | patches]}
+    decode  -> {tokens (B, 1), caches, position}
+
+    ``shape_name``: a SHAPES key or a dict(seq=, batch=, kind=). The
+    reference's ``tp`` argument has no counterpart: it placed nothing."""
+    from repro_torch.models import model as M
+
+    s = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
+    B, S = s["batch"], s["seq"]
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    extras = {}
+    if cfg.family == "encdec":
+        extras["frames"] = meta((B, cfg.enc_seq, cfg.d_model), cfg.dtype)
+    if cfg.family == "vlm":
+        extras["patches"] = meta((B, cfg.vision_seq, cfg.d_model), cfg.dtype)
+    if s["kind"] == "train":
+        return dict(tokens=meta((B, S), torch.int32),
+                    labels=meta((B, S), torch.int32), **extras)
+    if s["kind"] == "prefill":
+        return dict(tokens=meta((B, S), torch.int32), **extras)
+    caches = _map_leaves(lambda sd: meta(*sd),
+                         M.cache_specs(cfg, batch=B, cache_len=S))
+    return dict(tokens=meta((B, 1), torch.int32),
+                position=meta((), torch.int32), caches=caches)
+
+
+def _map_leaves(fn, node):
+    """``fn`` over the (shape, dtype) leaves of a ``cache_specs`` tree."""
+    if isinstance(node, dict):
+        return {k: _map_leaves(fn, v) for k, v in node.items()}
+    return fn(node)

@@ -4,7 +4,9 @@
 with their dtypes, ``params_from_jax`` turns the reference model's
 parameter tree into the port's (and any tree of its structure: the
 reference's gradients, its AdamW moments), and ``adamw_from_jax`` the
-reference's ``AdamWState``. bfloat16
+reference's ``AdamWState``, and ``shard_tree`` places either in the
+sharded train step's placements, so that a test starts both packages'
+sharded steps from the same numbers. bfloat16
 arrives from JAX as an ``ml_dtypes`` array, which ``torch.from_numpy``
 refuses, so it travels through a ``uint16`` view; ``int32`` stays
 ``int32``.
@@ -96,3 +98,20 @@ def adamw_from_jax(state, cfg, device="cuda"):
     return AdamWState(step=to_torch(np.asarray(state.step), device),
                       m=params_from_jax(state.m, cfg, device),
                       v=params_from_jax(state.v, cfg, device))
+
+
+def shard_tree(tree_, cfg, mesh):
+    """A whole parameter tree (from ``params_from_jax``) or AdamW state
+    (from ``adamw_from_jax``) as this rank's blocks in the placements
+    ``launch.train.shardings_for`` gives on ``mesh`` (DTensors; the step
+    counter stays a plain replicated tensor)."""
+    from repro_torch.launch.train import shardings_for
+    from repro_torch.models import sharding as SH
+    from repro_torch.optim import AdamWState
+
+    pshard = shardings_for(cfg, mesh)[0]
+    if isinstance(tree_, AdamWState):
+        return AdamWState(step=tree_.step,
+                          m=SH.place(tree_.m, mesh, pshard),
+                          v=SH.place(tree_.v, mesh, pshard))
+    return SH.place(tree_, mesh, pshard)

@@ -14,15 +14,18 @@ its splitters by, and :func:`co_sort` wires both into one call.
 :func:`make_host_mesh` is the trainer's small mesh: a ``data`` x
 ``model`` grid over the processes of the default ``torch.distributed``
 group (one process a rank; a single process without a group is the 1 x 1
-mesh), with a process group a row and a column and the differentiable
-collectives ``models.moe.moe_ffn_ep`` exchanges its tokens through. The
-reference's ``make_production_mesh`` (a 16 x 16 or 2 x 16 x 16 TPU mesh)
-belongs with ``models/sharding.py`` and is not ported yet.
+mesh), with a process group a row and a column (``models.sharding.Grid``
+runs the collectives of ``moe_ffn_ep`` and the sharded step over them),
+and the grid's ``DeviceMesh`` (``HostMesh.device_mesh``) that the sharded
+train step's DTensors live on. :func:`make_production_mesh` is the
+reference's 16 x 16 ("data", "model") or 2 x 16 x 16 ("pod", "data",
+"model") mesh as a ``DeviceMesh`` over the default group, which must have
+256 or 512 ranks: the dry run (``launch/dryrun.py``) builds it under the
+``fake`` process group, one process standing for rank 0.
 """
 from __future__ import annotations
 
 import dataclasses
-import warnings
 
 import numpy as np
 import torch
@@ -39,76 +42,54 @@ class HostMesh:
     (data i, model j) as a row-major device mesh lays them out.
     ``shape``: {"data": d, "model": m}; ``coords``: this rank's index on
     each axis; ``groups``: the process group of this rank's row
-    (``model``) and column (``data``), None on an axis of size 1, where
-    every collective is the identity.
-
-    The collectives take and return tensors on the rank's device and are
-    differentiable (``torch.distributed.nn``: each one's backward is
-    the same collective over the cotangents, summed over the ranks). On a
-    gloo group a card tensor is staged through host memory, as SIHSort's
-    exchange is (``.cpu()`` and ``.to(device)`` are differentiable)."""
+    (``model``) and column (``data``), None on an axis of size 1. Its
+    collectives are ``models.sharding``'s, on ``sharding.grid_of(mesh)``
+    (card tensors on gloo staged through host memory)."""
 
     shape: dict
     coords: dict
     groups: dict
+    _device_meshes: dict = dataclasses.field(default_factory=dict,
+                                             compare=False, repr=False)
 
     def index(self, axis: str) -> int:
         return self.coords[axis]
 
-    def _run(self, fn, t, axis):
-        group = self.groups[axis]
-        staged = t.is_cuda and dist.get_backend(group) == "gloo"
-        with warnings.catch_warnings():
-            # newer torch releases mark torch.distributed.nn.functional
-            # deprecated; its collectives still record their backward
-            warnings.simplefilter("ignore", FutureWarning)
-            out = fn(t.cpu() if staged else t, group)
-        return out.to(t.device) if staged else out
+    def device_mesh(self, device_type: str = "cuda"):
+        """The grid's ``DeviceMesh`` for DTensors on ``device_type``: the
+        same ranks in the same row-major layout, so its "data" and "model"
+        groups hold this mesh's columns and rows. Made on first use, which
+        every rank must reach in one order (it creates groups); None for
+        a single process."""
+        n = self.shape["data"] * self.shape["model"]
+        if n == 1:
+            return None
+        if device_type not in self._device_meshes:
+            from torch.distributed.device_mesh import DeviceMesh
 
-    def all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
-        """Sum of ``t`` over ``axis`` (psum)."""
-        if self.groups[axis] is None:
-            return t
-        from torch.distributed.nn import functional as F
+            self._device_meshes[device_type] = DeviceMesh(
+                device_type, torch.arange(n).reshape(self.shape["data"],
+                                                     self.shape["model"]),
+                mesh_dim_names=AXES)
+        return self._device_meshes[device_type]
 
-        D._count_collective("all_reduce_sum")
-        return self._run(lambda h, g: F.all_reduce(h, group=g), t, axis)
 
-    def mean(self, t: torch.Tensor, axis: str) -> torch.Tensor:
-        """Mean of ``t`` over ``axis`` (pmean)."""
-        return self.all_reduce(t, axis) / self.shape[axis]
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh as a ``DeviceMesh`` over the
+    default group: (16, 16) ("data", "model"), or (2, 16, 16) ("pod",
+    "data", "model") with ``multi_pod``. The group must have that many
+    ranks (the dry run's fake group does); the device type is the CPU's,
+    whose DTensors take ``meta`` locals."""
+    from torch.distributed.device_mesh import init_device_mesh
 
-    def all_to_all(self, t: torch.Tensor, axis: str) -> torch.Tensor:
-        """Row q of ``t`` (leading axis of the axis size) goes to rank q;
-        row q of the result came from rank q (``lax.all_to_all`` with
-        split and concat axis 0)."""
-        if self.groups[axis] is None:
-            return t
-        from torch.distributed.nn import functional as F
-
-        D._count_collective("all_to_all")
-        return self._run(lambda h, g: F.all_to_all_single(
-            torch.empty(h.shape, dtype=h.dtype, device=h.device),
-            h.contiguous(), group=g), t, axis)
-
-    def all_gather(self, t: torch.Tensor, axis: str, dim: int
-                   ) -> torch.Tensor:
-        """The ranks' ``t`` concatenated along ``dim`` in rank order; the
-        backward sums the cotangents over the ranks and keeps this rank's
-        slice (``all_gather``'s). Built from one differentiable SUM
-        all-reduce of ``t`` placed in zeros, which gloo runs on every
-        device."""
-        n = self.shape[axis]
-        if self.groups[axis] is None:
-            return t
-        r, w = self.index(axis), t.shape[dim]
-        pad = list(t.shape)
-        parts = []
-        for width in (r * w, (n - r - 1) * w):
-            pad[dim] = width
-            parts.append(t.new_zeros(pad))
-        return self.all_reduce(torch.cat([parts[0], t, parts[1]], dim=dim),
-                               axis)
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else AXES
+    n = int(np.prod(shape))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise ValueError(f"the production mesh {shape} needs {n} ranks; "
+                         f"the default group has {world}")
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
 
 
 def make_host_mesh(data: int = 1, model: int = 1) -> HostMesh:

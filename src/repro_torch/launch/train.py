@@ -1,32 +1,41 @@
-"""Training entry points: the train step and the fault-tolerant loop
-(counterpart of ``repro/launch/train.py``).
+"""Training entry points: the train step, the sharded train step and the
+fault-tolerant loop (counterpart of ``repro/launch/train.py``).
 
-``make_train_step`` -- a pure step (params, opt, batch) -> (params',
-                       opt', metrics), eager PyTorch: the loss and its
-                       gradients by ``torch.autograd.grad`` over the
-                       parameter leaves, optional gradient accumulation
-                       over micro-batches in a float32 tree (the
-                       reference's ``lax.scan``), the AdamW update and the
-                       {"loss", "ce", "aux", "gnorm"} metrics;
-``init_sharded``    -- params and optimizer state on one device;
-``train_loop``      -- the end-to-end loop with the synthetic corpus,
-                       async checkpoints, restore from the latest step,
-                       supervised retries and straggler accounting;
-``main``            -- the CLI: ``python -m repro_torch.launch.train``
-                       with the reference's flags (smoke configs), on the
-                       card unless ``--device cpu``.
+``make_train_step``   -- a pure step (params, opt, batch) -> (params',
+                         opt', metrics), eager PyTorch: the loss and its
+                         gradients by ``torch.autograd.grad`` over the
+                         parameter leaves, optional gradient accumulation
+                         over micro-batches in a float32 tree (the
+                         reference's ``lax.scan``), the AdamW update and
+                         the {"loss", "ce", "aux", "gnorm"} metrics, on
+                         one process;
+``shardings_for``     -- the placements of the params, the optimizer state
+                         and the batch on a mesh (FSDP x TP x EP,
+                         ``models/sharding.py``) and the params' shapes;
+``jitted_train_step`` -- the sharded step, the reference's name for its
+                         jitted one: an EAGER step whose inputs and
+                         outputs are placed (DTensors of the local
+                         shards); each rank computes on its shards under
+                         the sharding hooks, the gradients of leaves kept
+                         whole over the data axes are summed over them,
+                         and AdamW updates the shards with the global norm;
+``init_sharded``      -- params (every rank draws the whole tree from the
+                         seed and keeps its shard, so the placed params
+                         are the one-device params bitwise) and zero
+                         moments, in their placements;
+``train_loop``        -- the end-to-end loop with the synthetic corpus,
+                         async checkpoints (per-rank shard files on a
+                         mesh), restore into the shardings, supervised
+                         retries and straggler accounting;
+``main``              -- the CLI: ``python -m repro_torch.launch.train``
+                         with the reference's flags (smoke configs), on
+                         the card unless ``--device cpu``.
 
 On a mesh of more than one process (``launch.mesh.make_host_mesh`` over a
-``torch.distributed`` group) ``train_loop`` gives each ``data`` rank its
-own rows of the global batch (``SyntheticCorpus.batch``'s host shard;
-the ``model`` ranks of one data row share them), the MoE balance loss
-is averaged over the data ranks inside the layer, and the gradients and
-the metrics are averaged over all the ranks: the rank mean of the
-gradients is the gradient of the whole batch's loss (the data axis's
-all-reduce; on the ``model`` axis, the expert-parallel layers'
-convention of ``models.moe.moe_ffn_ep``). The reference's sharding trees
-(``shardings_for``, ``jitted_train_step``) and its FSDP/TP placements
-wait for the next slice.
+``torch.distributed`` group) ``train_loop`` runs the sharded step: each
+``data`` rank takes its own rows of the global batch
+(``SyntheticCorpus.batch``'s host shard; the ``model`` ranks of one data
+row share them).
 """
 from __future__ import annotations
 
@@ -34,22 +43,18 @@ import argparse
 import time
 
 import torch
-import torch.distributed as dist
 
 from repro_torch import tree
-from repro_torch.core import distributed as D
 from repro_torch.models import model as M
-from repro_torch.optim import adamw_init, adamw_update
+from repro_torch.models import sharding as SH
+from repro_torch.optim import AdamWState, adamw_init, adamw_update
 
 
 def _world(mesh) -> int:
-    return 1 if mesh is None else mesh.shape["data"] * mesh.shape["model"]
-
-
-def _rank_mean(t: torch.Tensor) -> torch.Tensor:
-    """Mean of ``t`` over the default group, through host memory."""
-    s = D._all_reduce(D._host(t), dist.ReduceOp.SUM, None)
-    return (s / dist.get_world_size()).to(t.device)
+    n = 1
+    for size in ({} if mesh is None else mesh.shape).values():
+        n *= size
+    return n
 
 
 def value_and_grad(loss_of, params, batch):
@@ -67,39 +72,51 @@ def value_and_grad(loss_of, params, batch):
         lambda p: by_id[id(p)], live)
 
 
-def make_train_step(cfg, mesh, *, use_ep=True, lr=3e-4, accum_steps=1,
-                    aux_weight=0.01):
-    """The step: ``train_step(params, opt, batch) -> (params', opt',
-    metrics)``; ``batch`` {"tokens", "labels"} (B, S) int32 (+ "frames" /
-    "patches"). With ``accum_steps`` > 1 the batch is cut into that many
-    micro-batches along B, their gradients summed in float32 and divided,
-    the loss their mean. Pure: no argument is written."""
-    dp = ("data",)
+def _grads(loss_of, params, batch, accum_steps):
+    """((loss, ce, aux), grads) of ``loss_of`` over ``batch``, or over
+    ``accum_steps`` micro-batches along B: their gradients summed in
+    float32 and divided, the loss their mean."""
+    if accum_steps == 1:
+        (loss, (ce, aux)), grads = value_and_grad(loss_of, params, batch)
+        return (loss, ce, aux), grads
+    g_acc = tree.map(lambda p: torch.zeros(
+        p.shape, dtype=torch.float32, device=p.device), params)
+    parts = []
+    for i in range(accum_steps):
+        mb = {k: v.chunk(accum_steps, dim=0)[i] for k, v in batch.items()}
+        (l, (ce, aux)), g = value_and_grad(loss_of, params, mb)
+        g_acc = tree.map(torch.add, g_acc, g)
+        parts.append(torch.stack([l, ce, aux]))
+    grads = tree.map(lambda g: g / accum_steps, g_acc)
+    loss, ce, aux = torch.stack(parts).mean(dim=0)
+    return (loss, ce, aux), grads
 
+
+def _loss_of(cfg, mesh, dp, use_ep, aux_weight):
     def loss_of(params, batch):
         return M.loss_fn(
             params, cfg, batch["tokens"], batch["labels"],
             frames=batch.get("frames"), patches=batch.get("patches"),
             mesh=mesh, dp_axes=dp, use_ep=use_ep, aux_weight=aux_weight)
+    return loss_of
+
+
+def make_train_step(cfg, mesh, *, use_ep=True, lr=3e-4, accum_steps=1,
+                    aux_weight=0.01):
+    """The step on one process: ``train_step(params, opt, batch) ->
+    (params', opt', metrics)``; ``batch`` {"tokens", "labels"} (B, S)
+    int32 (+ "frames" / "patches"). With ``accum_steps`` > 1 the batch is
+    cut into that many micro-batches along B, their gradients summed in
+    float32 and divided, the loss their mean. Pure: no argument is
+    written. A mesh of several processes trains with
+    ``jitted_train_step``."""
+    if _world(mesh) > 1:
+        raise ValueError("a mesh of several processes trains with "
+                         "jitted_train_step (placed params)")
+    loss_of = _loss_of(cfg, mesh, ("data",), use_ep, aux_weight)
 
     def train_step(params, opt, batch):
-        if accum_steps == 1:
-            (loss, (ce, aux)), grads = value_and_grad(loss_of, params, batch)
-        else:
-            g_acc = tree.map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            parts = []
-            for i in range(accum_steps):
-                mb = {k: v.chunk(accum_steps, dim=0)[i]
-                      for k, v in batch.items()}
-                (l, (ce, aux)), g = value_and_grad(loss_of, params, mb)
-                g_acc = tree.map(torch.add, g_acc, g)
-                parts.append(torch.stack([l, ce, aux]))
-            grads = tree.map(lambda g: g / accum_steps, g_acc)
-            loss, ce, aux = torch.stack(parts).mean(dim=0)
-        if _world(mesh) > 1:
-            grads = tree.map(_rank_mean, grads)
-            loss, ce, aux = _rank_mean(loss), _rank_mean(ce), _rank_mean(aux)
+        (loss, ce, aux), grads = _grads(loss_of, params, batch, accum_steps)
         new_params, new_opt, gnorm = adamw_update(params, grads, opt, lr=lr)
         metrics = {"loss": loss, "ce": ce, "aux": aux, "gnorm": gnorm}
         return new_params, new_opt, metrics
@@ -107,14 +124,136 @@ def make_train_step(cfg, mesh, *, use_ep=True, lr=3e-4, accum_steps=1,
     return train_step
 
 
+def param_shapes(cfg):
+    """The params' tree on the ``meta`` device (shapes and dtypes, no
+    memory; the reference's ``jax.eval_shape`` of ``init_params``)."""
+    return M.init_params(torch.Generator(), cfg, device="meta")
+
+
+def shardings_for(cfg, mesh, kind="train", *, batch_size=None):
+    """(param, opt, batch) placement trees for this mesh
+    (``models.sharding.NamedPlacement`` leaves; FSDP over every data axis)
+    and the params' ``meta`` tree."""
+    grid = SH.grid_of(mesh)
+    dp = SH.dp_axes_of(grid)
+    pshapes = param_shapes(cfg)
+    pspecs = SH.param_spec_tree(pshapes, cfg, fsdp=dp)
+    opt_specs = AdamWState(step=SH.P(), m=pspecs, v=pspecs)
+    bspecs = SH.batch_spec_tree(cfg, kind, dp=dp,
+                                tp_size=grid.shape["model"],
+                                batch_size=batch_size,
+                                dp_total=grid.size(dp))
+    return (SH.named(grid, pspecs), SH.named(grid, opt_specs),
+            SH.named(grid, bspecs), pshapes)
+
+
+def _sharded_axes(spec) -> tuple:
+    return tuple(a for e in spec for a in SH._axes(e))
+
+
+def global_sq_sum(grads, placed, grid) -> torch.Tensor:
+    """The sum of the squares of the whole gradient from every rank's
+    local blocks (``placed``: the params, whose placements say which
+    ranks hold the same block): each leaf's local sum divided by the
+    number of such ranks, summed over every axis. Every rank gets the
+    same value."""
+    world = grid.size(tuple(grid.shape))
+    total = sum(torch.sum(torch.square(g.to(torch.float32)))
+                / (world // grid.size(_sharded_axes(SH.spec_of(p, grid))))
+                for g, p in zip(tree.leaves(grads), tree.leaves(placed)))
+    for axis in grid.shape:
+        total = SH._all_reduce(total, grid, (axis,))
+    return total
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def sharded_grads(cfg, mesh, params, batch, *, use_ep=True, accum_steps=1,
+                  aux_weight=0.01):
+    """((loss, ce, aux), grads) of the sharded step: the loss of the
+    whole batch and each rank's gradient of its local blocks (plain
+    tensors), from placed ``params`` and this data rank's ``batch`` rows,
+    under the sharding hooks; the gradients of leaves kept whole over the
+    data axes are summed over them here (the others through the FSDP
+    gathers' backward)."""
+    grid = SH.grid_of(mesh)
+    dp = SH.dp_axes_of(grid)
+    loss_of = _loss_of(cfg, grid, dp, use_ep, aux_weight)
+
+    def over_data(g, p):
+        if set(_sharded_axes(SH.spec_of(p, grid))) & set(dp):
+            return g        # FSDP: summed by the gather's backward
+        return SH._all_reduce(g, grid, dp)
+
+    local = tree.map(SH.unwrap, params)
+    with SH.mesh_context(grid):
+        metrics, grads = _grads(loss_of, local, batch, accum_steps)
+    return metrics, tree.map(over_data, grads, params)
+
+
+def jitted_train_step(cfg, mesh, *, use_ep=True, lr=3e-4, accum_steps=1,
+                      aux_weight=0.01):
+    """The sharded step over ``mesh`` (a ``HostMesh`` of this process
+    group): ``step(params, opt, batch) -> (params', opt', metrics)`` with
+    ``params`` and the moments placed as ``shardings_for`` says (DTensors;
+    plain tensors on a mesh of one process) and ``batch`` this data rank's
+    rows. The reference jits its step with these in/out shardings; here it
+    runs eagerly: each rank computes the loss and gradients on its local
+    shards under ``models.sharding.mesh_context`` (``sharded_grads``: FSDP
+    gathers at use, Megatron TP, EP over ``model``) and updates its shards
+    with AdamW and the global gradient norm (``global_sq_sum``). Metrics
+    are the whole batch's, the same on every rank. The reference's
+    ``donate`` has no counterpart: the eager step writes no input."""
+    grid = SH.grid_of(mesh)
+
+    def rewrap(new, placed):
+        return tree.map(lambda n, p: SH.wrap(n, grid, SH.spec_of(p, grid),
+                                             tuple(p.shape))
+                        if _is_dtensor(p) else n, new, placed)
+
+    def train_step(params, opt, batch):
+        (loss, ce, aux), grads = sharded_grads(
+            cfg, grid, params, batch, use_ep=use_ep, accum_steps=accum_steps,
+            aux_weight=aux_weight)
+        opt_local = AdamWState(step=opt.step, m=tree.map(SH.unwrap, opt.m),
+                               v=tree.map(SH.unwrap, opt.v))
+        new_p, new_opt, gnorm = adamw_update(
+            tree.map(SH.unwrap, params), grads, opt_local, lr=lr,
+            sum_of_squares=lambda g: global_sq_sum(g, params, grid))
+        new_opt = AdamWState(step=new_opt.step, m=rewrap(new_opt.m, params),
+                             v=rewrap(new_opt.v, params))
+        metrics = {"loss": loss, "ce": ce, "aux": aux, "gnorm": gnorm}
+        return rewrap(new_p, params), new_opt, metrics
+
+    return train_step
+
+
 def init_sharded(cfg, mesh, seed=0, *, device="cuda"):
     """Params (``models.model.init_params`` from a generator seeded by
-    ``seed`` on ``device``) and their AdamW state, on one device (the
-    reference places both in their mesh shardings)."""
-    del mesh
+    ``seed`` on ``device``) and their AdamW state. On a mesh of several
+    processes both are placed as ``shardings_for`` says: every rank draws
+    the whole tree and keeps its block, so the placed params equal the
+    one-device params bitwise; the moments are made as local zeros."""
     gen = torch.Generator(device=device).manual_seed(seed)
     params = M.init_params(gen, cfg, device=device)
-    return params, adamw_init(params)
+    if _world(mesh) == 1:
+        return params, adamw_init(params)
+    pshard, _, _, _ = shardings_for(cfg, mesh)
+    placed = SH.place(params, mesh, pshard)
+    del params
+    grid = SH.grid_of(mesh)
+
+    def zeros(p):
+        local = torch.zeros(SH.unwrap(p).shape, dtype=torch.float32,
+                            device=device)
+        return SH.wrap(local, grid, SH.spec_of(p, grid), tuple(p.shape))
+    opt = AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
+                     m=tree.map(zeros, placed), v=tree.map(zeros, placed))
+    return placed, opt
 
 
 def _batch(corpus, cfg, mesh, step, batch, device):
@@ -144,9 +283,11 @@ def train_loop(cfg, mesh, *, steps, batch, seq, lr=3e-4, use_ep=False,
     (``step_ms``: CUDA events on the card, the host clock on the CPU),
     the step it started from (``start``), the supervisor's retried
     failures (``retries``: a retried step's time includes the failed
-    attempt) and the final (params, opt) (``state``). On a mesh each
-    ``data`` rank trains on its own rows of the ``batch``, which must
-    divide by the axis."""
+    attempt) and the final (params, opt) (``state``). On a mesh of
+    several processes the state is placed (``init_sharded``), the step is
+    ``jitted_train_step``, each ``data`` rank trains on its own rows of
+    the ``batch`` (which must divide by the axis), checkpoints are
+    per-rank shard files and a restart restores into the shardings."""
     from repro_torch import ckpt as CK
     from repro_torch.data import SyntheticCorpus
     from repro_torch.runtime import StragglerMonitor, Supervisor
@@ -155,8 +296,9 @@ def train_loop(cfg, mesh, *, steps, batch, seq, lr=3e-4, use_ep=False,
         raise ValueError(f"batch {batch} does not divide over the "
                          f"{mesh.shape['data']} data ranks")
     params, opt = init_sharded(cfg, mesh, seed, device=device)
-    step_fn = make_train_step(cfg, mesh, use_ep=use_ep, lr=lr,
-                              accum_steps=accum_steps)
+    sharded = _world(mesh) > 1
+    make = jitted_train_step if sharded else make_train_step
+    step_fn = make(cfg, mesh, use_ep=use_ep, lr=lr, accum_steps=accum_steps)
     corpus = SyntheticCorpus(cfg.vocab, seq)
     writer = CK.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
     sup = Supervisor(step_fn, data_axis=mesh.shape.get("data", 1),
@@ -165,8 +307,9 @@ def train_loop(cfg, mesh, *, steps, batch, seq, lr=3e-4, use_ep=False,
 
     start = 0
     if ckpt_dir and CK.latest_step(ckpt_dir) is not None:
+        shardings = (shardings_for(cfg, mesh)[:2] if sharded else None)
         (params, opt), start = CK.restore(ckpt_dir, (params, opt),
-                                          device=device)
+                                          device=device, shardings=shardings)
         log(f"restored checkpoint at step {start}")
 
     cuda = torch.device(device).type == "cuda"

@@ -6,7 +6,14 @@ Parameters are plain dicts of tensors, as in the reference. The large
 products are ``torch.matmul``, which the JAX package also left to its
 compiler; the one kernel on this path is the paged cache's gather, reached
 through the ``page_gather`` registry primitive. The reference's sharding
-hooks are the identity on one device and are left out.
+hooks sit where it has them (``models.sharding``): the identity outside
+the sharded train step, where each rank computes on its local shards and
+the hooks add the collectives (column-parallel Q/K/V and SwiGLU
+gate/up, row-parallel out and down projections, the vocab-parallel
+embedding and head). Under tensor parallelism each rank computes its
+query heads (``_q_project``); K/V heads that do not divide the axis are
+gathered whole and each rank reads the ones its query heads use
+(``_kv_project``).
 
 Caches are written IN PLACE (the reference's functional ``.at[].set`` on
 donated buffers): ``attention_apply`` returns the same cache dict it was
@@ -19,6 +26,7 @@ import math
 import torch
 
 from repro_torch.core.paging import page_gather
+from repro_torch.models import sharding as SH
 
 # ---------------------------------------------------------------------------
 # basics
@@ -184,12 +192,12 @@ def attention_apply(p, cfg, x, *, positions, causal=True, cache=None,
     columns past T * page_size and table entries >= P drop, and attention
     reads the logical view back through the ``page_gather`` primitive.
     """
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     B, Sq, _ = x.shape
     dev = x.device
-    q = (x @ p["wq"]).reshape(B, Sq, H, hd)
-    k = (x @ p["wk"]).reshape(B, Sq, KV, hd)
-    v = (x @ p["wv"]).reshape(B, Sq, KV, hd)
+    x = SH.enter_tp(x)
+    q = _q_project(p, cfg, x)
+    k, v = _kv_project(p, cfg, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -227,7 +235,72 @@ def attention_apply(p, cfg, x, *, positions, causal=True, cache=None,
 
     out = blockwise_attention(q, k.to(q.dtype), v.to(q.dtype),
                               causal=causal, q_offset=q_offset, chunk=chunk)
-    return out.reshape(B, Sq, H * hd) @ p["wo"], cache
+    return _o_project(p, cfg, out.reshape(B, Sq, -1)), cache
+
+
+def _head_range(cfg) -> tuple[int, int]:
+    """This ``model`` rank's query heads [lo, hi): its column block when
+    the heads divide the axis, else whole heads dealt out in order."""
+    n, r, H = SH.tp_size(), SH.tp_rank(), cfg.n_heads
+    return r * H // n, (r + 1) * H // n
+
+
+def _q_project(p, cfg, x):
+    """Q (B, S, H_l, hd) of this rank's query heads. When the heads do not
+    divide the ``model`` axis (the yi smoke model's 7 on 2 ranks) ``wq``
+    is gathered whole over the axis and each rank takes its heads'
+    columns."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    w = SH.col_parallel(p["wq"])
+    if cfg.n_heads % SH.tp_size():
+        lo, hi = _head_range(cfg)
+        w = SH.gather_tp(w, -1)[:, lo * hd:hi * hd]
+    return (x @ w).reshape(B, S, -1, hd)
+
+
+def _o_project(p, cfg, out):
+    """The row-parallel output projection of this rank's heads (B, S,
+    H_l * hd), summed over ``model``."""
+    w = SH.row_parallel(p["wo"])
+    if cfg.n_heads % SH.tp_size():
+        lo, hi = _head_range(cfg)
+        w = SH.gather_tp(w, 0)[lo * cfg.head_dim:hi * cfg.head_dim]
+    return SH.finish_tp(out @ w)
+
+
+def _kv_project(p, cfg, src):
+    """K and V (B, S, KV_l, hd) of ``src`` (B, S, d) for this rank's
+    query heads. Without tensor parallelism, or when the query and KV
+    heads both divide the ``model`` axis, each rank's column slice of
+    ``wk``/``wv``. Otherwise a column split would cut KV heads in half
+    (granite and the 8-KV configs at 16-way TP, glm4's 2, the smoke
+    models' 1 and 2): the weights are gathered whole over ``model`` and
+    each rank projects the KV heads its query heads read (Megatron's
+    replicated KV heads): a contiguous group range when its heads hold
+    whole groups, the one head when they share one, else one KV head per
+    query head (the GQA grouping undone, exactly)."""
+    KV, H, hd = cfg.n_kv_heads, cfg.n_heads, cfg.head_dim
+    B, S, _ = src.shape
+    n = SH.tp_size()
+    if H % n == 0 and KV % n == 0:
+        return tuple((src @ SH.col_parallel(p[w])).reshape(B, S, KV // n, hd)
+                     for w in ("wk", "wv"))
+    G = H // KV
+    lo, hi = _head_range(cfg)
+    if lo // G == (hi - 1) // G:
+        heads = [lo // G]
+    elif lo % G == 0 and hi % G == 0:
+        heads = list(range(lo // G, hi // G))
+    else:
+        heads = [h // G for h in range(lo, hi)]
+    idx = torch.tensor(heads, device=src.device)
+
+    def proj(w):
+        w = SH.gather_tp(SH.col_parallel(p[w]), -1)
+        w = w.reshape(w.shape[0], KV, hd).index_select(1, idx)
+        return (src @ w.reshape(w.shape[0], -1)).reshape(B, S, -1, hd)
+    return proj("wk"), proj("wv")
 
 
 # ---------------------------------------------------------------------------
@@ -244,8 +317,10 @@ def swiglu_init(gen, d, d_ff, dtype, device):
 
 
 def swiglu(p, x):
-    gate = torch.nn.functional.silu(x @ p["w_gate"])
-    return (gate * (x @ p["w_up"])) @ p["w_down"]
+    x = SH.enter_tp(x)
+    gate = torch.nn.functional.silu(x @ SH.col_parallel(p["w_gate"]))
+    return SH.finish_tp((gate * (x @ SH.col_parallel(p["w_up"])))
+                        @ SH.row_parallel(p["w_down"]))
 
 
 def embedding_init(gen, vocab_padded, d, dtype, device):
@@ -255,7 +330,26 @@ def embedding_init(gen, vocab_padded, d, dtype, device):
 
 
 def embed(p, tokens):
-    return p["embed"][tokens.long()]
+    """Rows of the table; vocab-parallel under tensor parallelism (each
+    rank looks up the ids in its vocab slice, zeros elsewhere, summed over
+    ``model``: one nonzero term, so exact). The lookup is
+    ``F.embedding``, whose backward on the card sums a row's
+    contributions in float32 and rounds once. With an index lookup
+    (``w[tokens]``) the bf16 table gradients of the sharded and the
+    one-rank step at granite-moe-1b's widths differed by 0.215 of their
+    largest |value| (a frequent token's row sums hundreds of uses); with
+    ``F.embedding`` by 0.005, each within 0.004 of the float32 gradient
+    (PERF.md section 6)."""
+    w = SH.gather_weight(p["embed"], -1)
+    if SH.tp_size() == 1:
+        return torch.nn.functional.embedding(tokens.long(), w)
+    V_l = w.shape[0]
+    ids = tokens.long() - SH.tp_rank() * V_l
+    ok = (ids >= 0) & (ids < V_l)
+    rows = torch.nn.functional.embedding(ids.clamp(0, V_l - 1), w)
+    return SH.finish_tp(torch.where(ok[..., None], rows,
+                                    torch.zeros((), dtype=rows.dtype,
+                                                device=rows.device)))
 
 
 def lm_head_init(gen, d, vocab_padded, dtype, device):
@@ -263,4 +357,6 @@ def lm_head_init(gen, d, vocab_padded, dtype, device):
 
 
 def lm_head(p, x):
-    return x @ p["unembed"]
+    """Logits over the padded vocab; under tensor parallelism this rank's
+    vocab slice (the reference's P(dp, None, "model") logits)."""
+    return SH.enter_tp(x) @ SH.col_parallel(p["unembed"])

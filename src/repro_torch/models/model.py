@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.kernels.common import NEG_MASK
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as T
 
 TP_DEFAULT = 16
@@ -181,25 +182,46 @@ def param_count(params) -> int:
     return count(params)
 
 
+REMAT_POLICIES = ("full", "dots")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep every matmul's output, recompute the
+    rest (``jax.checkpoint_policies.checkpoint_dots``)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+              torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _maybe_remat(fn, cfg):
     """``fn`` with its activations recomputed in backward (the reference's
     ``jax.checkpoint`` around each scanned layer body) when ``cfg.remat``
     and autograd is on: ``torch.utils.checkpoint.checkpoint`` without
-    reentry, saving the inputs only (policy ``"full"``). The reference's
-    ``"dots"`` (save the matmul outputs too) is set by no config and is
-    refused."""
-    if cfg.remat_policy != "full":
-        raise ValueError(f"remat_policy {cfg.remat_policy!r} is not "
-                         f"supported: the port recomputes whole layer "
-                         f"bodies (\"full\")")
+    reentry. Policy ``"full"`` saves the inputs only; ``"dots"`` saves the
+    outputs of ``mm``/``bmm``/``addmm`` too (a selective checkpoint), so
+    backward recomputes everything but the matmuls."""
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {cfg.remat_policy!r} is not one of "
+                         f"{REMAT_POLICIES}")
     if not cfg.remat:
         return fn
-    from torch.utils.checkpoint import checkpoint
+    import functools
+
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
 
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
     return wrapped
 
 
@@ -285,18 +307,39 @@ def loss_fn(params, cfg, tokens, labels, *, frames=None, patches=None,
     aux, (ce, aux)), as the reference's: logits in float32, the padded
     columns set to ``NEG_MASK`` before the log-sum-exp, the mean over
     every (row, position). The label's logit is a gather, which equals
-    the reference's masked sum exactly (one nonzero term)."""
+    the reference's masked sum exactly (one nonzero term).
+
+    Inside the sharded train step (``models.sharding.mesh_context``) the
+    logits are this rank's vocab slice, and the log-sum-exp is
+    vocab-parallel, the reference's P(dp, None, "model") logits: the max
+    (no gradient: the log-sum-exp does not depend on it) and the sum of
+    exponentials are reduced over ``model``, and the label's logit comes
+    from the rank whose slice holds it (a sum of one nonzero term). The
+    mean over the data ranks' rows makes ``ce`` the whole batch's on
+    every rank."""
     logits, aux = forward(params, cfg, tokens, frames=frames,
                           patches=patches, mesh=mesh, dp_axes=dp_axes,
                           use_ep=use_ep)
     logits = logits.to(torch.float32)
-    V = _vocab(cfg)
-    iota = torch.arange(V, device=logits.device)
+    V_l = logits.shape[-1]
+    lo = SH.tp_rank() * V_l
+    iota = lo + torch.arange(V_l, device=logits.device)
     logits = torch.where(iota < cfg.vocab, logits, NEG_MASK)
-    m = logits.amax(dim=-1, keepdim=True)
-    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
-    label_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    ce = torch.mean(lse - label_logit)
+    if SH.tp_size() == 1:
+        m = logits.amax(dim=-1, keepdim=True)
+        lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+        label_logit = torch.gather(logits, -1,
+                                   labels.long()[..., None])[..., 0]
+    else:
+        m = SH.tp_max(logits.detach().amax(dim=-1, keepdim=True))
+        lse = m[..., 0] + torch.log(
+            SH.finish_tp(torch.exp(logits - m).sum(dim=-1)))
+        lab = labels.long() - lo
+        ok = (lab >= 0) & (lab < V_l)
+        picked = torch.gather(logits, -1,
+                              lab.clamp(0, V_l - 1)[..., None])[..., 0]
+        label_logit = SH.finish_tp(torch.where(ok, picked, 0.0))
+    ce = SH.dp_mean(torch.mean(lse - label_logit))
     return ce + aux_weight * aux, (ce, aux)
 
 

@@ -29,9 +29,9 @@ sm_90); otherwise, and on the CPU, a loop over experts with
 IEEE float32 (no TF32): a flipped top-k id changes a token.
 
 ``moe_ffn_ep`` is the reference's shard_map expert-parallel path over the
-ranks of a ``launch.mesh.HostMesh``: each rank takes its slice of the
-sequence, owns ``n_experts / ep`` experts and exchanges the capacity
-buffers with two differentiable all_to_alls a layer.
+ranks of a mesh: each rank takes its slice of the sequence, owns
+``n_experts / ep`` experts and exchanges the capacity buffers with two
+differentiable all_to_alls a layer (``models.sharding``'s collectives).
 
 Training: both dispatches backpropagate. The kernels under the routing
 (``topk``, ``sortperm``; kernel rows 1-2 of PERF.md) need no backward of
@@ -53,6 +53,7 @@ from repro_torch import core as ak
 from repro_torch.core import registry
 from repro_torch.kernels.ref import full_f32_matmul
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as SH
 
 # The reference's presets, with its values. Routing arrays are (T*k,)
 # sized; below 2048 elements the portable path beats kernel launches (at
@@ -153,15 +154,29 @@ def grouped_matmul(x, w, counts, ends, *, grouped=None):
     return torch.cat(parts)
 
 
-def _expert_ffn_bucketed(p, xs, counts, offsets, grouped=None):
+def _expert_ffn_bucketed(p, xs, counts, offsets, grouped=None, first=0):
     """xs: (N, d) expert-contiguous rows -> (N, d): expert e's weights
     applied to exactly its bucket, no capacity padding. ``grouped`` as in
     ``grouped_matmul`` (False: the per-expert loop, the card's
-    reference)."""
+    reference). Stacks of fewer than all experts hold experts ``first``
+    on (a ``model`` rank's under the sharded step): their buckets are
+    run and the other rows are zeros."""
+    El = p["w_gate"].shape[0]
+    lo, hi = 0, xs.shape[0]
+    if El < counts.shape[0]:
+        ends = offsets + counts
+        lo, hi = torch.stack([offsets[first],
+                              ends[first + El - 1]]).tolist()
+        counts = counts[first:first + El]
+        offsets = offsets[first:first + El] - lo
     gm = functools.partial(grouped_matmul, counts=counts,
                            ends=offsets + counts, grouped=grouped)
-    h = torch.nn.functional.silu(gm(xs, p["w_gate"])) * gm(xs, p["w_up"])
-    return gm(h, p["w_down"])
+    x = xs[lo:hi]
+    ys = gm(torch.nn.functional.silu(gm(x, p["w_gate"])) * gm(x, p["w_up"]),
+            p["w_down"])
+    if (lo, hi) == (0, xs.shape[0]):
+        return ys
+    return torch.nn.functional.pad(ys, (0, 0, lo, xs.shape[0] - hi))
 
 
 def _dispatch_indices(cfg, ids, T, capacity):
@@ -204,7 +219,11 @@ def moe_ffn(p, cfg, x, *, capacity_factor=None, dispatch="bucketed",
     ``imp`` are averaged over ``dp_axes`` before their product, so
     ``aux`` is the whole batch's balance loss, as the reference's jit
     computes it over the sharded batch; the capacity is the rank's own,
-    as in its shard_map body (``moe_ffn_ep``)."""
+    as in its shard_map body (``moe_ffn_ep``). Under the sharded step's
+    hooks the stacks are this ``model`` rank's experts (the reference's
+    ``_expert_ffn(constrain=True)``): the rank routes every token of its
+    data row and runs its experts' rows; the other rows are zeros and the
+    partial outputs are summed over ``model``."""
     if dispatch not in DISPATCHES:
         raise ValueError(f"unknown dispatch {dispatch!r}")
     B, S, d = x.shape
@@ -214,19 +233,31 @@ def moe_ffn(p, cfg, x, *, capacity_factor=None, dispatch="bucketed",
     capacity = max(int(T * k * cf / cfg.n_experts), 4)
 
     xf = x.reshape(T, d)
+    # the sharded step: every ``model`` rank routes its data row's tokens
+    # (the router gathered over the data axes) and runs the experts it
+    # holds (the stacks stay on ``model``, their data dims gathered); the
+    # tokens and gates its experts take enter through *f* and the partial
+    # outputs are summed over ``model`` (*g*)
+    p = {**p, "router": SH.gather_weight(p["router"], 0),
+         **{w: SH.gather_weight(p[w], 2 if w == "w_down" else 1)
+            for w in ("w_gate", "w_up", "w_down")}}
+    first = SH.tp_rank() * p["w_gate"].shape[0]
     ids, gates, occ, imp = _route(p, cfg, xf)
-    for ax in dp_axes if mesh is not None else ():
-        occ = mesh.mean(occ, ax)
-        imp = mesh.mean(imp, ax)
+    grid = SH.grid_of(mesh)
+    for ax in dp_axes if grid is not None else ():
+        occ = grid.mean(occ, ax)
+        imp = grid.mean(imp, ax)
     aux = _aux_loss(cfg, occ, imp)
     perm, slot, keep, _, counts, offsets = _dispatch_indices(
         cfg, ids, T, capacity)
     perm = perm.long()
     token_of = perm // k
-    gate_of = gates.reshape(-1)[perm]
+    gate_of = SH.enter_tp(gates).reshape(-1)[perm]
+    xe = SH.enter_tp(xf)
 
     if dispatch == "bucketed":
-        ys = _expert_ffn_bucketed(p, xf[token_of], counts, offsets)
+        ys = _expert_ffn_bucketed(p, xe[token_of], counts, offsets,
+                                  first=first)
         contrib = torch.where(keep[:, None], ys * gate_of[:, None], 0)
         inv = torch.empty_like(perm)
         inv[perm] = torch.arange(T * k, device=x.device)
@@ -237,15 +268,19 @@ def moe_ffn(p, cfg, x, *, capacity_factor=None, dispatch="bucketed",
                                       init=0)
     else:
         E = cfg.n_experts
-        buf = _scatter_to_slots(xf[token_of], slot, keep, E * capacity)
-        ye = _expert_ffn(p, buf.reshape(E, capacity, d)).reshape(
-            E * capacity, d)
+        buf = _scatter_to_slots(xe[token_of], slot, keep, E * capacity)
+        El = p["w_gate"].shape[0]
+        ye = _expert_ffn(p, buf.reshape(E, capacity, d)[first:first + El])
+        if El < E:   # the other ranks' experts: zeros here
+            ye = torch.nn.functional.pad(ye, (0, 0, 0, 0, first,
+                                              E - first - El))
+        ye = ye.reshape(E * capacity, d)
         contrib = torch.where(keep[:, None], ye[slot.long()]
                               * gate_of[:, None], 0)
         out = torch.zeros((T, d), dtype=x.dtype, device=x.device)
         out.index_add_(0, token_of, contrib)
 
-    out = out.to(x.dtype)
+    out = SH.finish_tp(out.to(x.dtype))
     if cfg.n_shared_experts:
         out = out + L.swiglu(p["shared"], xf)
     return out.reshape(B, S, d), aux
@@ -254,38 +289,59 @@ def moe_ffn(p, cfg, x, *, capacity_factor=None, dispatch="bucketed",
 def moe_ffn_ep(p, cfg, x, *, mesh, dp_axes=("data",), ep_axis="model",
                capacity_factor=None):
     """Expert-parallel MoE FFN over the ``ep_axis`` ranks of ``mesh`` (a
-    ``launch.mesh.HostMesh``, one process a rank). x: (B, S, d), this
+    ``launch.mesh.HostMesh``, a ``DeviceMesh`` or a
+    ``models.sharding.Grid``; one process a rank). ``p``: this rank's
+    blocks as ``models.sharding.param_spec_tree`` cuts them (its E_l =
+    n_experts / ep experts of the stacks, their d dims over the data
+    axes; on a mesh of one process, the whole tree). x: (B, S, d), this
     data rank's batch, the same on every rank of ``ep_axis`` -> (y (B,
     S, d), aux), both the same on those ranks.
 
     As the reference's shard_map body: rank r takes sequence slice r
     (S must divide by the axis size) and owns experts [r * E_l, (r + 1) *
-    E_l) of ``p``'s stacks (E_l = n_experts / ep); its tokens are routed
-    and scattered into capacity-padded (E, C, d) buffers, exchanged so
-    each rank receives its experts' tokens from every peer, run through
-    the batched expert FFN and exchanged back (two all_to_alls), then
-    combined. ``occ`` and ``imp`` are averaged over ``ep_axis`` and
-    ``dp_axes`` before their product, so ``aux`` is the global balance
-    loss. The slices of y are gathered over ``ep_axis`` at the end
-    (the reference's GSPMD gathers its sequence-sharded output where it
-    is used). Shared experts, when the config has them, run replicated
-    on the rank's tokens (the reference column-shards them over the
-    axis).
+    E_l); its tokens are routed and scattered into capacity-padded (E, C,
+    d) buffers, exchanged so each rank receives its experts' tokens from
+    every peer, run through the batched expert FFN and exchanged back
+    (two all_to_alls), then combined. ``occ`` and ``imp`` are averaged
+    over ``ep_axis`` and ``dp_axes`` before their product, so ``aux`` is
+    the global balance loss. The slices of y are gathered over
+    ``ep_axis`` at the end (the reference's GSPMD gathers its
+    sequence-sharded output where it is used). Shared experts, when the
+    config has them, are gathered whole and run on the rank's tokens.
 
-    The collectives are differentiable (``torch.distributed.nn``), and
-    their backward sums the cotangents over the ranks. Gradient
-    convention: every rank backpropagates the same replicated loss, and
-    the rank-MEAN of the ranks' parameter gradients (a DP all-reduce
-    mean) is the single-program gradient: the gather and the all_reduce
-    of ``occ``/``imp`` each count the replicated loss once a rank, and
-    an expert's weights get their gradient on the rank that owns them
-    only. Summing instead of averaging gives ep times the gradient.
+    The stacks' data dims are gathered at the boundary (the reference's
+    shard_map in_specs), and the collectives follow Megatron's gradient
+    convention (``models/sharding.py``): every rank backpropagates the
+    same global loss (each data rank's part through
+    ``sharding.dp_mean``), x and the router enter through *f*, the means
+    are *g* and the output's gather keeps this rank's slice backward, so
+    each rank's gradient of its blocks is their whole gradient. No hook
+    fires inside the body (``mesh_context(None)``, as the reference's).
     """
-    ep = mesh.shape[ep_axis]
+    grid = SH.grid_of(mesh)
+    ep = grid.shape[ep_axis]
     if cfg.n_experts % ep or x.shape[1] % ep:
         raise ValueError(f"n_experts {cfg.n_experts} and sequence "
                          f"{x.shape[1]} must divide by the {ep_axis!r} "
                          f"axis size {ep}")
+    with SH.mesh_context(grid):
+        x = SH.enter_tp(x)
+        at_use = {"router": SH.enter_tp(SH.gather_weight(p["router"], 0)),
+                  **{w: SH.gather_weight(p[w], 2 if w == "w_down" else 1)
+                     for w in ("w_gate", "w_up", "w_down")}}
+        if cfg.n_shared_experts:
+            sp = p["shared"]
+            at_use["shared"] = {
+                "w_gate": SH.gather_tp(SH.col_parallel(sp["w_gate"]), -1),
+                "w_up": SH.gather_tp(SH.col_parallel(sp["w_up"]), -1),
+                "w_down": SH.gather_tp(SH.row_parallel(sp["w_down"]), 0)}
+    with SH.mesh_context(None):
+        return _ep_body(at_use, cfg, x, grid, dp_axes, ep_axis,
+                        capacity_factor)
+
+
+def _ep_body(p, cfg, x, mesh, dp_axes, ep_axis, capacity_factor):
+    ep = mesh.shape[ep_axis]
     E_l = cfg.n_experts // ep
     B, S, d = x.shape
     S_l = S // ep
@@ -311,9 +367,7 @@ def moe_ffn_ep(p, cfg, x, *, mesh, dp_axes=("data",), ep_axis="model",
     # (ep, E_l, C, d): row q of what a rank receives holds peer q's tokens
     # for this rank's experts
     buf = mesh.all_to_all(buf.reshape(ep, E_l, capacity, d), ep_axis)
-    local = {w: p[w][r * E_l:(r + 1) * E_l]
-             for w in ("w_gate", "w_up", "w_down")}
-    ye = _expert_ffn(local, buf.transpose(0, 1).reshape(
+    ye = _expert_ffn(p, buf.transpose(0, 1).reshape(
         E_l, ep * capacity, d))
     ye = ye.reshape(E_l, ep, capacity, d).transpose(0, 1)
     ye = mesh.all_to_all(ye, ep_axis).reshape(cfg.n_experts * capacity, d)

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as SH
 
 
 def ssm_init(gen, cfg, device):
@@ -116,16 +117,45 @@ def ssm_apply(p, cfg, x, *, state=None, conv_state=None):
     given state is zeros): the chunked scan from zero. With a state
     (B,H,P,N) and S == 1: one step of the recurrence. ``conv_state``
     (B,K-1,conv_dim) is the causal conv's history (zeros when None).
+
+    Under the sharded step's hooks each ``model`` rank runs its
+    ``ssm_heads / tp`` heads (the reference's column-parallel in_proj and
+    row-parallel out_proj): the states it takes and returns are its
+    heads', and its conv channels are its heads' x and the whole B and C.
     """
     Bsz, S, _ = x.shape
     di, H, P, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
     K = cfg.ssm_conv
-    conv_dim = di + 2 * N
     f32 = torch.float32
+    tp = SH.tp_size()
+    if H % tp:
+        raise ValueError(f"{H} ssm heads do not divide over {tp} model "
+                         f"ranks")
+    Hl = H // tp           # this rank's heads (all of them without TP)
+    dl = Hl * P
 
-    zxbcdt = x @ p["in_proj"]
-    z, xBC, dt = torch.split(zxbcdt, [di, conv_dim, H], dim=-1)
-    dt = F.softplus(dt.to(f32) + p["dt_bias"])                # (B,S,H)
+    # column-parallel in_proj; the packed [z, xBC, dt] columns do not
+    # fall on head boundaries, so the row is gathered over ``model`` and
+    # each rank keeps its heads' z, x and dt and the shared B and C
+    zxbcdt = SH.gather_tp(SH.enter_tp(x) @ SH.col_parallel(p["in_proj"]), -1)
+    z, xBC, dt = torch.split(zxbcdt, [di, di + 2 * N, H], dim=-1)
+    conv_w = SH.gather_tp(p["conv_w"], 1)
+    conv_b = SH.gather_tp(p["conv_b"], 0)
+    A_log, D, dt_bias = p["A_log"], p["D"], p["dt_bias"]
+    scale = p["norm"]["scale"]
+    if tp > 1:
+        lo = SH.tp_rank() * Hl
+        ch = slice(lo * P, lo * P + dl)
+        z, dt = z[..., ch], dt[..., lo:lo + Hl]
+        xBC = torch.cat([xBC[..., ch], xBC[..., di:]], dim=-1)
+        conv_w = torch.cat([conv_w[:, ch], conv_w[:, di:]], dim=1)
+        conv_b = torch.cat([conv_b[ch], conv_b[di:]])
+        # per-head leaves are whole on every rank: f sums their gradient
+        A_log, D, dt_bias = (SH.enter_tp(t)[lo:lo + Hl]
+                             for t in (A_log, D, dt_bias))
+        scale = SH.enter_tp(scale)[ch]
+    conv_dim = dl + 2 * N
+    dt = F.softplus(dt.to(f32) + dt_bias)                     # (B,S,Hl)
 
     # depthwise causal conv over the sequence (zero history: a prefill);
     # a prompt shorter than K-1 keeps part of that history in the new one
@@ -137,14 +167,13 @@ def ssm_apply(p, cfg, x, *, state=None, conv_state=None):
     windows = torch.stack([padded[:, i:i + S, :] for i in range(K)],
                           dim=2)                              # (B,S,K,C)
     xBC = F.silu(
-        torch.einsum("bskc,kc->bsc", windows.to(f32),
-                     p["conv_w"].to(f32))
-        + p["conv_b"].to(f32)
+        torch.einsum("bskc,kc->bsc", windows.to(f32), conv_w.to(f32))
+        + conv_b.to(f32)
     ).to(x.dtype)
 
-    xin, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
-    xin = xin.reshape(Bsz, S, H, P)
-    A = -torch.exp(p["A_log"])                                # (H,) < 0
+    xin, Bm, Cm = torch.split(xBC, [dl, N, N], dim=-1)
+    xin = xin.reshape(Bsz, S, Hl, P)
+    A = -torch.exp(A_log)                                     # (Hl,) < 0
 
     if state is None or S > 1:
         # pad AFTER the softplus: a pad step's dt is exactly 0, so it
@@ -171,8 +200,16 @@ def ssm_apply(p, cfg, x, *, state=None, conv_state=None):
         y = torch.einsum("bhpn,bn->bhp", new_state,
                          Cm[:, 0].to(f32))[:, None]           # (B,1,H,P)
 
-    y = y + xin.to(f32) * p["D"][None, None, :, None]
-    y = y.reshape(Bsz, S, di).to(x.dtype)
+    y = y + xin.to(f32) * D[None, None, :, None]
+    y = y.reshape(Bsz, S, dl).to(x.dtype)
     y = y * F.silu(z)  # gated
-    y = L.rmsnorm(p["norm"], y, cfg.norm_eps)
-    return y @ p["out_proj"], new_state, new_conv_state
+    if tp > 1:
+        # the gated norm over all of d_inner: the heads' sums of squares
+        # summed over ``model``
+        yf = y.to(f32)
+        ss = SH.tp_sum(torch.sum(yf * yf, dim=-1, keepdim=True))
+        y = (yf * torch.rsqrt(ss / di + cfg.norm_eps) * scale).to(x.dtype)
+    else:
+        y = L.rmsnorm(p["norm"], y, cfg.norm_eps)
+    return (SH.finish_tp(y @ SH.row_parallel(p["out_proj"])), new_state,
+            new_conv_state)

@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import sharding as SH
 from repro_torch.models import ssm as SSM
 
 
@@ -110,22 +111,19 @@ def _gated_add(x, gate, h):
 
 def _cross_attend(p_attn, cfg, z, enc_kv, chunk):
     """Queries of ``z`` against cached cross K/V (B, Sk, KV, hd)."""
-    H, hd = cfg.n_heads, cfg.head_dim
     B, Sq, _ = z.shape
-    q = (z @ p_attn["wq"]).reshape(B, Sq, H, hd)
+    q = L._q_project(p_attn, cfg, SH.enter_tp(z))
     h = L.blockwise_attention(q, enc_kv["k"].to(q.dtype),
                               enc_kv["v"].to(q.dtype), causal=False,
                               chunk=chunk)
-    return h.reshape(B, Sq, H * hd) @ p_attn["wo"]
+    return L._o_project(p_attn, cfg, h.reshape(B, Sq, -1))
 
 
 def project_cross_kv(p_attn, cfg, src):
     """The cross K/V of one layer from ``src`` (B, Sk, d): no norm, no
-    RoPE."""
-    B, Sk, _ = src.shape
-    shape = (B, Sk, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": (src @ p_attn["wk"]).reshape(shape),
-            "v": (src @ p_attn["wv"]).reshape(shape)}
+    RoPE (this rank's KV heads under tensor parallelism)."""
+    k, v = L._kv_project(p_attn, cfg, SH.enter_tp(src))
+    return {"k": k, "v": v}
 
 
 def encdec_dec_block(p, cfg, x, positions, *, enc_out=None, enc_kv=None,

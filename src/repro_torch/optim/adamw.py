@@ -10,6 +10,12 @@ clipped gradients are cast back to the gradient's dtype before the update
 casts them to float32 again; the new parameter is computed in float32 and
 cast to the parameter's dtype. With bfloat16 parameters each of those
 roundings changes bits.
+
+Sharded state (``launch.train.jitted_train_step``): the update runs on
+each rank's local shards as they are (it is elementwise), and the global
+gradient norm comes from ``sq_sum``, which sums each leaf's squares once
+over the mesh (``launch.train.global_sq_sum``: a leaf kept whole over an
+axis is not counted once a rank).
 """
 from __future__ import annotations
 
@@ -35,21 +41,30 @@ def adamw_init(params) -> AdamWState:
                       m=zeros, v=tree.map(torch.clone, zeros))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def sq_sum(grads) -> torch.Tensor:
+    """The float32 sum of every gradient element's square."""
+    return sum(torch.sum(torch.square(g.to(torch.float32)))
+               for g in tree.leaves(grads))
+
+
+def clip_by_global_norm(grads, max_norm: float, *, sum_of_squares=sq_sum):
     """(grads scaled to a global norm of at most ``max_norm``, each cast
-    back to its own dtype; the float32 global norm before clipping)."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                           for g in tree.leaves(grads)))
+    back to its own dtype; the float32 global norm before clipping).
+    ``sum_of_squares(grads)`` gives the squared norm (the sharded step's
+    sums over the mesh)."""
+    gnorm = torch.sqrt(sum_of_squares(grads))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     return tree.map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
                     grads), gnorm
 
 
 def adamw_update(params, grads, state: AdamWState, *, lr=3e-4, b1=0.9,
-                 b2=0.95, eps=1e-8, weight_decay=0.1, max_grad_norm=1.0):
+                 b2=0.95, eps=1e-8, weight_decay=0.1, max_grad_norm=1.0,
+                 sum_of_squares=sq_sum):
     """One AdamW step -> (new params, new state, global grad norm before
     clipping). Pure: no argument is written."""
-    grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+    grads, gnorm = clip_by_global_norm(grads, max_grad_norm,
+                                       sum_of_squares=sum_of_squares)
     step = state.step + 1
     t = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(b1, t)

@@ -4,17 +4,17 @@ the CPU: ``moe_ffn_ep`` forward and backward against the reference's
 tolerances: rtol 2e-4 / atol 2e-5, aux rtol 1e-4; gradients each leaf
 within rtol 2e-4 and 2e-5 of its largest |value|) on the 1 x 4 and
 2 x 2 meshes, ``compressed_psum`` against the mean
-(``tests/test_substrates.py:78``), one expert-parallel train step
-against the single-process step, ``train_loop`` on the 2 x 2 mesh (each
+(``tests/test_substrates.py:78``), one sharded expert-parallel train
+step against the single-process step, ``train_loop`` on the 2 x 2 mesh (each
 data rank its own rows) against the single process over all the rows,
 and ``global_shuffle_by_sort`` over 4 ranks. The ranks run
 ``tests/torch_ep_worker.py``.
 
-Gradient convention (``moe_ffn_ep``): every rank backpropagates its
-replicated loss sum(y_d^2) + 0.01 aux (y_d its data row's output), and
-the rank-mean of the gradients is the gradient of the mean over the
-data rows of that loss: for the reference, sum(y^2) / data + 0.01 aux
-over the whole batch."""
+Gradient convention (``moe_ffn_ep``, Megatron's): each rank holds its
+blocks of the stacks and backpropagates the global loss mean_d
+sum(y_d^2) + 0.01 aux (y_d data row d's output), and its gradient of
+its blocks is their whole gradient: gathered, the gradient of the
+reference's sum(y^2) / data + 0.01 aux over the whole batch."""
 import dataclasses
 import os
 
@@ -108,11 +108,13 @@ def test_moe_ffn_ep_matches_the_reference(ranks, shape):
     for name, g in got["grads"].items():
         _close(g, want_g[name], name)
     assert float(got["grads"]["router"].abs().sum()) > 0
-    # two all_to_alls, the gather and occ/imp means over each axis of
-    # size > 1
+    # the forward's: two all_to_alls, the output's gather, the four
+    # stacks' gathers over a data axis of size > 1, and occ/imp means
+    # over each axis of size > 1
     coll = got["collectives"]
     assert coll["all_to_all"] == 2
-    assert coll["all_reduce_sum"] == 1 + 2 * sum(s > 1 for s in shape)
+    assert coll["all_gather"] == 1 + 4 * (shape[0] > 1)
+    assert coll.get("all_reduce", 0) == 2 * sum(s > 1 for s in shape)
 
 
 def test_compressed_psum_matches_mean(ranks):
@@ -126,10 +128,10 @@ def test_compressed_psum_matches_mean(ranks):
 
 
 def test_expert_parallel_train_step_matches_one_process(ranks):
-    """The 1 x 4 mesh with ``use_ep`` (each rank a quarter of the
-    sequence and 2 of the 8 experts, the gradients averaged over the
-    ranks) takes the single-process step: the loss and every updated
-    parameter."""
+    """The sharded step on the 1 x 4 mesh with ``use_ep`` (each rank a
+    quarter of the sequence, 2 of the 8 experts and its TP slices)
+    takes the single-process step: the loss and every updated parameter,
+    gathered whole."""
     _, cfg, _, inp, out = ranks
     params = inp["model"]
     step = make_train_step(cfg, make_host_mesh(), use_ep=False, lr=1e-3)
@@ -147,8 +149,8 @@ def test_expert_parallel_train_step_matches_one_process(ranks):
 @pytest.mark.parametrize("use_ep", [True, False])
 def test_data_parallel_train_loop_matches_one_process(ranks, use_ep):
     """``train_loop`` on the 2 x 2 mesh gives data rank h the corpus's
-    host-h rows; the rank mean of the gradients (and the balance loss
-    averaged over the data ranks inside each layer) makes it the
+    host-h rows; the sharded step (the data ranks' mean loss, the
+    balance loss averaged over them inside each layer) makes it the
     single-process loop over both ranks' rows together: every step's
     loss and the final parameters."""
     _, cfg, _, _, out = ranks

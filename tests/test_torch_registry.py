@@ -232,6 +232,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
         import repro_torch.configs.mamba2_1_3b, repro_torch.configs.zamba2_7b
         import repro_torch.optim, repro_torch.data, repro_torch.ckpt
         import repro_torch.launch.train, repro_torch.tree
+        import repro_torch.models.sharding, repro_torch.launch.dryrun
+        import benchmarks_torch.training
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
@@ -270,7 +272,8 @@ def test_no_port_file_imports_jax_or_reference():
                 "optim/__init__.py", "optim/adamw.py",
                 "optim/compression.py", "data/__init__.py",
                 "data/pipeline.py", "ckpt/__init__.py",
-                "ckpt/checkpoint.py", "launch/train.py", "tree.py"):
+                "ckpt/checkpoint.py", "launch/train.py", "tree.py",
+                "models/sharding.py", "launch/dryrun.py"):
         assert any(f.endswith("repro_torch/" + new) for f in files), new
     for f in files:
         bad = {m for m in _imported_roots(f)} & {"jax", "jaxlib", "repro"}

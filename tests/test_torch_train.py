@@ -5,7 +5,8 @@ the vlm's cross gates nonzero from the seed, random frames and patches):
 ``loss_fn``'s value and the gradient of every parameter leaf against
 ``jax.value_and_grad`` of the reference's ``loss_fn`` on the same
 converted parameters and tokens. Then, within the port: remat changes
-nothing in any family ("dots" is refused), ``accum_steps=2`` equals one step over the
+nothing in any family (any policy but "full" and "dots" is refused),
+``accum_steps=2`` equals one step over the
 same batch (``tests/test_system.py:54``), the smoke loops of moe and
 ssm lower the loss by 0.5 (``:17``, ``:28``) and a checkpointed run
 resumes at its committed step (``:37``).
@@ -153,11 +154,20 @@ def test_remat_changes_no_gradient(arch):
 
 @pytest.mark.parametrize("policy", ["offload", "dots"])
 def test_remat_policy_is_checked(policy):
-    """Only "full" is ported; the reference's "dots" is refused."""
+    """The reference's two policies, "full" and "dots", are ported; any
+    other is refused. "dots" is held to "full" bitwise in
+    tests/test_torch_dryrun.py."""
     cfg = dataclasses.replace(load_smoke_config("internlm2_1_8b"),
                               remat=True, remat_policy=policy)
-    with pytest.raises(ValueError, match="remat_policy"):
-        M._maybe_remat(lambda x: x, cfg)
+    if policy not in M.REMAT_POLICIES:
+        with pytest.raises(ValueError, match="remat_policy"):
+            M._maybe_remat(lambda x: x, cfg)
+        return
+    x = torch.arange(4.0, requires_grad=True)
+    y = M._maybe_remat(lambda t: (t[None] @ t[:, None]) * t, cfg)(x)
+    (g,) = torch.autograd.grad(y.sum(), x)
+    torch.testing.assert_close(g, 14.0 + 2 * x.detach() * x.detach().sum(),
+                               rtol=0, atol=0)
 
 
 def test_gradient_accumulation_equivalence():

@@ -2,9 +2,10 @@
 is a spawned process). Four ranks join one gloo group over a FileStore
 and run, on the CPU: ``moe_ffn_ep`` forward and backward on the 1 x 4 and
 2 x 2 meshes, ``compressed_psum`` one-shot and over 20 error-feedback
-rounds, one train step with ``use_ep`` on the 1 x 4 mesh, and
+rounds, one sharded train step with ``use_ep`` on the 1 x 4 mesh, and
 ``train_loop`` on the 2 x 2 mesh with and without ``use_ep`` (each data
-rank its own rows of the batch). Rank 0 saves what the test compares."""
+rank its own rows of the batch; the loop's sharded state gathered whole).
+Rank 0 saves what the test compares."""
 import dataclasses
 import os
 import traceback
@@ -23,34 +24,37 @@ def loop_config(cfg):
     return dataclasses.replace(cfg, moe_capacity_factor=float(cfg.n_experts))
 
 
-def _grads_mean(live, loss):
-    """The rank-mean of the gradients of this rank's replicated loss (the
-    convention of ``moe_ffn_ep``)."""
-    names = list(live)
-    grads = torch.autograd.grad(loss, [live[n] for n in names])
-    out = {}
-    for n, g in zip(names, grads):
-        g = g.clone()
-        dist.all_reduce(g)
-        out[n] = g / NRANKS
-    return out
-
-
 def _ep_case(inp, cfg, mesh):
-    """y, aux and the mean gradients of sum(y^2) + 0.01 aux for this
-    rank's data row of the batch."""
+    """y, aux, the forward's collectives and the gradients of the global
+    loss mean_d sum(y_d^2) + 0.01 aux, y_d data row d's output: each rank
+    runs ``moe_ffn_ep`` on its blocks of the stacks under the sharding
+    hooks (Megatron's convention: every rank's gradient of its blocks is
+    their whole gradient), and the blocks' gradients are gathered whole."""
     from repro_torch.models import moe as MOE
+    from repro_torch.models import sharding as SH
 
+    grid = SH.grid_of(mesh)
+    specs = SH.param_spec_tree({"moe": inp["p"]}, cfg,
+                               fsdp=("data",))["moe"]
     d = mesh.index("data")
     rows = inp["x"].shape[0] // mesh.shape["data"]
     x = inp["x"][d * rows:(d + 1) * rows]
-    live = {k: v.clone().requires_grad_(True) for k, v in inp["p"].items()}
+    live = {k: SH.local_shard(v, grid, specs[k]).clone().requires_grad_(True)
+            for k, v in inp["p"].items()}
+    SH.reset_collective_stats()
     y, aux = MOE.moe_ffn_ep(live, cfg, x, mesh=mesh,
                             capacity_factor=float(cfg.n_experts))
-    grads = _grads_mean(live, torch.sum(y * y) + 0.01 * aux)
+    stats = SH.collective_stats()
+    with SH.mesh_context(grid):
+        loss = SH.dp_mean(torch.sum(y * y)) + 0.01 * aux
+    names = list(live)
+    grads = torch.autograd.grad(loss, [live[n] for n in names])
     ys = [torch.empty_like(y) for _ in range(NRANKS)]
     dist.all_gather(ys, y.detach().contiguous())
-    return {"y": ys, "aux": float(aux.detach()), "grads": grads}
+    return {"y": ys, "aux": float(aux.detach()),
+            "grads": {n: SH.gather_full(g, grid, specs[n])
+                      for n, g in zip(names, grads)},
+            "collectives": {k: v["count"] for k, v in stats.items()}}
 
 
 def main(rank: int, tmp: str) -> None:
@@ -60,9 +64,10 @@ def main(rank: int, tmp: str) -> None:
         dist.init_process_group("gloo", store=store, rank=rank,
                                 world_size=NRANKS)
         from repro_torch.configs import load_smoke_config
-        from repro_torch.core import distributed as D
         from repro_torch.launch.mesh import make_host_mesh
-        from repro_torch.launch.train import make_train_step, train_loop
+        from repro_torch.convert import shard_tree
+        from repro_torch.launch.train import jitted_train_step, train_loop
+        from repro_torch.models import sharding as SH
         from repro_torch.optim import adamw_init, compressed_psum
 
         inp = torch.load(os.path.join(tmp, "in.pt"))
@@ -72,9 +77,7 @@ def main(rank: int, tmp: str) -> None:
         for shape in ((1, 4), (2, 2)):
             mesh = make_host_mesh(*shape)
             assert mesh.shape == {"data": shape[0], "model": shape[1]}
-            D.reset_collective_counts()
             out[shape] = _ep_case(inp, cfg, mesh)
-            out[shape]["collectives"] = D.collective_counts()
         # compressed psum: one shot, then error-feedback rounds
         g = inp["g"][rank]
         one, _ = compressed_psum(g)
@@ -83,13 +86,15 @@ def main(rank: int, tmp: str) -> None:
             o, resid = compressed_psum(g, residual=resid)
             acc += o
         out["psum"] = {"one": one, "ef_mean": acc / 20}
-        # one train step, expert-parallel on the 1 x 4 mesh
+        # one sharded train step, expert-parallel on the 1 x 4 mesh
         mesh = make_host_mesh(1, 4)
-        step = make_train_step(cfg, mesh, use_ep=True, lr=1e-3)
+        step = jitted_train_step(cfg, mesh, use_ep=True, lr=1e-3)
         params = inp["model"]
-        p2, _, m = step(params, adamw_init(params), inp["batch"])
-        out["train"] = {"params": p2, "loss": float(m["loss"]),
-                        "aux": float(m["aux"])}
+        p2, _, m = step(shard_tree(params, cfg, mesh),
+                        shard_tree(adamw_init(params), cfg, mesh),
+                        inp["batch"])
+        out["train"] = {"params": SH.gather_tree(p2),
+                        "loss": float(m["loss"]), "aux": float(m["aux"])}
         # train_loop on the 2 x 2 mesh, each data rank its own rows
         mesh = make_host_mesh(2, 2)
         out["loop"] = {}
@@ -100,7 +105,7 @@ def main(rank: int, tmp: str) -> None:
                 batch=LOOP["batch"], seq=LOOP["seq"], lr=LOOP["lr"],
                 use_ep=use_ep, device="cpu", log=lambda m: None, stats=st)
             out["loop"][use_ep] = {"losses": losses,
-                                   "params": st["state"][0],
+                                   "params": SH.gather_tree(st["state"][0]),
                                    "retries": st["retries"]}
         if rank == 0:
             torch.save(out, os.path.join(tmp, "out.pt"))
