@@ -40,13 +40,20 @@ cores and the sampler, and the prefill split into the cross K/V (the
 encoder, or the patches' projection) and the prompt.
 ``chip_smoke.py`` phases 7, 9, 11 and 12 drive the same workloads from
 here. Needs a card.
+
+``sharded_decode_check`` (phase 15) runs ``decode_cells()``: the decode
+step of glm4-9b, granite-moe-1b and zamba2-7b over 4 card processes in
+the reference's cache placements, against the same step on one rank.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import time
+import traceback
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -648,6 +655,349 @@ def summary(stats) -> dict:
             "ttft_p50_ms": tt.get("p50", 0.0) * 1e3,
             "ttft_p99_ms": tt.get("p99", 0.0) * 1e3,
             "mean_slot_util": stats.mean_slot_util}
+
+
+# -- the sharded decode step over card ranks ---------------------------------
+
+#: the sharded decode's tolerance by the cell's dtype, set before the
+#: first run: (rtol, atol as a share of the one-rank run's largest
+#: |value|); bfloat16 the port's rule (PERF.md section 2), float32 the
+#: attention tolerance of the CPU tests
+DECODE_TOL = {torch.bfloat16: (0.0, 2.0 ** -4), torch.float32: (2e-4, 2e-5)}
+
+
+class DecodeCell(NamedTuple):
+    """One cell of the sharded decode check."""
+
+    cfg: object
+    mesh: tuple         # (data, model)
+    batch: int          # global
+    cache_len: int
+    first: int          # the first step's position
+    steps: int
+
+
+def decode_cells() -> dict:
+    """Phase 15's cells at published widths. glm4-9b at all 40 layers on
+    1 x 4: KV 2 do not divide 4, so the sequence shards over ``model``
+    and the write crosses from rank 0's slice to rank 1's at 2048.
+    granite-moe-1b at 24 layers on 2 x 2: KV 8 divide 2, heads over
+    ``model`` and batch over ``data``; its last step clamps to the last
+    column. Its published capacity factor drops tokens by the whole
+    batch's capacity, each data rank's tokens after the lower ranks'
+    (``moe.moe_ffn``), as the one-rank step drops them. It runs in
+    float32, held to float32's tolerance: random routers give near-equal
+    expert probabilities, and the sharded run's other bf16 rounding flips
+    top-8 choices (drop-free at full width on the CPU, 24 layers: logits
+    0.17 of their largest |value| apart in bf16, 1e-6 in float32; PERF.md
+    section 6). zamba2-7b at 13
+    of 81 layers (2 groups of 6 + 1 tail layer) on 2 x 2 at batch 1,
+    long_500k's path and cache length: the K/V sequence over ``data``,
+    the owning data rank changing at 262144."""
+    zamba = dataclasses.replace(load_config("zamba2_7b"), n_layers=13)
+    granite = dataclasses.replace(load_config("granite_moe_1b"),
+                                  dtype=torch.float32)
+    return {
+        "glm4_9b": DecodeCell(load_config("glm4_9b"), (1, 4), 8, 8192, 2046,
+                              4),
+        "granite_moe_1b": DecodeCell(granite, (2, 2), 8, 4096, 4094, 3),
+        "zamba2_7b": DecodeCell(zamba, (2, 2), 1, 524288, 262142, 4),
+    }
+
+
+def _flat(node, prefix=""):
+    if isinstance(node, dict):
+        out = {}
+        for k, v in node.items():
+            out.update(_flat(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: node}
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        *head, last = path.split("/")
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = v
+    return out
+
+
+def seeded_caches(cfg, batch, cache_len, seed, device, cut=None) -> dict:
+    """The decode caches of ``models.model.cache_specs``, N(0, 1) in each
+    leaf's dtype from seeded generators, drawn one leading slice at a time
+    (slice i of the j-th leaf in path order from seed (seed, j, i)), so
+    that a rank keeps its block of each slice (``cut(path, slice)``)
+    without holding a whole leaf: a zamba2-7b K/V leaf at 524288 columns
+    and 13 layers is 7.5 GB whole."""
+    out = {}
+    for j, (path, (shape, dtype)) in enumerate(sorted(_flat(
+            M.cache_specs(cfg, batch=batch, cache_len=cache_len)).items())):
+        gen = torch.Generator(device=device)
+        leaf = None
+        for i in range(shape[0]):
+            gen.manual_seed(seed * 1_000_003 + j * 10_007 + i)
+            sl = torch.empty(shape[1:], dtype=dtype, device=device).normal_(
+                generator=gen)
+            block = sl if cut is None else cut(path, sl)
+            if leaf is None:
+                leaf = torch.empty((shape[0], *block.shape), dtype=dtype,
+                                   device=device)
+            leaf[i] = block
+            del sl, block
+        out[path] = leaf
+    return _nest(out)
+
+
+def decode_tokens(cfg, batch, steps, seed) -> torch.Tensor:
+    """(steps, batch, 1) int32 tokens of the cell, on the host."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (steps, batch, 1), generator=gen,
+                         dtype=torch.int32)
+
+
+def _columns(cell: DecodeCell) -> list:
+    """The columns a cell's scalar steps write: each position clamped to
+    the last column (the reference's ``dynamic_update_slice``)."""
+    return sorted({min(max(p, 0), cell.cache_len - 1)
+                   for p in range(cell.first, cell.first + cell.steps)})
+
+
+def _is_kv(path: str) -> bool:
+    return path.split("/")[0] in ("kv", "xkv")
+
+
+def decode_excess(got, ref, dtype) -> float:
+    """The largest |got - ref| past ``DECODE_TOL[dtype]``'s rtol part; the
+    sharded decode is within tolerance where it is at most the atol share
+    of the one-rank run's largest |value|."""
+    rtol = DECODE_TOL[dtype][0]
+    ref = ref.float()
+    return float(((got.float() - ref).abs() - rtol * ref.abs()).max())
+
+
+def one_rank_decode(cell: DecodeCell, seed: int, device: str) -> dict:
+    """The cell's steps on one rank (no mesh): each step's logits, the
+    written K/V columns and the final recurrent states, on the host, and
+    the (token, choice) pairs the MoE layers dropped over the steps."""
+    cfg = cell.cfg
+    params = M.init_params(torch.Generator(device=device).manual_seed(seed),
+                           cfg, device=device)
+    caches = seeded_caches(cfg, cell.batch, cell.cache_len, seed, device)
+    toks = decode_tokens(cfg, cell.batch, cell.steps, seed)
+    logits, dropped = [], []
+    orig = MOE._dispatch_indices
+
+    def counting(*args):
+        res = orig(*args)
+        dropped.append(int((~res[2]).sum()))
+        return res
+
+    MOE._dispatch_indices = counting
+    try:
+        with torch.no_grad():
+            for s in range(cell.steps):
+                logits.append(M.decode_step(
+                    params, cfg, toks[s].to(device), caches,
+                    cell.first + s)[0].cpu())
+    finally:
+        MOE._dispatch_indices = orig
+    cols = torch.tensor(_columns(cell), device=device)
+    final = {path: (t.index_select(-3, cols) if _is_kv(path) else t).cpu()
+             for path, t in _flat(caches).items()}
+    del params, caches
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return {"logits": torch.stack(logits), "final": final,
+            "dropped": sum(dropped)}
+
+
+def _decode_rank(rank: int, tmp: str, nranks: int, device: str, seed: int,
+                 cells: dict) -> None:
+    """One rank of ``sharded_decode_check``: every cell in turn."""
+    import torch.distributed as dist
+
+    from benchmarks_torch import training as TB
+
+    try:
+        TB._init_rank(rank, tmp, nranks, device, 900)
+        from repro_torch import tree
+        from repro_torch.kernels import common as C
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.train import shardings_for
+        from repro_torch.models import sharding as SH
+
+        cuda = torch.device(device).type == "cuda"
+        sync = torch.cuda.synchronize if cuda else (lambda: None)
+        want = torch.load(os.path.join(tmp, "one_rank.pt"))
+        out = {}
+        for name, cell in cells.items():
+            cfg, B, S, first = cell.cfg, cell.batch, cell.cache_len, cell.first
+            mesh = make_host_mesh(*cell.mesh)
+            grid = SH.grid_of(mesh)
+            pshard, _, bshard, _ = shardings_for(cfg, mesh, "decode",
+                                                 batch_size=B)
+            cspec = {p: s.spec for p, s in _flat(bshard["caches"]).items()}
+            # the ranks draw the whole tensors in turns, each keeping its
+            # blocks: four whole glm4-9b's would not fit the card (the
+            # placements' DeviceMesh is made first, collectively)
+            mesh.device_mesh(torch.device(device).type)
+            w0 = time.perf_counter()
+            for turn in range(nranks):
+                if turn == rank:
+                    gen = torch.Generator(device=device).manual_seed(seed)
+                    whole = M.init_params(gen, cfg, device=device)
+                    params = tree.map(SH.unwrap,
+                                      SH.place(whole, mesh, pshard))
+                    del whole
+                    caches = seeded_caches(
+                        cfg, B, S, seed, device,
+                        cut=lambda p, sl: SH.local_shard(
+                            sl, grid, cspec[p][1:]).clone())
+                    if cuda:
+                        torch.cuda.empty_cache()
+                dist.barrier()
+            init = {p: t.clone() for p, t in _flat(caches).items()}
+            draw_s = time.perf_counter() - w0
+            toks = decode_tokens(cfg, B, cell.steps, seed)
+            rows = SH.P(bshard["tokens"].spec[0])
+            local_logits, step_ms = [], []
+            sync()
+            if cuda:   # the steps' peak, past the drawing turns
+                torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            C.reset_launch_count()
+            registry.reset_stats()
+            SH.reset_collective_stats()
+            for s in range(cell.steps):
+                t0 = torch.cuda.Event(enable_timing=True) if cuda else None
+                t1 = torch.cuda.Event(enable_timing=True) if cuda else None
+                w0 = time.perf_counter()
+                if cuda:
+                    t0.record()
+                with SH.mesh_context(mesh, batch_size=B), torch.no_grad():
+                    lg = M.decode_step(
+                        params, cfg,
+                        SH.local_shard(toks[s], grid, rows).to(device),
+                        caches, first + s)[0]
+                if cuda:
+                    t1.record()
+                sync()
+                step_ms.append(t0.elapsed_time(t1) if cuda
+                               else (time.perf_counter() - w0) * 1e3)
+                local_logits.append(lg)
+            w0 = time.perf_counter()
+            rec = {"coords": dict(mesh.coords), "step_ms": step_ms,
+                   "collectives": SH.collective_stats(),
+                   "launches": C.launch_counts(),
+                   "kernel_launches": C.kernel_launches(),
+                   "primitives": {n: v for n, v in registry.stats().items()
+                                  if v["calls"]},
+                   "peak_bytes": (torch.cuda.max_memory_allocated()
+                                  if cuda else 0),
+                   "param_bytes": sum(t.numel() * t.element_size()
+                                      for t in tree.leaves(params)),
+                   "cache_bytes": sum(t.numel() * t.element_size()
+                                      for t in init.values())}
+            rec.update(_rank_checks(cell, grid, cspec, caches, init,
+                                    want[name]["final"], local_logits))
+            spec = SH.P(*rows, None, "model")
+            logits = torch.stack([SH.gather_full(lg, grid, spec).cpu()
+                                  for lg in local_logits])
+            if rank == 0:
+                rec["logits"] = logits
+            # where the rank's time went besides the steps
+            rec["seconds"] = {"draw": draw_s,
+                              "check": time.perf_counter() - w0}
+            out[name] = rec
+            del params, caches, init, local_logits, lg
+            if cuda:
+                torch.cuda.empty_cache()
+            dist.barrier()
+        torch.save(out, os.path.join(tmp, f"out{rank}.pt"))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(tmp, f"err{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _rank_checks(cell, grid, cspec, caches, init, final, local_logits):
+    """This rank's blocks after the steps against the one-rank run: the
+    written K/V columns it holds and the recurrent states (``decode_excess``
+    and the one-rank largest |value|), every other column of its blocks
+    bitwise equal to the drawn ones, and nothing NaN."""
+    from repro_torch.models import sharding as SH
+
+    cols = _columns(cell)
+    diff, peak, same = {}, {}, True
+    finite = all(bool(torch.isfinite(lg).all()) for lg in local_logits)
+    for path, t in _flat(caches).items():
+        # a leading slice at a time: a zamba2 leaf's block is 3.8 GB
+        finite &= all(bool(torch.isfinite(x).all()) for x in t)
+        spec, want = cspec[path], final[path].to(t.device)
+        if not _is_kv(path):
+            got, ref = t, SH.local_shard(want, grid, spec)
+        else:
+            seq = len(spec) - 3
+            lay = SH.P(*(None if i == seq else e for i, e in
+                         enumerate(spec)))
+            ref_all = SH.local_shard(want, grid, lay)   # (..., ncols, ...)
+            off = grid.index(SH._axes(spec[seq])) * t.shape[seq]
+            mine = [(j, c - off) for j, c in enumerate(cols)
+                    if 0 <= c - off < t.shape[seq]]
+            edges = [-1] + [c for _, c in mine] + [t.shape[seq]]
+            for a, b in zip(edges, edges[1:]):
+                if b - a > 1:
+                    same &= all(torch.equal(x.narrow(seq - 1, a + 1,
+                                                     b - a - 1),
+                                            y.narrow(seq - 1, a + 1,
+                                                     b - a - 1))
+                                for x, y in zip(t, init[path]))
+            if not mine:
+                continue
+            got = torch.stack([t.select(seq, c) for _, c in mine])
+            ref = torch.stack([ref_all.select(seq, j) for j, _ in mine])
+        diff[path] = decode_excess(got, ref, cell.cfg.dtype)
+        peak[path] = float(want.float().abs().max())
+    return {"written_diff": diff, "written_max": peak,
+            "untouched_bitwise": same, "finite": finite}
+
+
+def sharded_decode_check(seed: int) -> dict:
+    """Phase 15: each cell of ``decode_cells()`` through ``decode_step``
+    on one rank first (its memory freed after), then over 4 card
+    processes (gloo, card tensors staged through host memory;
+    ``training``'s launcher), one spawn for every cell, the same seeded
+    weights and caches placed as ``launch.train.shardings_for(...,
+    "decode")`` says. Returns the one-rank logits and MoE drops and the
+    ranks' records (rank 0's with each step's logits gathered whole)."""
+    import tempfile
+
+    from benchmarks_torch import training as TB
+
+    cells, device, nranks = decode_cells(), "cuda", 4
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        one = {name: one_rank_decode(c, seed, device)
+               for name, c in cells.items()}
+        one_s = time.perf_counter() - t0
+        torch.save(one, os.path.join(tmp, "one_rank.pt"))
+        t0 = time.perf_counter()
+        procs = TB._spawn(_decode_rank, (tmp, nranks, device, seed, cells),
+                          nranks)
+        TB._join_ranks(procs, tmp, nranks, time.monotonic() + 900,
+                       "sharded decode")
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"out{r}.pt"))
+                 for r in range(nranks)]
+    return {"one_rank": {n: one[n]["logits"] for n in cells},
+            "dropped": {n: one[n]["dropped"] for n in cells},
+            "ranks": ranks, "cells": cells, "one_rank_s": one_s,
+            "launcher_wall_s": wall}
 
 
 def main() -> int:

@@ -155,7 +155,7 @@ Phases:
      K/V bytes a row; the CLI.
  13. training (``benchmarks_torch/training.py``): granite-moe-1b at
      published widths and all 24 layers (bf16 params from the seed,
-     float32 AdamW moments, remat on) through ``train_loop``, 30 steps
+     float32 AdamW moments, remat on) through ``train_loop``, 20 steps
      of 8 x 1024 tokens at lr 1e-3: the loss's drop (the mean of the last
      5 steps at least 0.5 below the first 5's), step ms by CUDA events,
      tokens/s, peak memory, the routing sortperm network's launches
@@ -187,6 +187,28 @@ Phases:
      ``granite_moe_1b x train_4k x single`` cell (``launch/dryrun.py``,
      on the host beside the ranks), its argument bytes against the
      closed form.
+ 15. the sharded decode step (``benchmarks_torch/serving.py``
+     ``sharded_decode_check``): three cells, each first on one rank, then
+     on 4 card ranks (one spawn), the same seeded bf16 weights and caches
+     placed as ``shardings_for(..., "decode")`` says: glm4-9b at all 40
+     layers on 1 x 4 (the cache sequence over ``model``, split-K merged),
+     batch 8, 8192 columns, 4 steps from 2046; granite-moe-1b at 24
+     layers on 2 x 2 (heads over ``model``, no EP, the published capacity
+     factor, tokens dropped by the whole batch's capacity; float32, where
+     bf16 rounding flips random routers' top-8 choices), batch 8, 4096
+     columns, 3 steps from 4094 (the last clamped); zamba2-7b at 13 of 81
+     layers on 2 x 2 at batch 1 (long_500k's path: the K/V sequence over
+     ``data``), 524288 columns, 4 steps from 262142. Logits gathered over
+     the vocab and the written cache columns and states within the
+     cell's dtype's tolerance (``serving.DECODE_TOL``; bf16: 2^-4 of the
+     one-rank run's largest |value|), every other column of each
+     rank's blocks bitwise the drawn one, nothing NaN; step ms by CUDA
+     events, collectives a step, peak memory a rank; granite's routing
+     launches against the closed form and the argsort kernels against
+     their plain version at a rank's routing size; the dry run's
+     ``glm4_9b x decode_32k`` and ``zamba2_7b x long_500k`` cells on the
+     single mesh beside the ranks, their argument bytes against the
+     closed form.
 
 Last, the decode-step breakdowns of phases 7, 9, 11 and 12 and one
 training step's (``torch.profiler`` device ms by kernel class, the step
@@ -196,8 +218,8 @@ that machine.
 
 Launch counters are set to 0 just before phases 3, 4, 6, 7, 8, 9, each
 family's engine run of phase 11, each model's fixed-batch run of phase
-12 and phase 13's training run (the shuffle's and phase 14's ranks count
-their own), and
+12 and phase 13's training run (the shuffle's and phases 14's and 15's
+ranks count their own, around their steps), and
 before each run of the ``sort_hyper`` sweep, the tune pass and
 ``sortperm_lowmem`` of phase 10 (the ranks' own counts are read from each
 rank), and read just after; the
@@ -3057,6 +3079,188 @@ def phase_sharded(errs, seed: int) -> dict:
     return out
 
 
+# -- phase 15: the sharded decode step ----------------------------------------
+
+
+def kv_cache_bytes(cfg, lead: int, batch: int, seq: int, kv: int) -> int:
+    """A rank's bytes of a K and V cache pair: ``lead`` layers of ``batch``
+    rows, ``seq`` columns and ``kv`` heads of ``cfg.head_dim``, bf16."""
+    return 2 * lead * batch * seq * kv * cfg.head_dim * 2
+
+
+def dry_decode_closed_form(name: str, cfg) -> int:
+    """Rank 0's argument bytes of a decode cell on the 16 x 16 mesh: its
+    parameter blocks, tokens, the position and its cache blocks."""
+    from benchmarks_torch import training as TB
+    from repro_torch.models.model import _hybrid_shape
+
+    params = TB.state_closed_form(cfg, (16, 16))[0]["param_bytes"]
+    if name == "glm4_9b":         # decode_32k: B 128 over data (8 a row),
+        # KV 2 do not divide 16: the 32768 columns over model
+        return params + 8 * 4 + 4 + kv_cache_bytes(cfg, cfg.n_layers, 8,
+                                                   32768 // 16, 2)
+    # zamba2 long_500k: B 1 replicated, the K/V sequence over data, heads
+    # over model; the ssm heads and conv channels over model
+    G, gs, tail = _hybrid_shape(cfg)
+    heads, conv = cfg.ssm_heads // 16, (cfg.d_inner + 2 * cfg.ssm_state) // 16
+    state = heads * cfg.ssm_headdim * cfg.ssm_state * 4
+    hist = (cfg.ssm_conv - 1) * conv * 2
+    return (params + 4 + 4
+            + kv_cache_bytes(cfg, G, 1, 524288 // 16, cfg.n_kv_heads // 16)
+            + (G * gs + tail) * (state + hist))
+
+
+def phase_sharded_decode(errs, seed: int) -> dict:
+    """Phase 15: the sharded decode step over 4 card ranks
+    (``benchmarks_torch/serving.py`` ``sharded_decode_check``) and two
+    dry-run decode cells; see the module docstring."""
+    import shutil
+
+    from benchmarks_torch import serving as SV
+    from repro_torch.configs import load_config
+    from repro_torch.kernels import sort_kernel as SK
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+
+    out = {"card": nvidia_smi()}
+    dry_dir = os.path.join(ROOT, "build", "dryrun_decode")
+    shutil.rmtree(dry_dir, ignore_errors=True)
+    dry_cells = (("glm4_9b", "decode_32k"), ("zamba2_7b", "long_500k"))
+    dries = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+         "single", "--arch", arch, "--shape", shape, "--out", dry_dir],
+        env=dict(os.environ, PYTHONPATH=SRC), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for arch, shape in dry_cells]
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    res = SV.sharded_decode_check(seed)
+    out["one_rank_s"] = res["one_rank_s"]
+    out["launcher_wall_s"] = res["launcher_wall_s"]
+    kern_sum = {}
+    for name, cell in res["cells"].items():
+        cfg = cell.cfg
+        ranks = [o[name] for o in res["ranks"]]
+        one = res["one_rank"][name].float()
+        got = ranks[0]["logits"].float()
+        check(got.shape == one.shape and bool(torch.isfinite(got).all()),
+              f"sharded decode {name}: logits {tuple(got.shape)} vs "
+              f"{tuple(one.shape)}, or not finite")
+        rtol, limit = SV.DECODE_TOL[cfg.dtype]
+        share = SV.decode_excess(got, one, cfg.dtype) / float(one.abs().max())
+        check(share <= limit,
+              f"sharded decode {name}: logits differ by {share} of the "
+              f"one-rank run's largest |logit| past rtol {rtol}")
+        rows, written = [], {}
+        for r, rec in enumerate(ranks):
+            check(rec["finite"], f"sharded decode {name}: rank {r} NaN")
+            check(rec["untouched_bitwise"],
+                  f"sharded decode {name}: rank {r} changed a column it "
+                  f"was not to write")
+            for path, d in rec["written_diff"].items():
+                w = d / rec["written_max"][path]
+                written[path] = max(written.get(path, 0.0), w)
+                check(w <= limit,
+                      f"sharded decode {name}: rank {r} {path} differs by "
+                      f"{w} of the one-rank run's largest |value| past "
+                      f"rtol {rtol}")
+            for k, v in rec["kernel_launches"].items():
+                kern_sum[k] = kern_sum.get(k, 0) + v
+            coll = {k: {f: v[f] / cell.steps for f in
+                        ("count", "bytes", "staged_bytes")}
+                    for k, v in rec["collectives"].items()}
+            rows.append({
+                "coords": rec["coords"], "step_ms": rec["step_ms"],
+                "step_ms_median": statistics.median(rec["step_ms"][1:]),
+                "peak_bytes": rec["peak_bytes"],
+                "param_bytes": rec["param_bytes"],
+                "cache_bytes": rec["cache_bytes"],
+                "collectives_a_step": coll,
+                "staged_bytes_a_step": sum(v["staged_bytes"]
+                                           for v in coll.values()),
+                "launches": rec["launches"],
+                "primitives": rec["primitives"],
+                "seconds": rec["seconds"]})
+        leaves = set(SV._flat(M.cache_specs(cfg, batch=1, cache_len=1)))
+        check(set(written) == leaves,
+              f"sharded decode {name}: written values compared for "
+              f"{sorted(written)}, not every leaf {sorted(leaves)}")
+        if cfg.family == "moe":
+            # the routing sortperm of a rank's B/data x top_k ids: below
+            # the moe_routing preset's cut-off it takes the portable path
+            n_ids = cell.batch // cell.mesh[0] * cfg.top_k
+            cut = MOE.ROUTING_TUNING["argsort"]["switch_below"]
+            per_sort = SK.cross_launches(n_ids) if n_ids >= cut else 0
+            sorts = cell.steps * cfg.n_layers
+            for r, rec in enumerate(ranks):
+                net = (rec["kernel_launches"].get("bitonic_inblock", 0)
+                       + rec["kernel_launches"].get("bitonic_window", 0))
+                calls = rec["primitives"].get("argsort", {}).get("calls")
+                check(calls == sorts and rec["launches"].get(
+                    "argsort", 0) == sorts * per_sort == net,
+                      f"sharded decode {name}: rank {r} argsort calls "
+                      f"{calls}, launches {rec['launches'].get('argsort')} "
+                      f"/ network {net} vs closed form {sorts} x "
+                      f"{per_sort}")
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            ids = torch.randint(0, cfg.n_experts, (n_ids,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+            errs.same(["bitonic_inblock", "bitonic_window"],
+                      [SK.bitonic_argsort(ids)],
+                      [SK.bitonic_argsort(ids, plain=True)],
+                      "routing argsort at a sharded decode rank's ids")
+            # the published capacity factor drops tokens, so the drop
+            # rule (the whole batch's capacity) is what the logits test
+            dropped = res["dropped"][name]
+            check(dropped > 0, f"sharded decode {name}: the one-rank run "
+                  f"dropped no token; the drop rule went untested")
+            out.setdefault("routing", {})[name] = {
+                "ids_a_rank": n_ids, "switch_below": cut,
+                "sorts_a_rank": sorts, "launches_a_sort": per_sort,
+                "one_rank_dropped": dropped,
+                "one_rank_routed": cell.steps * cfg.n_layers * cell.batch
+                * cfg.top_k}
+        step_ms = max(r["step_ms_median"] for r in rows)
+        out[name] = {
+            "layers": cfg.n_layers, "mesh": dict(zip(("data", "model"),
+                                                     cell.mesh)),
+            "batch": cell.batch, "cache_len": cell.cache_len,
+            "positions": [cell.first + s for s in range(cell.steps)],
+            "logit_share": share, "written_share": written,
+            "step_ms": step_ms, "tokens_per_s": cell.batch / step_ms * 1e3,
+            "peak_bytes_max": max(r["peak_bytes"] for r in rows),
+            "ranks": rows}
+        log(f"sharded decode {name}: {cfg.n_layers} layers, mesh "
+            f"{cell.mesh}, batch {cell.batch}, cache {cell.cache_len}, "
+            f"positions {out[name]['positions']}: logits within {share:.4g} "
+            f"of the one-rank run's largest |logit|, written columns "
+            + json.dumps(written) + f"; step {step_ms:.1f} ms (slowest "
+            f"rank's median, CUDA events), peak "
+            f"{out[name]['peak_bytes_max'] / 1e9:.2f} GB a rank; rank 0's "
+            f"seconds drawing and checking {json.dumps(rows[0]['seconds'])}, "
+            f"collectives a step " + json.dumps(rows[0]["collectives_a_step"])
+            + (f"; routing {json.dumps(out['routing'][name])}"
+               if name in out.get("routing", {}) else ""))
+    del res
+    torch.cuda.empty_cache()
+
+    # -- the dry run's decode cells
+    for (arch, shape), dry in zip(dry_cells, dries):
+        _, stderr = dry.communicate(timeout=600)
+        check(dry.returncode == 0, f"dry run {arch} failed: {stderr[-2000:]}")
+        with open(os.path.join(dry_dir, f"{arch}.{shape}.single.json")) as f:
+            rec = json.load(f)
+        cfg = load_config(arch)
+        want = dry_decode_closed_form(arch, cfg)
+        check(rec["memory"]["argument_bytes"] == want,
+              f"dry run {arch} x {shape}: argument bytes "
+              f"{rec['memory']['argument_bytes']} vs closed form {want}")
+        out.setdefault("dryrun", {})[arch] = rec
+        log(f"dry run, {arch} x {shape} x single: " + json.dumps(rec))
+    out["phase_s"] = time.perf_counter() - t0
+    out["kernel_launches"] = kern_sum
+    return out
+
+
 def training_breakdown(report, seed: int) -> None:
     """Where one full-width training step's time goes (phase 13's model
     rebuilt from the seed): the step by CUDA events, device ms by kernel
@@ -3585,6 +3789,17 @@ def main() -> int:
         k["launches"] = main_kernels[k["name"]]
         k["max_abs_err"] = errs.err[k["name"]]
     log(f"phase 14 done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 15. the sharded decode step -----------------------------------------
+    t0 = time.perf_counter()
+    decode = phase_sharded_decode(errs, args.seed)
+    report["sharded_decode"] = decode
+    for name, n in decode["kernel_launches"].items():
+        main_kernels[name] = main_kernels.get(name, 0) + n
+    for k in kernels:  # the errors include phase 15's routing parity
+        k["launches"] = main_kernels[k["name"]]
+        k["max_abs_err"] = errs.err[k["name"]]
+    log(f"phase 15 done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_breakdowns(report, args.seed)
     training_breakdown(report, args.seed)

@@ -12,13 +12,20 @@ rank 0's local shards as ``meta`` tensors (shapes and dtypes, no memory):
   * train cells: ``launch.train.jitted_train_step``, forward, backward
     and the AdamW update, exactly as a card rank runs it;
   * prefill cells: ``models.model.forward`` under the sharding hooks;
-  * decode cells (and with them ``long_500k``) need cache placements and
-    a sequence-sharded decode (the reference's ``_kv_spec`` split-K):
-    not ported yet (ROADMAP Queue 1, item 7b); ``main`` lists them.
+  * decode cells (``decode_32k`` and ``long_500k``): ``models.model.
+    decode_step`` under the hooks with the global batch installed
+    (``mesh_context(..., batch_size=B)``), on rank 0's blocks of the
+    caches in ``cache_spec_tree``'s placement: K/V heads over ``model``
+    where they divide it, else the cache sequence, merged split-K; the
+    sequence over the data axes too where the batch is below the DP
+    domain (``long_500k`` at B = 1).
 
 Per cell the record has the reference's keys: ``argument_bytes`` and
-``output_bytes`` (rank 0's local blocks, exact), ``alias_bytes`` (the
-donated params and optimizer state of a train cell), ``flops`` (the
+``output_bytes`` (rank 0's local blocks, exact; a decode cell's
+arguments only those its step reads, as the reference's jit keeps them),
+``alias_bytes`` (the
+donated params and optimizer state of a train cell, the caches of a
+decode cell), ``flops`` (the
 matmul FLOPs ``torch.utils.flop_counter.FlopCounterMode`` counts in the
 trace: mm, bmm, addmm, backward and remat recompute included),
 ``collectives`` (counts and bytes by kind, counted as the hooks issue
@@ -45,6 +52,8 @@ import traceback
 
 import torch
 import torch.distributed as dist
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import tree
 from repro_torch.configs import base as CB
@@ -88,6 +97,21 @@ def _tree_bytes(t) -> int:
     return sum(_nbytes(x) for x in tree.leaves(t))
 
 
+class _Reads(TorchDispatchMode):
+    """The ids of every tensor an op (collectives included) takes while
+    the mode is on."""
+
+    def __init__(self):
+        super().__init__()
+        self.ids = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        self.ids.update(id(a) for a in pytree.tree_leaves((args, kwargs))
+                        if isinstance(a, torch.Tensor))
+        return func(*args, **kwargs)
+
+
 def _local_meta(like_tree, grid, shardings, placed=False):
     """Rank 0's blocks of ``like_tree``'s leaves as meta tensors; with
     ``placed``, as DTensors in their placements (the step reads which
@@ -112,10 +136,6 @@ def lower_cell(arch: str, shape_name, mesh, *, use_ep=True, cfg=None):
     sdict = (CB.SHAPES[shape_name] if isinstance(shape_name, str)
              else shape_name)
     kind = sdict["kind"]
-    if kind == "decode":
-        raise NotImplementedError(
-            "decode cells need cache placements and a sequence-sharded "
-            "decode (ROADMAP Queue 1, item 7b)")
     grid = SH.grid_of(mesh)
     dp = SH.dp_axes_of(grid)
     ep = use_ep and cfg.family == "moe"
@@ -140,6 +160,24 @@ def lower_cell(arch: str, shape_name, mesh, *, use_ep=True, cfg=None):
             args = (params, opt, batch)
             outs = (new_p, new_opt, metrics)
             alias = _tree_bytes((params, opt))
+        elif kind == "decode":
+            # the reference's jit drops the arguments its step never reads
+            # (keep_unused=False: a decode reads no encoder layer, no cross
+            # K/V projection, and an ssm model no position) and donates
+            # the caches (its argument 3)
+            local = tree.map(SH.unwrap, params)
+            reads = _Reads()
+            with SH.mesh_context(grid, batch_size=sdict["batch"]), \
+                    torch.no_grad(), reads:
+                logits, caches = M.decode_step(
+                    local, cfg, batch["tokens"], batch["caches"],
+                    batch["position"])
+            args = [t for t in tree.leaves((local, batch["tokens"],
+                                            batch["position"],
+                                            batch["caches"]))
+                    if id(t) in reads.ids]
+            outs = (logits, caches)
+            alias = _tree_bytes(batch["caches"])
         else:
             with SH.mesh_context(grid), torch.no_grad():
                 logits, aux = M.forward(
@@ -201,10 +239,6 @@ def main(argv=None):
         mesh = MESH.make_production_mesh(multi_pod=multi)
         for arch, shape_name, _ in cells:
             tag = f"{arch}.{shape_name}.{mesh_name}"
-            if CB.SHAPES[shape_name]["kind"] == "decode":
-                print(f"[not-ported] {tag} (decode cells: ROADMAP Queue 1, "
-                      f"item 7b)")
-                continue
             path = os.path.join(args.out, tag + ".json")
             if os.path.exists(path):
                 print(f"[skip] {tag} (cached)")

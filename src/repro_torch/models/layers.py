@@ -91,7 +91,8 @@ def _mask_scores(s, mask):
     return torch.where(m, s, torch.full((), -math.inf, device=s.device)), m
 
 
-def blockwise_attention(q, k, v, *, causal, q_offset=0, chunk=1024):
+def blockwise_attention(q, k, v, *, causal, q_offset=0, chunk=1024,
+                        k_offset=0, merge_axes=()):
     """Online-softmax grouped-query attention.
 
     q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0; the KV
@@ -99,6 +100,12 @@ def blockwise_attention(q, k, v, *, causal, q_offset=0, chunk=1024):
     Scans KV in chunks with running (max, sum, acc). ``q_offset``: absolute
     position of q[0] relative to k[0] for causality, a scalar or a (B,)
     per-row vector (each serving slot attends its own ``[0, pos_b]``).
+
+    A decode row (Sq = 1) may read one slice of a cache whose sequence is
+    sharded over the mesh axes ``merge_axes`` (``sharding.kv_seq_layout``):
+    ``k_offset`` is the global position of k[0], and this slice's (max,
+    sum, acc) are merged with the other ranks' (``sharding.merge_split_k``),
+    so a slice that lies wholly past the query weighs 0.
     """
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -112,13 +119,26 @@ def blockwise_attention(q, k, v, *, causal, q_offset=0, chunk=1024):
     if Sq == 1:
         # decode: one query row, the whole cache in one score matrix
         s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(torch.float32))
-        k_pos = torch.arange(Sk, device=dev)
+        k_pos = k_offset + torch.arange(Sk, device=dev)
         mask = (k_pos <= q_pos[..., None] if causal
                 else torch.ones((Sq, Sk), dtype=torch.bool, device=dev))
-        s, _ = _mask_scores(s, mask)
-        p = torch.softmax(s, dim=-1)
-        out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
-        return out.reshape(B, Sq, H, hd).to(q.dtype)
+        s, mb = _mask_scores(s, mask)
+        if not merge_axes:
+            p = torch.softmax(s, dim=-1)
+            out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
+            return out.reshape(B, Sq, H, hd).to(q.dtype)
+        m = s.amax(dim=-1)
+        m_safe = torch.where(torch.isfinite(m), m, 0.0)
+        p = torch.where(mb, torch.exp(s - m_safe[..., None]), 0.0)
+        out = SH.merge_split_k(
+            m, p.sum(dim=-1),
+            torch.einsum("bkgqs,bskd->bkgqd", p, v.to(torch.float32)),
+            merge_axes)                                     # (B,KV,G,Sq,hd)
+        return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+    if merge_axes:
+        raise NotImplementedError(
+            "attention over a sequence-sharded cache takes one query row "
+            "(a decode step); a prefill into one is not ported")
     chunk = min(chunk, Sk)
     n_chunks = -(-Sk // chunk)
     m = torch.full((B, KV, G, Sq), -math.inf, dtype=torch.float32,
@@ -163,7 +183,7 @@ def _write_kv(cache, rows, cols, valid, k, v):
     n = ok.numel()
     first = torch.argmax(ok.to(torch.int8))      # first valid lane, else 0
     lane = torch.where(ok, torch.arange(n, device=ok.device), first)
-    any_ok = ok[first]
+    any_ok = ok.any()
     zero = torch.zeros((), dtype=torch.long, device=ok.device)
     r = torch.where(any_ok, rows.reshape(-1)[lane].long(), zero)
     c = torch.where(any_ok, cols.reshape(-1)[lane].long(), zero)
@@ -184,7 +204,20 @@ def attention_apply(p, cfg, x, *, positions, causal=True, cache=None,
     ``cache_index`` (a scalar: every row at one position, or a (B,)
     vector of per-slot positions, out-of-range ones dropping the write:
     a parked slot) and then attended in full under the per-row causal
-    offset.
+    offset. A scalar write of one token goes to column clamp(index, 0,
+    S - 1), the reference's ``dynamic_update_slice`` start, through the
+    drop path of ``_write_kv`` (no host sync).
+
+    Under the sharded decode's context a contiguous cache is this rank's
+    block in the placement of ``sharding.cache_spec_tree``. Where its
+    sequence is sharded (``sharding.kv_seq_layout``) the column is
+    clamped globally and only the rank that holds it writes; the
+    positions of its keys are global, and the ranks' softmax statistics
+    are merged (``blockwise_attention``). Where that includes ``model``
+    each rank holds every KV head, so it projects the new token's K/V for
+    all of them and attends every query head (Q gathered over ``model``,
+    or projected from the whole ``wq`` where the heads do not divide the
+    axis), then keeps its own heads for the row-parallel output.
 
     PAGED cache: with ``block_table`` (B, T) int32 and ``page_size`` the
     cache leaves are a page pool (P, page_size, KV, hd). Row b's logical
@@ -195,9 +228,13 @@ def attention_apply(p, cfg, x, *, positions, causal=True, cache=None,
     hd = cfg.head_dim
     B, Sq, _ = x.shape
     dev = x.device
+    lay = SH.KVLayout((), 0, 0)
+    if cache is not None and block_table is None:
+        lay = SH.kv_seq_layout(cfg, cache["k"].shape[1])
+    whole = "model" in lay.axes    # every head of a slice on each rank
     x = SH.enter_tp(x)
-    q = _q_project(p, cfg, x)
-    k, v = _kv_project(p, cfg, x)
+    q = _q_project(p, cfg, x, all_heads=whole)
+    k, v = _kv_project(p, cfg, x, all_heads=whole)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -215,14 +252,21 @@ def attention_apply(p, cfg, x, *, positions, causal=True, cache=None,
             _write_kv(cache, phys, offs, valid, k, v)
             # K and V share the table: one gather (one launch) for both
             k, v = page_gather((cache["k"], cache["v"]), block_table)
-        elif ci.dim() == 1:
+        elif ci.dim() == 1 or Sq == 1:
+            if ci.dim() == 0:
+                # the reference's dynamic_update_slice: the start clamps
+                # so the update fits
+                cols = torch.clamp(cols, 0, lay.length - 1)
             S = cache["k"].shape[1]
+            cols = cols - lay.offset
             rows = torch.arange(B, device=dev)[:, None].expand(B, Sq)
-            _write_kv(cache, rows, cols, cols < S, k, v)
+            _write_kv(cache, rows, cols, (cols >= 0) & (cols < S), k, v)
             k, v = cache["k"], cache["v"]
         else:
-            # the reference's dynamic_update_slice: the start clamps so the
-            # update fits
+            if lay.axes:
+                raise NotImplementedError(
+                    "a prefill into a sequence-sharded cache is not ported "
+                    "(the reference's sharded decode runs one token)")
             S = cache["k"].shape[1]
             start = min(max(int(ci), 0), S - Sq)
             cache["k"][:, start:start + Sq] = k.to(cache["k"].dtype)
@@ -234,8 +278,18 @@ def attention_apply(p, cfg, x, *, positions, causal=True, cache=None,
         q_offset = 0
 
     out = blockwise_attention(q, k.to(q.dtype), v.to(q.dtype),
-                              causal=causal, q_offset=q_offset, chunk=chunk)
+                              causal=causal, q_offset=q_offset, chunk=chunk,
+                              k_offset=lay.offset, merge_axes=lay.axes)
+    if whole:
+        out = own_heads(cfg, out)
     return _o_project(p, cfg, out.reshape(B, Sq, -1)), cache
+
+
+def own_heads(cfg, out):
+    """This ``model`` rank's query heads of an all-heads output (B, S, H,
+    hd)."""
+    lo, hi = _head_range(cfg)
+    return out[:, :, lo:hi]
 
 
 def _head_range(cfg) -> tuple[int, int]:
@@ -245,18 +299,23 @@ def _head_range(cfg) -> tuple[int, int]:
     return r * H // n, (r + 1) * H // n
 
 
-def _q_project(p, cfg, x):
-    """Q (B, S, H_l, hd) of this rank's query heads. When the heads do not
-    divide the ``model`` axis (the yi smoke model's 7 on 2 ranks) ``wq``
-    is gathered whole over the axis and each rank takes its heads'
-    columns."""
+def _q_project(p, cfg, x, all_heads=False):
+    """Q (B, S, H_l, hd) of this rank's query heads, or of every head with
+    ``all_heads`` (gathered over ``model``). When the heads do not divide
+    the ``model`` axis (the yi smoke model's 7 on 2 ranks) ``wq`` is
+    gathered whole over the axis and each rank takes its heads' columns
+    (all of them with ``all_heads``)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     w = SH.col_parallel(p["wq"])
     if cfg.n_heads % SH.tp_size():
-        lo, hi = _head_range(cfg)
-        w = SH.gather_tp(w, -1)[:, lo * hd:hi * hd]
-    return (x @ w).reshape(B, S, -1, hd)
+        w = SH.gather_tp(w, -1)
+        if not all_heads:
+            lo, hi = _head_range(cfg)
+            w = w[:, lo * hd:hi * hd]
+        return (x @ w).reshape(B, S, -1, hd)
+    q = (x @ w).reshape(B, S, -1, hd)
+    return SH.gather_tp(q, 2) if all_heads else q
 
 
 def _o_project(p, cfg, out):
@@ -269,9 +328,10 @@ def _o_project(p, cfg, out):
     return SH.finish_tp(out @ w)
 
 
-def _kv_project(p, cfg, src):
+def _kv_project(p, cfg, src, all_heads=False):
     """K and V (B, S, KV_l, hd) of ``src`` (B, S, d) for this rank's
-    query heads. Without tensor parallelism, or when the query and KV
+    query heads, or every KV head with ``all_heads`` (the weights gathered
+    whole over ``model``). Without tensor parallelism, or when the query and KV
     heads both divide the ``model`` axis, each rank's column slice of
     ``wk``/``wv``. Otherwise a column split would cut KV heads in half
     (granite and the 8-KV configs at 16-way TP, glm4's 2, the smoke
@@ -283,6 +343,9 @@ def _kv_project(p, cfg, src):
     KV, H, hd = cfg.n_kv_heads, cfg.n_heads, cfg.head_dim
     B, S, _ = src.shape
     n = SH.tp_size()
+    if all_heads:
+        return tuple((src @ SH.gather_tp(SH.col_parallel(p[w]), -1))
+                     .reshape(B, S, KV, hd) for w in ("wk", "wv"))
     if H % n == 0 and KV % n == 0:
         return tuple((src @ SH.col_parallel(p[w])).reshape(B, S, KV // n, hd)
                      for w in ("wk", "wv"))

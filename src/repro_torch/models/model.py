@@ -458,6 +458,14 @@ def decode_step(params, cfg, tokens, caches, position, *, chunk=1024,
     reads until admission overwrites the row). With ``block_tables`` (B,
     T) int32 and ``page_size`` the caches are the paged pool of
     ``paged_cache_specs`` (attention families only).
+
+    The sharded decode (the reference's jit over placed caches): under
+    ``sharding.mesh_context(mesh, batch_size=B)`` every cache leaf is this
+    rank's block in the placement of ``sharding.cache_spec_tree``,
+    ``tokens`` its rows of the global batch (every row under
+    ``seq_shard``), and the logits come back as its block of P(dp, None,
+    "model") (P(None, None, "model") under ``seq_shard``). MoE layers run
+    without expert parallelism, as the reference's decode does.
     """
     if block_tables is not None and cfg.family not in ATTENTION_FAMILIES:
         raise ValueError(f"paged decode unsupported for {cfg.family!r}")
@@ -474,9 +482,11 @@ def _decode(params, cfg, tokens, caches, position, *, chunk=1024,
     B, S = tokens.shape
     dev = tokens.device
     x = L.embed(params["embed"], tokens)
-    positions = (torch.as_tensor(position, device=dev)[..., None]
-                 + torch.arange(S, device=dev))
     fam = cfg.family
+    # an ssm model reads no position (the dry run counts what is read)
+    positions = None if fam == "ssm" else (
+        torch.as_tensor(position, device=dev)[..., None]
+        + torch.arange(S, device=dev))
     if fam in ATTENTION_FAMILIES:
         kvs = caches["kv"]
         kw = dict(cache_index=position, block_table=block_tables,
@@ -537,12 +547,16 @@ def _ssm_stack(layers, cfg, x, states, convs):
     """Mamba2 layers in order over their caches (L, B, ...), each layer's
     new state and conv history written in place. S > 1 tokens are a
     prefill from position 0: the chunked scan starts from zero whatever
-    the state cache holds, as in the reference."""
+    the state cache holds, as in the reference. Under the sharded
+    decode's context the conv cache is this rank's contiguous block of
+    channels (``sharding.cache_spec_tree``): the history is gathered
+    whole over ``model`` for the layer and its block written back."""
     for i, p in enumerate(layers):
         x, st, cv = T.ssm_block(p, cfg, x, state=states[i],
-                                conv_state=convs[i])
+                                conv_state=SH.gather_tp(convs[i], -1))
         states[i].copy_(st)
-        convs[i].copy_(cv)
+        w = convs[i].shape[-1]
+        convs[i].copy_(cv.narrow(-1, SH.tp_rank() * w, w))
     return x
 
 

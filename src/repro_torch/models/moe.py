@@ -179,10 +179,14 @@ def _expert_ffn_bucketed(p, xs, counts, offsets, grouped=None, first=0):
     return torch.nn.functional.pad(ys, (0, 0, lo, xs.shape[0] - hi))
 
 
-def _dispatch_indices(cfg, ids, T, capacity):
+def _dispatch_indices(cfg, ids, T, capacity, rows=(None, ())):
     """The AK routing core over the (T*k,) flat axis: (perm, slot, keep,
     sorted_ids, counts, offsets); counts/offsets describe the expert
-    buckets as CSR."""
+    buckets as CSR. ``rows`` (grid, axes): where these T tokens are one
+    data rank's block of a batch split over ``axes``, a token's place in
+    its expert is counted over the whole batch, whose lower ranks' tokens
+    come first (their counts all-gathered), as one program over the
+    whole batch counts it."""
     k = cfg.top_k
     flat_ids = ids.reshape(-1)
     with registry.tuning.preset("moe_routing"):
@@ -190,9 +194,14 @@ def _dispatch_indices(cfg, ids, T, capacity):
         sorted_ids = flat_ids[perm.long()]
         counts = ak.bincount(flat_ids, cfg.n_experts)
         offsets = ak.accumulate(torch.add, counts, init=0, inclusive=False)
+    start = offsets   # where each expert's tokens of this block begin
+    grid, axes = rows
+    if axes:
+        every = grid.all_gather(counts[None], axes, 0)
+        start = offsets - every[:grid.index(axes)].sum(0, dtype=torch.int32)
     pos_in_expert = (torch.arange(T * k, dtype=torch.int32,
                                   device=ids.device)
-                     - offsets[sorted_ids.long()])
+                     - start[sorted_ids.long()])
     keep = pos_in_expert < capacity
     slot = sorted_ids * capacity + torch.clamp(pos_in_expert,
                                                max=capacity - 1)
@@ -214,23 +223,37 @@ def moe_ffn(p, cfg, x, *, capacity_factor=None, dispatch="bucketed",
     """Single-program MoE FFN. x: (B, S, d) -> (y, aux_loss).
 
     ``dispatch``: ``"bucketed"`` (the reference's default) or
-    ``"padded"``; both apply the same capacity drop policy. With a
+    ``"padded"``; both apply the same capacity drop policy (``meta``
+    tensors take ``"padded"``). With a
     ``mesh`` (data-parallel training, x this rank's rows) ``occ`` and
     ``imp`` are averaged over ``dp_axes`` before their product, so
     ``aux`` is the whole batch's balance loss, as the reference's jit
-    computes it over the sharded batch; the capacity is the rank's own,
-    as in its shard_map body (``moe_ffn_ep``). Under the sharded step's
+    computes it over the sharded batch. Where x is a data rank's rows
+    (a ``mesh``, or the sharded step's hooks outside ``seq_shard``) the
+    capacity and the drops are the whole batch's, as in the reference's
+    one program: each token's place in its expert counts the lower data
+    ranks' tokens first. Under the sharded step's
     hooks the stacks are this ``model`` rank's experts (the reference's
     ``_expert_ffn(constrain=True)``): the rank routes every token of its
     data row and runs its experts' rows; the other rows are zeros and the
     partial outputs are summed over ``model``."""
     if dispatch not in DISPATCHES:
         raise ValueError(f"unknown dispatch {dispatch!r}")
+    if x.is_meta:
+        # the buckets' sizes are data (read on the host): a meta trace
+        # (the dry run) has none, so it takes the static padded shapes,
+        # which drop the same tokens
+        dispatch = "padded"
     B, S, d = x.shape
     T = B * S
     k = cfg.top_k
     cf = capacity_factor or cfg.moe_capacity_factor
-    capacity = max(int(T * k * cf / cfg.n_experts), 4)
+    grid = SH.grid_of(mesh)
+    rows = ((grid, tuple(a for a in dp_axes if grid.size(a) > 1))
+            if grid is not None else SH.batch_ranks())
+    # the whole batch's capacity, as the reference's one program has it
+    n_rows = rows[0].size(rows[1]) if rows[1] else 1
+    capacity = max(int(T * n_rows * k * cf / cfg.n_experts), 4)
 
     xf = x.reshape(T, d)
     # the sharded step: every ``model`` rank routes its data row's tokens
@@ -243,13 +266,12 @@ def moe_ffn(p, cfg, x, *, capacity_factor=None, dispatch="bucketed",
             for w in ("w_gate", "w_up", "w_down")}}
     first = SH.tp_rank() * p["w_gate"].shape[0]
     ids, gates, occ, imp = _route(p, cfg, xf)
-    grid = SH.grid_of(mesh)
     for ax in dp_axes if grid is not None else ():
         occ = grid.mean(occ, ax)
         imp = grid.mean(imp, ax)
     aux = _aux_loss(cfg, occ, imp)
     perm, slot, keep, _, counts, offsets = _dispatch_indices(
-        cfg, ids, T, capacity)
+        cfg, ids, T, capacity, rows)
     perm = perm.long()
     token_of = perm // k
     gate_of = SH.enter_tp(gates).reshape(-1)[perm]

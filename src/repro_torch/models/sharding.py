@@ -61,6 +61,7 @@ import contextlib
 import re
 import threading
 import warnings
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -131,17 +132,30 @@ def param_spec_tree(params_like, cfg, *, fsdp, tp="model"):
     return tree.map_with_path(rule, params_like)
 
 
+def kv_seq_axes(cfg, dp, tp="model", tp_size=16, seq_shard=False) -> tuple:
+    """The mesh axes a K/V cache's SEQUENCE shards over (the reference's
+    ``_kv_spec`` rule, which the spec table and the decode both read):
+    ``tp`` when the KV heads do not divide it (flash-decoding: each
+    ``model`` rank holds every head of a slice of the sequence), and
+    before it the data axes under ``seq_shard`` (the global batch below
+    the DP domain); () when the heads shard over ``tp`` and the batch
+    over the data axes."""
+    heads_ok = bool(cfg.n_kv_heads) and cfg.n_kv_heads % tp_size == 0
+    axes = tuple(_axes(dp)) if seq_shard else ()
+    return axes if heads_ok else axes + (tp,)
+
+
 def _kv_spec(cfg, dp, tp, lead, tp_size=16, seq_shard=False):
     """Spec for a (..., B, S, KV, hd) cache tensor with ``lead`` leading
-    axes: KV heads over ``model`` when they divide it, else the cache
-    sequence; ``seq_shard`` (global batch below the DP domain) shards the
-    sequence over the DP axes too instead of the batch."""
-    heads_ok = cfg.n_kv_heads and cfg.n_kv_heads % tp_size == 0
+    axes: the sequence over ``kv_seq_axes``, the KV heads over ``model``
+    when it is not among them, the batch over the data axes unless
+    ``seq_shard``."""
+    seq = kv_seq_axes(cfg, dp, tp, tp_size, seq_shard)
     if seq_shard:
-        tail = ((None, dp, tp, None) if heads_ok
-                else (None, tuple(dp) + (tp,), None, None))
+        tail = (None, dp, tp, None) if tp not in seq else (None, seq, None,
+                                                           None)
     else:
-        tail = (dp, None, tp, None) if heads_ok else (dp, tp, None, None)
+        tail = (dp, None, tp, None) if not seq else (dp, tp, None, None)
     return P(*((None,) * lead + tail))
 
 
@@ -181,8 +195,7 @@ def batch_spec_tree(cfg, kind, *, dp, tp="model", tp_size=16,
     """Specs of the input batch dict of a shape kind ("train", "prefill",
     "decode"). When ``batch_size`` does not divide over the DP domain
     (long_500k at B=1) batch dims replicate and caches sequence-shard."""
-    seq_shard = (batch_size is not None and dp_total is not None
-                 and batch_size % dp_total != 0)
+    seq_shard = seq_shard_for(batch_size, dp_total)
     toks = P(None, None) if seq_shard else P(dp, None)
     if kind == "train":
         out = {"tokens": toks, "labels": toks}
@@ -198,6 +211,14 @@ def batch_spec_tree(cfg, kind, *, dp, tp="model", tp_size=16,
         if cfg.family == "vlm":
             out["patches"] = P(dp, None, None)
     return out
+
+
+def seq_shard_for(batch_size, dp_total) -> bool:
+    """Long-context mode: the global batch does not divide over the DP
+    domain (long_500k at B = 1), so caches shard their sequence over the
+    data axes and the batch replicates."""
+    return (batch_size is not None and dp_total is not None
+            and batch_size % dp_total != 0)
 
 
 def dp_axes_of(mesh) -> tuple:
@@ -508,19 +529,25 @@ class _AllToAll(torch.autograd.Function):
 # one context for the process, not a thread's: autograd runs a card's
 # backward (and with it the remat recompute, whose hooks must fire as in
 # the forward) on its own worker thread
-_ctx = {"grid": None}
+_ctx = {"grid": None, "seq_shard": False}
 
 
 @contextlib.contextmanager
-def mesh_context(mesh):
+def mesh_context(mesh, *, batch_size=None):
     """Install ``mesh`` (None, a Grid, a HostMesh or a DeviceMesh) for
-    the hooks of the code run inside, and of the backward it records."""
-    old = _ctx["grid"]
-    _ctx["grid"] = grid_of(mesh)
+    the hooks of the code run inside, and of the backward it records.
+    ``batch_size``: the global batch of a decode step, which decides
+    ``seq_shard`` (``seq_shard_for``, as ``batch_spec_tree`` does) for the
+    cache layout (``kv_seq_layout``)."""
+    old = dict(_ctx)
+    grid = grid_of(mesh)
+    _ctx["grid"] = grid
+    _ctx["seq_shard"] = grid is not None and seq_shard_for(
+        batch_size, grid.size(dp_axes_of(grid)))
     try:
-        yield _ctx["grid"]
+        yield grid
     finally:
-        _ctx["grid"] = old
+        _ctx.update(old)
 
 
 def active() -> Grid | None:
@@ -546,6 +573,13 @@ def _on(axes):
         return None, ()
     axes = dp_axes_of(g) if axes == "dp" else _axes(axes)
     return (g, axes) if g.size(axes) > 1 else (None, ())
+
+
+def batch_ranks():
+    """(grid, axes): the installed context's data axes over which the
+    batch's rows are split, (None, ()) without a context, on one data
+    rank, or under ``seq_shard`` (the batch replicated)."""
+    return (None, ()) if _ctx["seq_shard"] else _on("dp")
 
 
 def gather_weight(w, dim):
@@ -600,6 +634,54 @@ def gather_tp(w, dim):
     of it; the gradient summed and cut back."""
     g, axes = _on("model")
     return w if g is None else _Gather.apply(w, g, axes, dim % w.dim())
+
+
+class KVLayout(NamedTuple):
+    """A K/V cache's sequence on this rank."""
+
+    axes: tuple     # the mesh axes it shards over
+    offset: int     # the global position of this rank's column 0
+    length: int     # the whole sequence's
+
+
+def kv_seq_layout(cfg, seq_local: int) -> KVLayout:
+    """The layout of a placed K/V cache of ``seq_local`` columns under the
+    installed context: the axes of ``kv_seq_axes`` that span more than one
+    rank, this rank's offset into the whole sequence (row-major over those
+    axes, as ``local_shard`` cuts it) and the whole length. Without a
+    context, or on a head-sharded cache, ((), 0, seq_local)."""
+    g = active()
+    if g is None:
+        return KVLayout((), 0, seq_local)
+    axes = tuple(a for a in kv_seq_axes(cfg, dp_axes_of(g), "model",
+                                        g.size("model"), _ctx["seq_shard"])
+                 if g.size(a) > 1)
+    return KVLayout(axes, g.index(axes) * seq_local,
+                    g.size(axes) * seq_local)
+
+
+def merge_split_k(m, l, acc, axes):
+    """The split-K merge of online-softmax statistics over the ranks of
+    ``axes`` that hold slices of one cache sequence (flash-decoding):
+    ``m`` (...), ``l`` (...) and ``acc`` (..., hd) are this rank's max,
+    sum of exponentials and weighted values. M = the max of ``m`` over the
+    ranks (an all-reduce max), then the sums of l e^(m - M) and
+    acc e^(m - M) (one all-reduce of both); a rank whose ``m`` is -inf (no
+    key of its slice visible) weighs 0, the rule of
+    ``kernels.attention_kernel.flash_decode_split_ref``. Returns the
+    normalised output acc / l, the same on every rank. Counted as
+    ``splitk_max`` and ``splitk_sum``."""
+    g = active()
+    big = m
+    for a in axes:
+        big = _all_reduce(big, g, (a,), op=dist.ReduceOp.MAX,
+                          kind="splitk_max")
+    safe = torch.where(torch.isfinite(big), big, 0.0)
+    w = torch.where(torch.isfinite(m), torch.exp(m - safe), 0.0)
+    both = torch.cat([acc * w[..., None], (l * w)[..., None]], dim=-1)
+    for a in axes:
+        both = _all_reduce(both, g, (a,), kind="splitk_sum")
+    return both[..., :-1] / torch.clamp(both[..., -1:], min=1e-30)
 
 
 def tp_sum(t):

@@ -122,6 +122,9 @@ def ssm_apply(p, cfg, x, *, state=None, conv_state=None):
     ``ssm_heads / tp`` heads (the reference's column-parallel in_proj and
     row-parallel out_proj): the states it takes and returns are its
     heads', and its conv channels are its heads' x and the whole B and C.
+    The conv history it takes and returns holds every channel (the packed
+    row is gathered whole, so each rank shifts the whole history;
+    ``model._ssm_stack`` gathers and cuts the placed cache).
     """
     Bsz, S, _ = x.shape
     di, H, P, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
@@ -139,6 +142,14 @@ def ssm_apply(p, cfg, x, *, state=None, conv_state=None):
     # each rank keeps its heads' z, x and dt and the shared B and C
     zxbcdt = SH.gather_tp(SH.enter_tp(x) @ SH.col_parallel(p["in_proj"]), -1)
     z, xBC, dt = torch.split(zxbcdt, [di, di + 2 * N, H], dim=-1)
+    # the causal conv's history, every channel (zeros: a prefill); a
+    # prompt shorter than K-1 keeps part of it in the new one
+    if conv_state is None:
+        conv_state = torch.zeros((Bsz, K - 1, di + 2 * N), dtype=xBC.dtype,
+                                 device=x.device)
+    conv_state = conv_state.to(xBC.dtype)
+    new_conv_state = torch.cat([conv_state, xBC[:, -(K - 1):]],
+                               dim=1)[:, -(K - 1):]
     conv_w = SH.gather_tp(p["conv_w"], 1)
     conv_b = SH.gather_tp(p["conv_b"], 0)
     A_log, D, dt_bias = p["A_log"], p["D"], p["dt_bias"]
@@ -148,22 +159,18 @@ def ssm_apply(p, cfg, x, *, state=None, conv_state=None):
         ch = slice(lo * P, lo * P + dl)
         z, dt = z[..., ch], dt[..., lo:lo + Hl]
         xBC = torch.cat([xBC[..., ch], xBC[..., di:]], dim=-1)
+        conv_state = torch.cat([conv_state[..., ch], conv_state[..., di:]],
+                               dim=-1)
         conv_w = torch.cat([conv_w[:, ch], conv_w[:, di:]], dim=1)
         conv_b = torch.cat([conv_b[ch], conv_b[di:]])
         # per-head leaves are whole on every rank: f sums their gradient
         A_log, D, dt_bias = (SH.enter_tp(t)[lo:lo + Hl]
                              for t in (A_log, D, dt_bias))
         scale = SH.enter_tp(scale)[ch]
-    conv_dim = dl + 2 * N
     dt = F.softplus(dt.to(f32) + dt_bias)                     # (B,S,Hl)
 
-    # depthwise causal conv over the sequence (zero history: a prefill);
-    # a prompt shorter than K-1 keeps part of that history in the new one
-    if conv_state is None:
-        conv_state = torch.zeros((Bsz, K - 1, conv_dim), dtype=xBC.dtype,
-                                 device=x.device)
-    padded = torch.cat([conv_state.to(xBC.dtype), xBC], dim=1)
-    new_conv_state = padded[:, -(K - 1):, :]
+    # depthwise causal conv over the sequence, this rank's channels
+    padded = torch.cat([conv_state, xBC], dim=1)
     windows = torch.stack([padded[:, i:i + S, :] for i in range(K)],
                           dim=2)                              # (B,S,K,C)
     xBC = F.silu(

@@ -109,13 +109,23 @@ def _gated_add(x, gate, h):
     return x + (torch.tanh(gate) * h.to(torch.float32)).to(x.dtype)
 
 
-def _cross_attend(p_attn, cfg, z, enc_kv, chunk):
-    """Queries of ``z`` against cached cross K/V (B, Sk, KV, hd)."""
+def _cross_attend(p_attn, cfg, z, enc_kv, chunk, placed=False):
+    """Queries of ``z`` against cross K/V (B, Sk, KV, hd): ``placed``, the
+    static cross cache of a decode step, which the sharded decode holds
+    in its placement (where its sequence is sharded, the ranks' softmax
+    statistics are merged unmasked, as ``layers.attention_apply`` merges
+    a self-attention cache's); else projected here by
+    ``project_cross_kv``, this rank's heads of the whole sequence."""
     B, Sq, _ = z.shape
-    q = L._q_project(p_attn, cfg, SH.enter_tp(z))
+    axes = (SH.kv_seq_layout(cfg, enc_kv["k"].shape[1]).axes if placed
+            else ())
+    whole = "model" in axes
+    q = L._q_project(p_attn, cfg, SH.enter_tp(z), all_heads=whole)
     h = L.blockwise_attention(q, enc_kv["k"].to(q.dtype),
                               enc_kv["v"].to(q.dtype), causal=False,
-                              chunk=chunk)
+                              chunk=chunk, merge_axes=axes)
+    if whole:
+        h = L.own_heads(cfg, h)
     return L._o_project(p_attn, cfg, h.reshape(B, Sq, -1))
 
 
@@ -139,9 +149,10 @@ def encdec_dec_block(p, cfg, x, positions, *, enc_out=None, enc_kv=None,
     )
     x = x + h
     z = L.rmsnorm(p["lnx"], x, cfg.norm_eps)
-    if enc_kv is None:
+    placed = enc_kv is not None
+    if not placed:
         enc_kv = project_cross_kv(p["xattn"], cfg, enc_out)
-    x = x + _cross_attend(p["xattn"], cfg, z, enc_kv, chunk)
+    x = x + _cross_attend(p["xattn"], cfg, z, enc_kv, chunk, placed)
     x = x + L.swiglu(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x, new_cache
 
@@ -150,14 +161,17 @@ def cross_block(p, cfg, x, vis, positions, *, chunk=1024):
     """A gated cross-attention layer (llama-3.2-vision): K/V projected from
     the raw patches ``vis``, no norm on them and no RoPE."""
     enc_kv = project_cross_kv(p["xattn"], cfg, vis)
-    return cross_block_cached(p, cfg, x, enc_kv, positions, chunk=chunk)
+    return cross_block_cached(p, cfg, x, enc_kv, positions, chunk=chunk,
+                              placed=False)
 
 
-def cross_block_cached(p, cfg, x, enc_kv, positions, *, chunk=1024):
-    """The vlm cross layer against the prefill's cached patch K/V."""
+def cross_block_cached(p, cfg, x, enc_kv, positions, *, chunk=1024,
+                       placed=True):
+    """The vlm cross layer against the prefill's cached patch K/V
+    (``placed``: the decode's cross cache, see ``_cross_attend``)."""
     del positions
     z = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     x = _gated_add(x, p["gate_attn"], _cross_attend(p["xattn"], cfg, z,
-                                                    enc_kv, chunk))
+                                                    enc_kv, chunk, placed))
     h = L.swiglu(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
     return _gated_add(x, p["gate_mlp"], h)

@@ -12,9 +12,15 @@ the ``"dots"`` remat policy.
     one-device count takes the padded dispatch, the same E x C rows at the
     smoke config's capacity factor). The FLOPs check also takes the
     mamba2 smoke config, whose ssm heads split over ``model``.
-  * ``granite_moe_1b x train_4k`` traces on the 16 x 16 fake mesh and its
-    record is written (its K/V are gathered at 16-way TP: its FLOPs are
-    reported, not compared); decode cells are listed as not ported.
+  * decode cells on the same mesh at batch 4 and at batch 1, below the
+    2-way data axis (``seq_shard``): ``argument_bytes`` equal to the
+    reference's exactly (the arguments its step reads: its jit drops the
+    others); internlm2's rank FLOPs times 4 equal the one-device
+    ``decode_step``'s within 1%, and batch 1 merges split-K once a layer.
+  * ``granite_moe_1b x train_4k`` and ``x decode_32k`` trace on the 16 x
+    16 fake mesh and their records are written (its K/V are gathered at
+    16-way TP: its FLOPs are reported, not compared); no cell is listed
+    as not ported.
   * ``remat_policy="dots"``: the loss and every gradient bitwise equal to
     ``"full"``, and within the train file's float32 tolerances of the
     reference's ``loss_fn`` gradients under ``"dots"``.
@@ -38,6 +44,7 @@ import torch
 from repro.configs import load_smoke_config as ref_smoke
 from repro.models import model as RM
 from repro_torch import tree
+from repro_torch.configs import base as CB
 from repro_torch.configs import load_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.launch.train import value_and_grad
@@ -53,6 +60,10 @@ SEQ, BATCH = 64, 4
 FLOPS_RTOL = 0.01
 LOSS_RTOL, GRAD_RTOL, GRAD_ATOL_SHARE = 2e-5, 2e-4, 2e-5
 
+#: the decode cells: (key suffix, global batch); batch 1 is below the
+#: 2-way data axis (``seq_shard``: the cache sequence over ``data``)
+DECODES = (("decode", BATCH), ("decode_b1", 1))
+
 REFERENCE = """
 import json
 from repro.configs import load_smoke_config
@@ -61,10 +72,12 @@ from repro.launch.dryrun import lower_cell
 mesh = compat.make_mesh((2, 2), ("data", "model"))
 out = {}
 for arch in %(archs)r:
-    for kind in %(kinds)r:
-        rec = lower_cell(arch, dict(seq=%(seq)d, batch=%(batch)d, kind=kind),
+    cells = [(kind, kind, %(batch)d) for kind in %(kinds)r]
+    cells += [(key, "decode", b) for key, b in %(decodes)r]
+    for key, kind, b in cells:
+        rec = lower_cell(arch, dict(seq=%(seq)d, batch=b, kind=kind),
                          mesh, cfg=load_smoke_config(arch))
-        out[arch + "." + kind] = rec["memory"]["argument_bytes"]
+        out[arch + "." + key] = rec["memory"]["argument_bytes"]
 print("RESULT " + json.dumps(out))
 """
 
@@ -73,7 +86,7 @@ import functools, json, os
 import torch
 from torch.distributed.device_mesh import init_device_mesh
 from torch.utils.flop_counter import FlopCounterMode
-from repro_torch.configs import load_smoke_config
+from repro_torch.configs import base as CB, load_smoke_config
 from repro_torch.launch import dryrun as DR
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.train import make_train_step, param_shapes
@@ -85,10 +98,12 @@ DR.fake_world(4)
 mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
 for arch in %(flop_archs)r:
     cfg = load_smoke_config(arch)
-    for kind in %(kinds)r:
-        rec = DR.lower_cell(arch, dict(seq=%(seq)d, batch=%(batch)d,
-                                       kind=kind), mesh, cfg=cfg)
-        out["cells"][arch + "." + kind] = rec
+    cells = [(kind, kind, %(batch)d) for kind in %(kinds)r]
+    cells += [(key, "decode", b) for key, b in %(decodes)r]
+    for key, kind, b in cells:
+        rec = DR.lower_cell(arch, dict(seq=%(seq)d, batch=b, kind=kind),
+                            mesh, cfg=cfg)
+        out["cells"][arch + "." + key] = rec
 # the one-device step and forward, the expert FFN capacity-padded
 pad = functools.partial(MOE.moe_ffn, dispatch="padded")
 MOE.moe_ffn, orig = pad, MOE.moe_ffn
@@ -103,12 +118,17 @@ for arch in %(flop_archs)r:
     with FlopCounterMode(display=False) as fc, torch.no_grad():
         M.forward(p, cfg, b["tokens"], use_ep=False)
     out["one_device"][arch + ".prefill"] = fc.get_total_flops()
+    dec = CB.input_specs(cfg, dict(seq=%(seq)d, batch=%(batch)d,
+                                   kind="decode"))
+    with FlopCounterMode(display=False) as fc, torch.no_grad():
+        M.decode_step(p, cfg, dec["tokens"], dec["caches"], dec["position"])
+    out["one_device"][arch + ".decode"] = fc.get_total_flops()
 MOE.moe_ffn = orig
-recs = DR.main(["--mesh", "single", "--arch", "granite_moe_1b",
-                "--shape", "train_4k", "--out", %(out)r])
-out["full"] = recs[0]
-DR.main(["--mesh", "single", "--arch", "granite_moe_1b", "--shape",
-         "decode_32k", "--out", %(out)r])
+out["full"] = {}
+for shape in ("train_4k", "decode_32k"):
+    recs = DR.main(["--mesh", "single", "--arch", "granite_moe_1b",
+                    "--shape", shape, "--out", %(out)r])
+    out["full"][shape] = recs[0]
 print("RESULT " + json.dumps(out))
 """
 
@@ -126,7 +146,7 @@ def _dry_runs(tmp_path_factory):
     ``"dots"`` tests, first in the file, run while they work."""
     out_dir = str(tmp_path_factory.mktemp("dryrun"))
     kw = dict(archs=ARCHS, flop_archs=FLOP_ARCHS, kinds=KINDS, seq=SEQ,
-              batch=BATCH, out=out_dir)
+              batch=BATCH, decodes=DECODES, out=out_dir)
     src = os.path.join(REPO, "src")
     procs = [subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(code % kw)],
@@ -199,7 +219,7 @@ def test_dots_policy_is_bitwise_full_and_matches_the_reference(arch):
             atol=GRAD_ATOL_SHARE * float(np.abs(b).max()), err_msg=key)
 
 
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", KINDS + tuple(k for k, _ in DECODES))
 @pytest.mark.parametrize("arch", ARCHS)
 def test_argument_bytes_equal_the_reference(dry, arch, kind):
     ref, port, _, _ = dry
@@ -224,15 +244,47 @@ def test_rank_flops_times_ranks_equal_one_device(dry, arch, kind):
         assert counts["all_to_all"] == 2 * cfg.n_layers * passes
 
 
-def test_full_granite_train_cell_traces_on_the_production_mesh(dry):
-    _, port, log, out_dir = dry
-    rec = port["full"]
+def test_decode_rank_flops_times_ranks_equal_one_device(dry):
+    """internlm2's KV heads divide the 2-way ``model`` axis: each rank
+    attends its heads over its rows' whole cache, no work repeated."""
+    _, port, _, _ = dry
+    rec = port["cells"]["internlm2_1_8b.decode"]
+    assert rec["kind"] == "decode" and rec["devices"] == 4
+    np.testing.assert_allclose(4 * rec["flops"],
+                               port["one_device"]["internlm2_1_8b.decode"],
+                               rtol=FLOPS_RTOL)
+    assert "splitk_max" not in rec["collectives"]["counts"]
+    # batch 1 shards the cache sequence over ``data``: merged a layer
+    counts = port["cells"]["internlm2_1_8b.decode_b1"]["collectives"][
+        "counts"]
+    n = load_smoke_config("internlm2_1_8b").n_layers
+    assert counts["splitk_max"] == counts["splitk_sum"] == n
+
+
+def _full_record_checks(port, log, out_dir, shape):
+    rec = port["full"][shape]
     assert rec["mesh"] == {"data": 16, "model": 16}
-    assert rec["devices"] == 256 and rec["kind"] == "train"
+    assert rec["devices"] == 256
+    assert rec["kind"] == CB.SHAPES[shape]["kind"]
     assert rec["flops"] > 0 and rec["memory"]["argument_bytes"] > 0
     assert rec["memory"]["temp_bytes"] is None
     assert "temp_bytes" in rec["null_reasons"]
     with open(os.path.join(out_dir,
-                           "granite_moe_1b.train_4k.single.json")) as f:
+                           f"granite_moe_1b.{shape}.single.json")) as f:
         assert json.load(f) == rec
-    assert "[not-ported] granite_moe_1b.decode_32k.single" in log
+    assert f"[ok]   granite_moe_1b.{shape}.single" in log
+
+
+def test_full_granite_train_cell_traces_on_the_production_mesh(dry):
+    _, port, log, out_dir = dry
+    _full_record_checks(port, log, out_dir, "train_4k")
+    assert "[not-ported]" not in log
+
+
+def test_full_granite_decode_cell_traces_on_the_production_mesh(dry):
+    """The decode cell the dry run listed as not ported before: traced,
+    with the train record's checks; its caches are what it donates."""
+    _, port, log, out_dir = dry
+    _full_record_checks(port, log, out_dir, "decode_32k")
+    mem = port["full"]["decode_32k"]["memory"]
+    assert 0 < mem["alias_bytes"] < mem["argument_bytes"]

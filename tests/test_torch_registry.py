@@ -1,6 +1,7 @@
 """The port's primitive registry, dispatch and launch counter, and its
 import boundary: ``repro_torch``, ``benchmarks_torch`` and
-``chip_smoke.py`` never import ``jax`` or anything of ``repro``."""
+``chip_smoke.py`` and ``examples/port_*.py`` never import ``jax`` or
+anything of ``repro``."""
 import ast
 import os
 import subprocess
@@ -257,6 +258,10 @@ def _imported_roots(path):
 
 def test_no_port_file_imports_jax_or_reference():
     files = [os.path.join(REPO, "chip_smoke.py")]
+    files += [os.path.join(REPO, "examples", n) for n in sorted(os.listdir(
+        os.path.join(REPO, "examples"))) if n.startswith("port_")
+        and n.endswith(".py")]
+    assert len(files) == 5, files     # the four port examples
     for top in (os.path.join(REPO, "src", "repro_torch"),
                 os.path.join(REPO, "benchmarks_torch")):
         for root, _, names in os.walk(top):
