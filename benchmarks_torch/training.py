@@ -12,8 +12,9 @@ corpus through ``launch.train.train_loop``; and the pieces around it:
     kernels (``auto``) and with every primitive on its plain path
     (``backend="torch"``), and each MoE layer's routing (ids, perm) from
     both, captured at ``moe._dispatch_indices``;
-  * ``combine_peak``: the device memory a MoE combine takes forward and
-    backward (the portable flagged scan over (T*k, d) values);
+  * ``combine_peak``: the device memory and CUDA-event time a MoE combine
+    takes forward and backward (the plain path's segment sum over (T*k,
+    d) values, ``kernels.segment_kernel.segment_sum``);
   * ``profiled_step``: one step by CUDA events, then device ms by kernel
     class from ``torch.profiler`` and the idle share;
   * ``ep_check``: ``moe_ffn_ep`` at granite's widths over ``EP_RANKS``
@@ -45,6 +46,7 @@ import dataclasses
 import json
 import math
 import os
+import statistics
 import tempfile
 import time
 import traceback
@@ -84,6 +86,7 @@ CATEGORIES = (
     ("expert grouped GEMMs", ("groupproblemshape", "grouped")),
     ("matmuls", ("gemm", "gemv", "nvjet", "cutlass", "sm90_", "xmma",
                  "splitk", "cublas")),
+    ("MoE combine (segment sum)", ("segment_reduce",)),
     ("scatter / index add", ("index", "scatter", "gather")),
     ("softmax", ("softmax",)),
 )
@@ -196,8 +199,9 @@ def compare_routes(res: dict) -> dict:
 def combine_peak(cfg, batch: int = BATCH, seq: int = SEQ,
                  device=DEVICE) -> dict:
     """Device bytes the MoE combine takes: ``segmented_reduce`` over
-    (T*k, d) values that require grad (the portable flagged scan), its
-    forward and backward alone, above what was allocated before."""
+    (T*k, d) values that require grad (the plain path's segment sum), its
+    forward and backward alone, above what was allocated before; and the
+    median CUDA-event ms of forward + backward (``ms``) over 5 calls."""
     from repro_torch import core as ak
 
     n = batch * seq * cfg.top_k
@@ -215,9 +219,19 @@ def combine_peak(cfg, batch: int = BATCH, seq: int = SEQ,
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     del out, g
+    times = []
+    for _ in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = ak.segmented_reduce(torch.add, vals, offs, init=0)
+        torch.autograd.grad(out.float().sum(), vals)
+        ev[1].record()
+        ev[1].synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
     return {"values_bytes": vals.numel() * vals.element_size(),
             "forward_peak_bytes": fwd_peak, "saved_bytes": held,
-            "forward_backward_peak_bytes": peak}
+            "forward_backward_peak_bytes": peak,
+            "ms": statistics.median(times[1:])}
 
 
 def profiled_step(cfg, params, opt, batch, lr: float = LR) -> dict:

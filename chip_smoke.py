@@ -797,6 +797,85 @@ def seg_exact(vals64: "np.ndarray", off: "np.ndarray", exclusive=False):
     return cs[idx + (0 if exclusive else 1)] - head
 
 
+#: int8 / bf16 operands of the reduce's out_dtype checks (phase 6)
+REDUCE_OUT_N = 1 << 22
+#: the MoE combine of phase 13's training step: T = 8 x 1024 tokens, top-8,
+#: d_model 1024
+COMBINE_SHAPE = (8 * 1024, 8, 1024)
+
+
+def combine_sum_check(ak, seed: int) -> dict:
+    """Phase 6's 2-D segment sum, the MoE combine's: ``segmented_reduce``
+    of (add, 0) over (T*k, d) values in uniform k-wide rows, the plain
+    path (``kernels.segment_kernel.segment_sum``, as the reference
+    computes it outside any kernel), float32 and bf16 values, without
+    and with grad. Each sum within ``sum_rtol(k)`` of sum |x| of its
+    float64 value (bf16: plus 2^-8 of the float32 sum's bound, the
+    cast's rounding), the
+    gradient of sum(y * g) each value's row of g bitwise, three runs
+    bitwise equal; CUDA-event ms of the forward and of forward +
+    backward, the forward's device us by queued events, and its byte
+    bound (values read once, sums written once)."""
+    from benchmarks_torch.launch_path import queued_device_us
+
+    T, k, d = COMBINE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    off = torch.arange(T + 1, dtype=torch.int32, device="cuda") * k
+    rtol, _ = sum_rtol(k)
+    out = {"values": [T * k, d], "k": k, "rtol": rtol}
+    for dtype in (torch.float32, torch.bfloat16):
+        v = torch.randn((T * k, d), generator=gen, device="cuda").to(dtype)
+        g = torch.randn((T, d), generator=gen, device="cuda").to(dtype)
+        v64 = v.double().view(T, k, d)
+        exact, lim = v64.sum(1), rtol * v64.abs().sum(1) + 1e-30
+        del v64
+        if dtype == torch.bfloat16:   # the float32 sum, then its cast
+            lim = lim + (exact.abs() + lim) * 2.0 ** -8
+        rec, runs = {"dtype": str(dtype)}, []
+        for grad in (False, True):
+            x = v.detach().clone().requires_grad_(grad)
+            y = ak.segmented_reduce(torch.add, x, off, init=0)
+            err = (y.detach().double() - exact).abs()
+            check(tuple(y.shape) == (T, d) and y.dtype == dtype
+                  and bool((err <= lim).all()),
+                  f"combine segment sum {dtype} grad={grad}: off the "
+                  f"float64 sums by up to {float(err.max())}")
+            rec[f"share_of_bound_grad_{grad}"] = float((err / lim).max())
+            if grad:
+                (gx,) = torch.autograd.grad(y, x, g)
+                check(torch.equal(gx, g.repeat_interleave(k, 0)),
+                      f"combine segment sum {dtype}: gradient != each "
+                      f"value's row of the upstream gradient")
+            runs.append(y.detach())
+        runs.append(ak.segmented_reduce(torch.add, v, off, init=0))
+        rec["bitwise_runs"] = all(torch.equal(runs[0], r) for r in runs)
+        check(rec["bitwise_runs"], f"combine segment sum {dtype}: runs "
+                                   f"differ")
+        xg = v.detach().requires_grad_(True)
+
+        def forward():
+            return ak.segmented_reduce(torch.add, v, off, init=0)
+
+        def forward_backward():
+            torch.autograd.grad(ak.segmented_reduce(torch.add, xg, off,
+                                                    init=0), xg, g)
+
+        rec["forward_ms"] = cuda_ms(forward)
+        rec["forward_backward_ms"] = cuda_ms(forward_backward)
+        try:
+            rec["forward_device_us"] = queued_device_us(forward)
+        except RuntimeError as e:
+            rec["forward_device_us"], rec["queue_error"] = None, str(e)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            v.numel() * v.element_size() + T * d * v.element_size(), T * k * d)
+        out[str(dtype).replace("torch.", "")] = rec
+        log(f"  combine segment sum {dtype} (T*k, d) = ({T * k}, {d}): "
+            + json.dumps(rec))
+        del v, g, exact, lim, runs, xg
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_streaming(ak, registry, C, errs, seed: int) -> dict:
     """Phase 6: the Table II map bodies, reduce, accumulate and the
     segmented primitives at full size; returns counts, checks, timings."""
@@ -822,6 +901,12 @@ def phase_streaming(ak, registry, C, errs, seed: int) -> dict:
     out["sum_rtol"] = rtol
     ljg = MAPK.ljg_body()
     inf = math.inf
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    xi8 = torch.randint(-128, 128, (REDUCE_OUT_N,), generator=gen,
+                        device="cuda", dtype=torch.int32).to(torch.int8)
+    # small integers: every partial sum exact in float32 (|sum| < 2^24)
+    xb3 = torch.randint(-3, 4, (REDUCE_OUT_N,), generator=gen, device="cuda",
+                        dtype=torch.int32).to(torch.bfloat16)
     torch.cuda.synchronize()
     out["inputs_s"] = time.perf_counter() - t0
 
@@ -972,6 +1057,21 @@ def phase_streaming(ak, registry, C, errs, seed: int) -> dict:
               [SGK.segmented_reduce_blocks(torch.add, xe, off, init=0.0)],
               [SGK.segmented_reduce_ref(torch.add, xe, off, init=0.0)],
               "segmented_reduce add, exact input")
+    # the reference's out_dtypes on the reduce kernel, exact inputs
+    for what, xr, body, op, unit, od in (
+            ("int8 -> int32", xi8, MAPK.identity, torch.add, 0,
+             torch.int32),
+            ("int8 square -> int32", xi8, MAPK.square, torch.add, 0,
+             torch.int32),
+            ("bf16 -> float32", xb3, MAPK.identity, torch.add, 0.0,
+             torch.float32),
+            ("bf16 max -> float32", xb3, MAPK.identity, torch.maximum,
+             -inf, torch.float32)):
+        errs.same(["reduce"], [RK.reduce_blocks(body, op, xr, unit=unit,
+                                                out_dtype=od)],
+                  [KREF.reduce_ref(body, op, xr, unit=unit, out_dtype=od)],
+                  f"reduce {what}, exact input")
+    del xi8, xb3
     # the segmented sort: the network against its plain version, and the
     # result against the plain stable-sort formulation
     ids = SGK.segment_ids(soff, SORT_N)
@@ -988,6 +1088,7 @@ def phase_streaming(ak, registry, C, errs, seed: int) -> dict:
     log(f"streaming parity: kernels against plain versions and float64 "
         f"({out['parity_s']:.1f} s); rbf {out['rbf_check']}, ljg "
         f"{out['ljg_check']}")
+    out["combine_sum"] = combine_sum_check(ak, seed)
 
     # -- timings at the path's shapes ----------------------------------------
     nb = STREAM_N * 4
@@ -3271,10 +3372,14 @@ def training_breakdown(report, seed: int) -> None:
 
     cfg = TB.config()
     params, opt = init_sharded(cfg, None, seed)
-    report["training"]["step_breakdown"] = TB.profiled_step(
+    br = report["training"]["step_breakdown"] = TB.profiled_step(
         cfg, params, opt, TB.batch_of(cfg))
-    log("train: one step's breakdown: "
-        + json.dumps(report["training"]["step_breakdown"]))
+    log("train: one step's breakdown: " + json.dumps(br))
+    log(f"train: a step {br['step_ms']:.1f} ms (CUDA events), "
+        f"{br['device_ms']:.1f} ms on the device (torch.profiler), the MoE "
+        f"combine's segment sums "
+        f"{br['categories_ms'].get('MoE combine (segment sum)', 0.0):.1f} "
+        f"ms of it; idle {br['idle_share']:.3f}")
     del params, opt
     torch.cuda.empty_cache()
 

@@ -10,7 +10,10 @@ Layout, the reference's::
   * **Atomic commit**: writes land in ``step_N.tmp``, which is renamed
     onto ``step_N`` only after the manifest is fsynced; a crash mid-write
     never corrupts the latest committed step, and ``latest_step`` sees
-    committed directories only.
+    committed directories only. Saving a step again renames the old
+    directory aside to ``step_N.prev`` (which still counts as the step)
+    before the new one goes in, and removes it after: the step stays
+    committed throughout.
   * **Restore anywhere**: leaves are stored whole on the host;
     ``restore(..., device=)`` places them on the device the restarted
     job has (the reference's ``shardings=``).
@@ -29,6 +32,11 @@ float32 moments) where each rank writes its quarter, and needs no
 collective, so the writes stay on the worker thread. ``restore(...,
 shardings=)`` reads this rank's blocks back bitwise onto a mesh of the
 same layout, or cuts a whole-tree checkpoint into the placements.
+
+Each rank lists the directory on its own, so ranks may see different
+newest steps while another rank is still committing. On a process group
+the step to resume from is agreed (:func:`agreed_step`: the least of the
+ranks' ``latest_step``); ``restore(..., step=None)`` uses it there.
 
 bfloat16 has no ``.npy`` type: it is stored as its ``uint16`` bit
 pattern with dtype "bfloat16" in the manifest. Keys are the port's tree
@@ -50,8 +58,10 @@ import torch
 
 from repro_torch import tree
 
-_STEP_RE = re.compile(r"^step_(\d+)$")
-_RANK_RE = re.compile(r"^step_(\d+)\.rank_(\d+)-of-(\d+)$")
+_STEP_RE = re.compile(r"^step_(\d+)(\.prev)?$")
+_RANK_RE = re.compile(r"^step_(\d+)\.rank_(\d+)-of-(\d+)(\.prev)?$")
+#: suffix of a committed directory set aside while its step is saved again
+_PREV = ".prev"
 
 
 def _dtensor_cls():
@@ -136,9 +146,14 @@ def save(directory: str, tree_, step: int) -> str:
         json.dump(manifest, f, indent=1)
         f.flush()
         os.fsync(f.fileno())
+    prev = final + _PREV
     if os.path.exists(final):
-        shutil.rmtree(final)
+        if os.path.exists(prev):
+            shutil.rmtree(prev)
+        os.rename(final, prev)   # the step stays committed as .prev
     os.rename(tmp, final)  # the atomic commit point
+    if os.path.exists(prev):
+        shutil.rmtree(prev)
     return final
 
 
@@ -162,16 +177,36 @@ def latest_step(directory: str) -> int | None:
     return steps[-1] if steps else None
 
 
+def agreed_step(directory: str) -> int | None:
+    """The newest step that every rank of the default process group sees
+    committed: the least of the ranks' :func:`latest_step` (None if any
+    rank sees none), agreed by one all-reduce. A collective: every rank
+    calls it. Without a group of several processes, ``latest_step``."""
+    import torch.distributed as dist
+
+    step = latest_step(directory)
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return step
+    device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    t = torch.tensor([-1 if step is None else step], dtype=torch.int64,
+                     device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    step = int(t.item())
+    return None if step < 0 else step
+
+
 def _source(directory: str, step: int) -> str:
     """The directory this process reads ``step`` from: the whole tree's,
-    else this rank's shard files."""
-    whole = os.path.join(directory, f"step_{step:08d}")
-    if os.path.isdir(whole):
-        return whole
+    else this rank's shard files (either possibly set aside as
+    ``.prev`` while the step is saved again)."""
+    for name in (f"step_{step:08d}", f"step_{step:08d}{_PREV}"):
+        whole = os.path.join(directory, name)
+        if os.path.isdir(whole):
+            return whole
     import torch.distributed as dist
 
     rank = dist.get_rank() if dist.is_initialized() else 0
-    for d in os.listdir(directory):
+    for d in sorted(os.listdir(directory), key=lambda d: d.endswith(_PREV)):
         m = _RANK_RE.match(d)
         if m and int(m.group(1)) == step and int(m.group(2)) == rank:
             n = int(m.group(3))
@@ -190,6 +225,9 @@ def restore(directory: str, like, step: int | None = None, *, device=None,
     ``.shape`` and ``.dtype``, torch dtypes) -> (tree, step). Each leaf
     lands on ``device``, or, when None, on the device of ``like``'s leaf
     (the card for a leaf that is no tensor), in the leaf's dtype.
+    ``step=None`` takes the newest committed step: on a process group of
+    several ranks the one they agree on (:func:`agreed_step`, a
+    collective, so every rank calls ``restore`` then).
 
     ``shardings`` (the reference's; a tree of
     ``models.sharding.NamedPlacement`` like ``like``, e.g. what
@@ -201,7 +239,7 @@ def restore(directory: str, like, step: int | None = None, *, device=None,
     from repro_torch.models import sharding as SH
 
     if step is None:
-        step = latest_step(directory)
+        step = agreed_step(directory)
         if step is None:
             raise FileNotFoundError(
                 f"no committed checkpoint in {directory}")

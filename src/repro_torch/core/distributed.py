@@ -93,6 +93,31 @@ def reset_collective_counts() -> None:
         _collectives.clear()
 
 
+def group_timeout():
+    """The default group's collective timeout, for the groups made over
+    it: torch gives a new group its backend's default (30 minutes for
+    gloo), not the timeout the job gave ``init_process_group``. None
+    without a default group, or for a backend without options (the dry
+    run's ``fake``, which waits on nothing); RuntimeError where torch
+    does not tell (rather than make groups that wait 30 minutes on a
+    lost rank)."""
+    if not dist.is_initialized():
+        return None
+    device = torch.device("cuda" if dist.get_backend() == "nccl" else "cpu")
+    try:
+        pg = dist.distributed_c10d._get_default_group()
+        options = pg._get_backend(device).options
+        return None if options is None else options._timeout
+    except (AttributeError, RuntimeError) as e:
+        raise RuntimeError("cannot read the default process group's "
+                           "timeout for its subgroups") from e
+
+
+def new_group(ranks):
+    """``dist.new_group(ranks)`` under the default group's timeout."""
+    return dist.new_group(ranks, timeout=group_timeout())
+
+
 def _host(t: torch.Tensor) -> torch.Tensor:
     """A host copy of ``t`` for a gloo collective (pinned for a GPU
     tensor, so the device-to-host copy is a DMA)."""

@@ -773,7 +773,8 @@ def _segmented_refusal(values, offsets, *, op, **_):
 segmented_reduce_p = register(Primitive(
     "segmented_reduce", _torch_segmented_reduce, _cuda_segmented_reduce,
     refusal=_segmented_refusal,
-    doc="per-CSR-segment reduce -> (S,): the flagged scan + segment ends",
+    doc="per-CSR-segment reduce -> (S,): the flagged scan + segment ends "
+        "(a segment sum for add, 0 on the plain path)",
 ))
 
 segmented_scan_p = register(Primitive(

@@ -151,9 +151,10 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 #: dtype codes of csrc/ak_common.cuh (enum AkDtype); bool only as the
-#: output of a logical reduction
+#: output of a logical reduction, int8 only as an operand of the reduce
 DTYPE_CODES = {torch.float32: 0, torch.int32: 1, torch.bfloat16: 2}
 BOOL_CODE = 3
+INT8_CODE = 5
 
 
 def dtype_code(dtype: torch.dtype, what: str) -> int:

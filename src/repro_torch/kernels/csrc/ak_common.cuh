@@ -10,8 +10,10 @@
 #include <stdint.h>
 
 // dtype codes passed from Python (kernels/_dtypes in each wrapper)
-// AK_BOOL only as the output of a logical reduction (kernels/_build.py)
-enum AkDtype { AK_F32 = 0, AK_I32 = 1, AK_BF16 = 2, AK_BOOL = 3, AK_I64 = 4 };
+// AK_BOOL only as the output of a logical reduction, AK_I8 only as an
+// operand of the reduce (kernels/_build.py)
+enum AkDtype { AK_F32 = 0, AK_I32 = 1, AK_BF16 = 2, AK_BOOL = 3, AK_I64 = 4,
+               AK_I8 = 5 };
 
 template <typename K>
 __device__ __forceinline__ float ak_to_float(K v) { return (float)v; }

@@ -93,12 +93,27 @@ int launch(const AkOperands& ops, long long n, const AkParams& prm,
   return (int)cudaGetLastError();
 }
 
+// ak_with_body, plus int8 operands through the identity and square bodies.
+template <typename F>
+int with_operand(int body, int dtype, F&& f) {
+  if (dtype == AK_I8) {
+    if (body == AK_IDENTITY) return f(AkBodyTag<AK_IDENTITY>{}, AkTypeTag<int8_t>{});
+    if (body == AK_SQUARE) return f(AkBodyTag<AK_SQUARE>{}, AkTypeTag<int8_t>{});
+    return (int)cudaErrorInvalidValue;
+  }
+  return ak_with_body(body, dtype, f);
+}
+
 }  // namespace
 
-// out[0] = op(init, fold_op(body(operands))). out_dtype is the operands'
-// dtype for add/mul/min/max and AK_BOOL for and/or. partials holds grid
-// accumulators (4 bytes each); *ticket must be 0 on entry, and is 0 again
-// when the kernel ends, so one ticket serves every call on a stream.
+// out[0] = op(init, fold_op(body(operands))). For add/mul/min/max
+// out_dtype is any of float32, int32 and bfloat16: each body value (in the
+// operands' type) is cast to it and folded in AkAcc<out>, as the
+// reference's reduce_ref does (it folds a bfloat16 output in bfloat16);
+// and/or fold into AK_BOOL.
+// partials holds grid accumulators (4 bytes each); *ticket must be 0 on
+// entry, and is 0 again when the kernel ends, so one ticket serves every
+// call on a stream.
 AK_EXPORT int ak_reduce(const void* a0, const void* a1, const void* a2,
                         const void* a3, const void* a4, const void* a5,
                         int body, int dtype, int out_dtype, int op,
@@ -109,24 +124,29 @@ AK_EXPORT int ak_reduce(const void* a0, const void* a1, const void* a2,
   const AkOperands ops = {{a0, a1, a2, a3, a4, a5}};
   const AkParams prm = {{p0, p1, p2, p3, p4, p5}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return ak_with_body(body, dtype, [&](auto bt, auto tt) {
+  return with_operand(body, dtype, [&](auto bt, auto tt) {
     constexpr int B = decltype(bt)::value;
     typedef typename decltype(tt)::type T;
     if (out_dtype == AK_BOOL) {
-      switch (op) {
-        case AK_AND: return launch<AK_AND, B, T, bool>(ops, n, prm, ident, init, partials, ticket, grid, out, s);
-        case AK_OR: return launch<AK_OR, B, T, bool>(ops, n, prm, ident, init, partials, ticket, grid, out, s);
+      // and/or read the bodies' own dtypes only (no int8 instantiation)
+      if constexpr (!std::is_same<T, int8_t>::value) {
+        switch (op) {
+          case AK_AND: return launch<AK_AND, B, T, bool>(ops, n, prm, ident, init, partials, ticket, grid, out, s);
+          case AK_OR: return launch<AK_OR, B, T, bool>(ops, n, prm, ident, init, partials, ticket, grid, out, s);
+        }
       }
       return (int)cudaErrorInvalidValue;
     }
-    if (out_dtype != dtype) return (int)cudaErrorInvalidValue;
-    switch (op) {
-      case AK_ADD: return launch<AK_ADD, B, T, T>(ops, n, prm, ident, init, partials, ticket, grid, out, s);
-      case AK_MUL: return launch<AK_MUL, B, T, T>(ops, n, prm, ident, init, partials, ticket, grid, out, s);
-      case AK_MIN: return launch<AK_MIN, B, T, T>(ops, n, prm, ident, init, partials, ticket, grid, out, s);
-      case AK_MAX: return launch<AK_MAX, B, T, T>(ops, n, prm, ident, init, partials, ticket, grid, out, s);
-    }
-    return (int)cudaErrorInvalidValue;
+    return ak_with_type(out_dtype, [&](auto ot) {
+      typedef typename decltype(ot)::type Out;
+      switch (op) {
+        case AK_ADD: return launch<AK_ADD, B, T, Out>(ops, n, prm, ident, init, partials, ticket, grid, out, s);
+        case AK_MUL: return launch<AK_MUL, B, T, Out>(ops, n, prm, ident, init, partials, ticket, grid, out, s);
+        case AK_MIN: return launch<AK_MIN, B, T, Out>(ops, n, prm, ident, init, partials, ticket, grid, out, s);
+        case AK_MAX: return launch<AK_MAX, B, T, Out>(ops, n, prm, ident, init, partials, ticket, grid, out, s);
+      }
+      return (int)cudaErrorInvalidValue;
+    });
   });
 }
 

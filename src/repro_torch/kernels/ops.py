@@ -46,6 +46,29 @@ def argsort(keys):
     return registry.call("argsort", keys, switch_below=0, backend="cuda")
 
 
+def sort_batched(keys, *, descending=False):
+    """Last-axis sort of (..., n): every row in one network launch set."""
+    return registry.call("sort_batched", keys, descending=descending,
+                         switch_below=0, backend="cuda")
+
+
+def argsort_batched(keys):
+    """Stable last-axis argsort of (..., n)."""
+    return registry.call("argsort_batched", keys, switch_below=0,
+                         backend="cuda")
+
+
+def topk(x, k):
+    """Descending top-k (values, indices) along the last axis, sort-derived."""
+    return registry.call("topk", x, k=k, switch_below=0, backend="cuda")
+
+
+def nucleus_mask(x, *, top_p):
+    """Fused top-p keep mask along the last axis (serve-sampler hot path)."""
+    return registry.call("nucleus_mask", x, top_p=float(top_p),
+                         switch_below=0, backend="cuda")
+
+
 def searchsorted(hay, queries, *, side="left"):
     return registry.call("searchsorted", hay, queries, side=side,
                          switch_below=0, backend="cuda")

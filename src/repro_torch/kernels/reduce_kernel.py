@@ -13,8 +13,19 @@ while int, ``min``/``max`` and logical results are exact. Bound by one
 read of the operands.
 
 The kernel takes ``f`` from ``map_kernel.BODIES`` and ``op`` from
-``common`` (add, mul, min, max over the operands' dtype; and, or into a
-bool). The plain version is ``ref.reduce_ref``.
+``common``: add, mul, min and max into any ``out_dtype`` of float32,
+int32 and bfloat16 (by default the operands'), each body value (computed
+in the operands' dtype) cast to it and folded in
+``ref.acc_dtype(out_dtype)``; and, or into a bool. Besides the bodies'
+own dtypes it reads int8 through ``identity`` and ``square`` under add,
+mul, min and max (an int8 sum into int32). The plain version is
+``ref.reduce_ref``. That is the reference's ``reduce_ref`` for int32 and
+float32 outputs; for bfloat16 the port folds in float32 and rounds once
+where the reference's folds in bfloat16. The reference's Pallas kernel
+itself takes an ``out_dtype`` other than its body's only for integer
+widening, and there folds each block's 8 columns in the operands' dtype
+first, so an int8 sum wraps; the port follows ``reduce_ref`` (ROADMAP's
+differences and faults of the reference).
 """
 from __future__ import annotations
 
@@ -47,20 +58,39 @@ _SIGNATURES = {
 }
 
 
+#: bodies that also read int8 operands here (the map kernel does not)
+_INT8_BODIES = ("identity", "square")
+
+
+def _int8_call(f, arrays) -> bool:
+    return (isinstance(f, MK.Body) and f.name in _INT8_BODIES
+            and len(arrays) == f.arity
+            and all(a.dtype == torch.int8 for a in arrays))
+
+
 def refusal(f, op, arrays, out_dtype) -> str | None:
     """Why the kernel cannot take this call (None if it can)."""
-    why = MK.refusal(f, arrays, None)
+    cat = C.catalogued_op(op)
+    int8 = _int8_call(f, arrays) and cat is not None and not cat.logical
+    why = None if int8 else MK.refusal(f, arrays, None)
     if why is not None:
         return why
-    cat = C.catalogued_op(op)
     if cat is None:
         return f"{op!r} is not an operator of the kernel catalogue"
-    dtype = arrays[0].dtype
-    want = torch.bool if cat.logical else dtype
-    if (out_dtype or dtype) != want:
-        return (f"the reduce kernel folds {cat.name} into {want}, not "
-                f"{out_dtype}")
+    out = out_dtype or arrays[0].dtype
+    if cat.logical and out != torch.bool:
+        return (f"the reduce kernel folds {cat.name} into torch.bool, not "
+                f"{out}")
+    if not cat.logical and out not in C.KERNEL_DTYPES:
+        return (f"the reduce kernel folds {cat.name} into one of "
+                f"{C.KERNEL_DTYPES}, not {out}")
     return None
+
+
+def _operand_code(dtype: torch.dtype) -> int:
+    if dtype == torch.int8:
+        return _build.INT8_CODE
+    return _build.dtype_code(dtype, "reduce")
 
 
 def reduce_blocks(f, op, *arrays: torch.Tensor, unit, out_dtype=None
@@ -90,7 +120,7 @@ def reduce_blocks(f, op, *arrays: torch.Tensor, unit, out_dtype=None
     acc = ref.acc_dtype(out_dtype)
     err = lib.ak_reduce(
         *MK.operand_pointers(flat), f.code,
-        _build.dtype_code(arrays[0].dtype, "reduce"),
+        _operand_code(arrays[0].dtype),
         _build.BOOL_CODE if out_dtype == torch.bool
         else _build.dtype_code(out_dtype, "reduce"),
         cat.code, n, *f.kernel_params(),

@@ -14,7 +14,9 @@ empty segments are legal anywhere.
     values and flags once. ``init`` is folded in once per segment.
   * ``segmented_reduce_blocks`` is that scan plus the segment-end gather in
     torch (empty segments give ``init``), as in the reference, whose gather
-    has no kernel either.
+    has no kernel either. Its plain version takes the reference's
+    ``segment_sum`` branch for (add, 0), which the reference, too, computes
+    outside any kernel (the MoE combine's feature-axis values).
   * ``segmented_sort_blocks`` rides the bitonic kv network
     (``sort_kernel.py``): one pass with the segment ids as keys and the
     values as a tie-broken payload, or, with a payload, two stable
@@ -79,7 +81,8 @@ def _segment_ends(scanned, offsets, init):
 
 
 # --------------------------------------------------------------------------
-# Plain versions: a flagged Hillis-Steele tree in whole-tensor ops
+# Plain versions: a flagged Hillis-Steele tree in whole-tensor ops (and a
+# segment sum for the additive reduce)
 # --------------------------------------------------------------------------
 
 def flagged_scan_ref(op, values, flags, *, unit, exclusive=False):
@@ -114,8 +117,32 @@ def segmented_scan_ref(op, values, offsets, *, unit, exclusive=False):
                             unit=unit, exclusive=exclusive)
 
 
+def segment_sum(values, offsets):
+    """Per-segment sum over axis 0, (S,) + trailing axes, 0 for an empty
+    segment: in ``ref.acc_dtype`` and cast back. Floats go through
+    ``torch.segment_reduce`` (differentiable; a fixed order a segment, so
+    the same bits from run to run on the card, which ``index_add_``'s
+    float atomics are not), integers through ``index_add_`` (exact, in
+    any order)."""
+    acc = ref.acc_dtype(values.dtype)
+    v = values.to(acc)
+    if v.is_floating_point():
+        out = torch.segment_reduce(v, "sum", offsets=offsets, axis=0,
+                                   initial=0)
+    else:
+        out = torch.zeros((offsets.shape[0] - 1,) + tuple(v.shape[1:]),
+                          dtype=acc, device=v.device)
+        out.index_add_(0, segment_ids(offsets, v.shape[0]).long(), v)
+    return out.to(values.dtype)
+
+
 def segmented_reduce_ref(op, values, offsets, *, init):
-    """Per-segment ``op(init, fold(segment))``, (S,) + trailing axes."""
+    """Per-segment ``op(init, fold(segment))``, (S,) + trailing axes. For
+    ``torch.add`` with ``init`` 0 (the MoE combine) the reference's
+    branch, a segment sum (:func:`segment_sum`); otherwise the flagged
+    scan and the segment-end gather."""
+    if op is torch.add and init == 0:
+        return segment_sum(values, offsets)
     scanned = segmented_scan_ref(op, values, offsets, unit=init)
     return _segment_ends(scanned, offsets, init)
 

@@ -112,12 +112,12 @@ def make_host_mesh(data: int = 1, model: int = 1) -> HostMesh:
     # every rank creates every group, in one order
     for i in range(data):
         ranks = list(range(i * model, (i + 1) * model))
-        g = dist.new_group(ranks) if model > 1 else None
+        g = D.new_group(ranks) if model > 1 else None
         if coords["data"] == i:
             groups["model"] = g
     for j in range(model):
         ranks = list(range(j, data * model, model))
-        g = dist.new_group(ranks) if data > 1 else None
+        g = D.new_group(ranks) if data > 1 else None
         if coords["model"] == j:
             groups["data"] = g
     return HostMesh(shape={"data": data, "model": model}, coords=coords,

@@ -287,7 +287,11 @@ def train_loop(cfg, mesh, *, steps, batch, seq, lr=3e-4, use_ep=False,
     several processes the state is placed (``init_sharded``), the step is
     ``jitted_train_step``, each ``data`` rank trains on its own rows of
     the ``batch`` (which must divide by the axis), checkpoints are
-    per-rank shard files and a restart restores into the shardings."""
+    per-rank shard files and a restart restores into the shardings: all
+    ranks at the newest step every rank has committed
+    (``ckpt.agreed_step``). A step saved in the loop is not saved again
+    at the end, and a sharded loop returns only once every rank's writes
+    are committed (a barrier after its writer)."""
     from repro_torch import ckpt as CK
     from repro_torch.data import SyntheticCorpus
     from repro_torch.runtime import StragglerMonitor, Supervisor
@@ -306,10 +310,13 @@ def train_loop(cfg, mesh, *, steps, batch, seq, lr=3e-4, use_ep=False,
     mon = StragglerMonitor(n_hosts=1)
 
     start = 0
-    if ckpt_dir and CK.latest_step(ckpt_dir) is not None:
+    # every rank of a group resumes at the step they all see committed
+    found = CK.agreed_step(ckpt_dir) if ckpt_dir else None
+    if found is not None:
         shardings = (shardings_for(cfg, mesh)[:2] if sharded else None)
         (params, opt), start = CK.restore(ckpt_dir, (params, opt),
-                                          device=device, shardings=shardings)
+                                          step=found, device=device,
+                                          shardings=shardings)
         log(f"restored checkpoint at step {start}")
 
     cuda = torch.device(device).type == "cuda"
@@ -335,8 +342,11 @@ def train_loop(cfg, mesh, *, steps, batch, seq, lr=3e-4, use_ep=False,
         if writer and (i + 1) % ckpt_every == 0:
             writer.save((params, opt), i + 1)
     if writer:
-        writer.save((params, opt), steps)
+        if start < steps and steps % ckpt_every:   # not saved in the loop
+            writer.save((params, opt), steps)
         writer.wait()
+        if sharded:   # a later job on the group sees every rank's commit
+            torch.distributed.barrier()
     if stats is not None:
         stats.update(step_ms=step_ms, start=start,
                      retries=sup.retries_total, state=(params, opt))

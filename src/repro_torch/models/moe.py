@@ -14,9 +14,9 @@ reference:
 ``moe_ffn`` dispatches ``"bucketed"`` by default: tokens gathered
 expert-contiguously off the sortperm, the expert FFN over the ragged
 buckets, and the per-token top-k combine as ONE ``ak.segmented_reduce``
-over uniform k-wide segments (whose (T*k, d) values take the portable
-flagged path, as in the reference, counted in its ``portable_calls`` on
-the card). ``"padded"`` keeps the capacity-padded scatter with its ghost
+over uniform k-wide segments (whose (T*k, d) values take the plain
+path, the reference's ``segment_sum`` branch, counted in its
+``portable_calls`` on the card). ``"padded"`` keeps the capacity-padded scatter with its ghost
 row. Both drop the same tokens.
 
 The reference's ``lax.ragged_dot`` lies outside any Pallas kernel, so a

@@ -67,6 +67,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import tree
+from repro_torch.core import distributed as D
 
 # ---------------------------------------------------------------------------
 # specs
@@ -341,7 +342,7 @@ def _product_group(mesh, axes, coords):
         mine_i = mine_i * ranks.shape[d] + coords[names[d]]
     mine = None
     for i, row in enumerate(rows):
-        g = dist.new_group(row)
+        g = D.new_group(row)
         if i == mine_i:
             mine = g
     return mine

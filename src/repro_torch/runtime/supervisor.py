@@ -17,7 +17,8 @@ What actually fails at 1000+ nodes and what this module does about it:
     ``NodeLossError`` carrying an ``ElasticPlan``: shrink the ``data`` axis
     to the largest size the survivors support, restore the last committed
     checkpoint under the new mesh (ckpt.restore with new shardings — leaves
-    are mesh-agnostic), and continue. The training loop (the JAX
+    are mesh-agnostic; on a process group every rank calls it, since with
+    ``step=None`` the ranks agree the step by a collective), and continue. The training loop (the JAX
     package's launch/train.py) owns the loop; the policy lives here and
     is unit-tested with injected failures.
   * **Stragglers**: per-host step-time EMA; a host slower than

@@ -380,6 +380,33 @@ def _close_or_equal(got, want, rtol):
     return bool(torch.isclose(g, w, rtol=rtol, atol=0.0))
 
 
+@pytest.mark.parametrize("case", ["int8_int32", "int8_square_int32",
+                                  "bf16_float32", "bf16_max_float32",
+                                  "float32_bf16"])
+def test_reduce_out_dtype_bitwise_on_exact_inputs(gen, case):
+    """The kernel's casting ``out_dtype``s: int8 operands summed into int32
+    (identity and square) and bf16 into float32 (add, max), float32 into
+    bf16: on exact inputs the kernel equals ``ref.reduce_ref``, bitwise,
+    at sizes across the grid's limits."""
+    body = MAPK.square if "square" in case else MAPK.identity
+    op, unit = ((torch.maximum, -math.inf) if "max" in case
+                else (torch.add, 0))
+    out = {"int32": torch.int32, "float32": torch.float32,
+           "bf16": torch.bfloat16}[case.rsplit("_", 1)[1]]
+    for n in STREAM_SIZES:
+        if case.startswith("int8"):
+            x = torch.randint(-128, 128, (n,), generator=gen, device="cuda",
+                              dtype=torch.int32).to(torch.int8)
+        else:   # every partial sum exact in float32 (|sum| < 2^24)
+            x = torch.randint(-3, 4, (n,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+            x = x.to(torch.bfloat16 if case.startswith("bf16")
+                     else torch.float32)
+        got = RK.reduce_blocks(body, op, x, unit=unit, out_dtype=out)
+        want = KREF.reduce_ref(body, op, x, unit=unit, out_dtype=out)
+        assert got.dtype == out and torch.equal(got, want), (case, n)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_reduce_every_body_dtype_and_operator(gen, dtype):
     """The reduce over every body of the catalogue (identity and square at

@@ -23,13 +23,15 @@ last column. Logits within the attention tolerance (rtol 2e-4, atol
 recurrent states; every other cache element bitwise equal, after
 ``sharding.gather_tree``; nothing is NaN. The reference runs in one
 subprocess (``decode_step`` jitted once a config), the port's ranks in
-``tests/torch_decode_worker.py``; both start as the module begins."""
+``tests/torch_decode_worker.py`` under a short gloo timeout; both start
+as the module begins, under one deadline."""
 import dataclasses
 import json
 import os
 import subprocess
 import sys
 import textwrap
+import time
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +40,7 @@ import pytest
 import torch
 
 import torch_decode_worker as W
+import torch_ranks as R
 from repro.configs import load_smoke_config as ref_smoke
 from repro.models import model as RM
 from repro_torch.convert import params_from_jax
@@ -65,6 +68,7 @@ CAPACITY = {"moe_drop": 1.0}
 #: the vector case's rows start in three shards and one parks past it
 VECTOR_START = (2, 6, 13, CACHE + 1)
 RTOL, ATOL_SHARE = 2e-4, 2e-5
+#: seconds the fixture's processes may take together
 WAIT = 300
 
 REFERENCE = """
@@ -167,12 +171,9 @@ def runs(tmp_path_factory):
     """(inputs by case, the reference's outputs, the ranks' outputs): the
     ranks start first and wait for ``in.pt``; the reference subprocess
     starts once its inputs are saved."""
+    deadline = time.monotonic() + WAIT
     tmp = str(tmp_path_factory.mktemp("decode"))
-    ctx = torch.multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=W.main, args=(r, tmp))
-             for r in range(W.NRANKS)]
-    for p in procs:
-        p.start()
+    procs = R.spawn(W.main, W.NRANKS, tmp)
     ref = None
     try:
         inp, port_in = {}, {}
@@ -203,21 +204,17 @@ def runs(tmp_path_factory):
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         torch.save(port_in, os.path.join(tmp, "in.part"))
         os.replace(os.path.join(tmp, "in.part"), os.path.join(tmp, "in.pt"))
-        for p in procs:
-            p.join(WAIT)
-        _, stderr = ref.communicate(timeout=WAIT)
+        codes = R.join(procs, deadline)
+        _, stderr = ref.communicate(
+            timeout=max(deadline - time.monotonic(), 1))
     finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
+        R.join(procs, 0)
         if ref is not None and ref.poll() is None:
             ref.kill()
             ref.communicate()
     assert ref.returncode == 0, stderr[-4000:]
-    errs = [open(os.path.join(tmp, f"err{r}.txt")).read()
-            for r in range(W.NRANKS)
-            if os.path.exists(os.path.join(tmp, f"err{r}.txt"))]
-    assert not errs and all(p.exitcode == 0 for p in procs), errs
+    errs = R.errors(tmp, W.NRANKS)
+    assert not errs and codes == [0] * W.NRANKS, (codes, errs)
     out = torch.load(os.path.join(tmp, "out.pt"), weights_only=False)
     want = {name: dict(np.load(os.path.join(tmp, name + ".out.npz")))
             for name in CASES}

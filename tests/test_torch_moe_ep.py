@@ -3,7 +3,9 @@ the CPU: ``moe_ffn_ep`` forward and backward against the reference's
 ``moe_ffn`` at no-drop capacity (``tests/test_moe.py:102``'s
 tolerances: rtol 2e-4 / atol 2e-5, aux rtol 1e-4; gradients each leaf
 within rtol 2e-4 and 2e-5 of its largest |value|) on the 1 x 4 and
-2 x 2 meshes, ``compressed_psum`` against the mean
+2 x 2 meshes, and at capacity factor 1, dropping tokens, against the
+reference's own ``moe_ffn_ep`` under ``shard_map`` (a subprocess over 4
+host devices, started with the ranks), ``compressed_psum`` against the mean
 (``tests/test_substrates.py:78``), one sharded expert-parallel train
 step against the single-process step, ``train_loop`` on the 2 x 2 mesh (each
 data rank its own rows) against the single process over all the rows,
@@ -16,7 +18,12 @@ sum(y_d^2) + 0.01 aux (y_d data row d's output), and its gradient of
 its blocks is their whole gradient: gathered, the gradient of the
 reference's sum(y^2) / data + 0.01 aux over the whole batch."""
 import dataclasses
+import json
 import os
+import subprocess
+import sys
+import textwrap
+import time
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +32,7 @@ import pytest
 import torch
 
 import torch_ep_worker as W
+import torch_ranks as R
 from repro.configs import load_smoke_config as ref_smoke
 from repro.models import moe as RMOE
 from repro_torch import tree
@@ -37,6 +45,38 @@ from repro_torch.launch.train import init_sharded, make_train_step
 from repro_torch.optim import adamw_init
 
 TOL = dict(rtol=2e-4, atol=2e-5)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: seconds the fixture's processes may take together
+WAIT = 240
+
+#: the reference's own ``moe_ffn_ep`` under ``shard_map`` over 4 host
+#: devices on the drop case's mesh, its capacity the rank's own: y, aux
+#: and the gradients of the global loss, saved as ``drop.npz``
+REFERENCE = """
+import dataclasses, json, os
+import numpy as np, jax, jax.numpy as jnp
+from repro.configs import load_smoke_config
+from repro.core import compat
+from repro.models import moe as M
+
+TMP, SHAPE, CF = json.loads({args!r})
+cfg = dataclasses.replace(load_smoke_config("granite_moe_1b"),
+                          dtype=jnp.float32)
+p = M.moe_init(jax.random.PRNGKey(0), cfg)
+x = jnp.asarray(np.load(os.path.join(TMP, "x.npy")))
+mesh = compat.make_mesh(tuple(SHAPE), ("data", "model"))
+
+def loss(p):
+    y, aux = M.moe_ffn_ep(p, cfg, x, mesh=mesh, capacity_factor=CF)
+    return jnp.sum(y * y) / SHAPE[0] + 0.01 * aux, (y, aux)
+
+(_, (y, aux)), g = jax.jit(jax.value_and_grad(loss, has_aux=True))(p)
+np.savez(os.path.join(TMP, "drop.part.npz"), y=np.asarray(y),
+         aux=np.asarray(aux), **{{"g_" + k: np.asarray(v)
+                                 for k, v in g.items()}})
+os.replace(os.path.join(TMP, "drop.part.npz"),
+           os.path.join(TMP, "drop.npz"))
+"""
 
 
 def _close(got, want, what):
@@ -67,21 +107,27 @@ def ranks(tmp_path_factory):
                np.float32)),
            "model": model, "batch": batch}
     torch.save(inp, os.path.join(tmp, "in.pt"))
-    ctx = torch.multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=W.main, args=(r, tmp))
-             for r in range(W.NRANKS)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(240)
-    for r, p in enumerate(procs):
-        if p.is_alive():
-            p.kill()
-    errs = [open(os.path.join(tmp, f"err{r}.txt")).read()
-            for r in range(W.NRANKS)
-            if os.path.exists(os.path.join(tmp, f"err{r}.txt"))]
-    assert not errs and all(p.exitcode == 0 for p in procs), errs
+    np.save(os.path.join(tmp, "x.npy"), x)
+    deadline = time.monotonic() + WAIT
+    args = json.dumps([tmp, W.DROP["mesh"], W.DROP["capacity_factor"]])
+    ref = subprocess.Popen(
+        [sys.executable, "-c", textwrap.dedent(REFERENCE.format(args=args))],
+        env=dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+                 XLA_FLAGS="--xla_force_host_platform_device_count=4"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        codes = R.join(R.spawn(W.main, W.NRANKS, tmp), deadline)
+        _, stderr = ref.communicate(
+            timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.communicate()
+    assert ref.returncode == 0, stderr[-4000:]
+    errs = R.errors(tmp, W.NRANKS)
+    assert not errs and codes == [0] * W.NRANKS, (codes, errs)
     out = torch.load(os.path.join(tmp, "out.pt"))
+    out["drop_ref"] = dict(np.load(os.path.join(tmp, "drop.npz")))
     return rcfg, cfg, rp, inp, out
 
 
@@ -115,6 +161,25 @@ def test_moe_ffn_ep_matches_the_reference(ranks, shape):
     assert coll["all_to_all"] == 2
     assert coll["all_gather"] == 1 + 4 * (shape[0] > 1)
     assert coll.get("all_reduce", 0) == 2 * sum(s > 1 for s in shape)
+
+
+def test_moe_ffn_ep_drops_as_the_reference_ep(ranks):
+    """At capacity factor 1 each rank's capacity is its own tokens', as
+    in the reference's ``moe_ffn_ep`` under ``shard_map``, and the
+    experts overflow (the ranks drop > 0 (token, choice) pairs): y, aux
+    and the gradients held to the reference's at the tolerances above."""
+    _, _, _, _, out = ranks
+    got, want = out["drop"], out["drop_ref"]
+    shape = W.DROP["mesh"]
+    assert got["dropped"] > 0
+    rows = want["y"].shape[0] // shape[0]
+    for r, y in enumerate(got["y"]):   # rank r holds its data row's y
+        d = r // shape[1]
+        np.testing.assert_allclose(
+            y.numpy(), want["y"][d * rows:(d + 1) * rows], **TOL)
+    np.testing.assert_allclose(got["aux"], float(want["aux"]), rtol=1e-4)
+    for name, g in got["grads"].items():
+        _close(g, want["g_" + name], name)
 
 
 def test_compressed_psum_matches_mean(ranks):

@@ -112,15 +112,18 @@ def test_override_precedence():
     t = registry.tuning
     assert t.lookup("sort")["switch_below"] == 0
     t.register_preset("p", {"sort": {"switch_below": 1}})
-    with t.preset("p"):
-        assert t.lookup("sort")["switch_below"] == 1
-        t.set("sort", switch_below=2)
-        assert t.lookup("sort")["switch_below"] == 2
-        with t.overrides(sort={"switch_below": 3}):
-            with t.overrides({"sort": {"switch_below": 4}}):
-                assert t.lookup("sort")["switch_below"] == 4
-            assert t.lookup("sort")["switch_below"] == 3
-        assert t.lookup("sort")["switch_below"] == 2
+    try:
+        with t.preset("p"):
+            assert t.lookup("sort")["switch_below"] == 1
+            t.set("sort", switch_below=2)
+            assert t.lookup("sort")["switch_below"] == 2
+            with t.overrides(sort={"switch_below": 3}):
+                with t.overrides({"sort": {"switch_below": 4}}):
+                    assert t.lookup("sort")["switch_below"] == 4
+                assert t.lookup("sort")["switch_below"] == 3
+            assert t.lookup("sort")["switch_below"] == 2
+    finally:   # the table has no unregister: a later tune_all in this
+        t._presets.pop("p")   # process would seed the preset
     t.reset("sort")
     assert t.lookup("sort")["switch_below"] == 0
     with pytest.raises(KeyError):
@@ -388,3 +391,145 @@ def test_topk_kernel_route_keeps_the_gradient():
     ids = torch.randint(0, 8, (64,), dtype=torch.int32)
     ak.sortperm(ids, backend="cuda")
     assert registry.get("argsort").cache_backends() == ("cuda",)
+
+
+# -- the reduce kernel's out_dtype --------------------------------------------
+
+#: (operand dtype, body, op, out_dtype, refused): the port's kernel takes
+#: float32, int32 and bfloat16 for add/mul/min/max (int8 operands through
+#: identity and square), bool for and/or (not over int8)
+REDUCE_OUT = [
+    (torch.int8, "identity", torch.add, torch.int32, False),
+    (torch.int8, "square", torch.add, torch.int32, False),
+    (torch.bfloat16, "identity", torch.add, torch.float32, False),
+    (torch.float32, "identity", torch.maximum, torch.bfloat16, False),
+    (torch.int32, "square", torch.mul, torch.float32, False),
+    (torch.float32, "identity", torch.add, None, False),
+    (torch.int8, "identity", torch.add, None, True),
+    (torch.int8, "rbf", torch.add, torch.float32, True),
+    (torch.float32, "identity", torch.add, torch.int8, True),
+    (torch.float32, "identity", torch.add, torch.bool, True),
+    (torch.float64, "identity", torch.add, torch.float32, True),
+    (torch.float32, "identity", torch.logical_and, torch.float32, True),
+    (torch.int8, "identity", torch.logical_or, torch.bool, True),
+]
+
+
+@pytest.mark.parametrize("case", range(len(REDUCE_OUT)))
+def test_reduce_kernel_out_dtype_refusals(case):
+    """The kernel route takes an ``out_dtype`` by the rule above: under
+    ``backend="cuda"`` a refused one raises, an accepted one runs the
+    kernel's plain version here and equals ``ref.reduce_ref``."""
+    from repro_torch.kernels import map_kernel as MAPK
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as KREF
+    from repro_torch.kernels import reduce_kernel as RK
+
+    dtype, body, op, out, refused = REDUCE_OUT[case]
+    f = MAPK.BODIES[body]
+    x = [torch.arange(-6, 7).to(dtype)] * f.arity
+    unit = {torch.add: 0, torch.mul: 1, torch.maximum: -100,
+            torch.logical_and: True, torch.logical_or: False}[op]
+    assert (RK.refusal(f, op, x, out) is not None) == refused
+    if refused:
+        with pytest.raises(TypeError):
+            kops.mapreduce(f, op, *x, unit=unit, out_dtype=out)
+        return
+    got = kops.mapreduce(f, op, *x, unit=unit, out_dtype=out)
+    want = KREF.reduce_ref(f, op, *x, unit=unit, out_dtype=out)
+    assert got.dtype == (out or dtype) and torch.equal(got, want)
+
+
+#: the (operand dtype, out_dtype) pairs the kernel casts between
+REDUCE_CASTS = [(a, b) for a in ("int8", "int32", "float32", "bfloat16")
+                for b in ("int32", "float32", "bfloat16") if a != b]
+#: the catalogue's operators, the reference's, and the unit each starts
+#: from (127 and -128 lie inside every operand dtype's range here)
+_REDUCE_OPS = {"add": (torch.add, "add", 0), "mul": (torch.mul, "multiply", 1),
+               "min": (torch.minimum, "minimum", 127),
+               "max": (torch.maximum, "maximum", -128)}
+
+
+def _reduce_operand(dtype, op, rng, exact):
+    """8192 seeded values: for a product +-1 with 16 entries +-2; an exact
+    input is otherwise 0 with 16 entries in -3..3 (no sum, square or
+    product of it rounds or wraps in any dtype); a full-range input is
+    int8 over -128..127, int32 over +-2^20, floats standard normal."""
+    import numpy as np
+
+    n = 8192
+    if op == "mul":
+        v = rng.choice([-1.0, 1.0], n)
+        v[rng.choice(n, 16, replace=False)] *= 2
+    elif exact:
+        v = np.zeros(n)
+        v[rng.choice(n, 16, replace=False)] = rng.integers(-3, 4, 16)
+    elif dtype == "int8":
+        v = rng.integers(-128, 128, n)
+    elif dtype == "int32":
+        v = rng.integers(-2 ** 20, 2 ** 20, n)
+    else:
+        v = rng.standard_normal(n)
+    return torch.from_numpy(v.astype(np.float64)).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype,out", REDUCE_CASTS)
+def test_reduce_out_dtype_against_the_reference(dtype, out):
+    """Every out_dtype the kernel casts to, under add, mul, min and max
+    through ``identity`` and ``square``, held to the reference on the same
+    inputs. The port's kernel route (its plain version here) against the
+    reference's ``reduce_ref``: on an exact input bitwise; at full range
+    bitwise for int32 outputs, min, max and products, float32 sums to
+    rtol 2e-4 / atol 2e-5, and a bfloat16 sum, which the port folds in
+    float32 and rounds once, within one bfloat16 ulp of the reference's
+    float32 sum rounded to bfloat16 (the reference's folds in bfloat16).
+    The reference's Pallas kernel in interpret mode takes only int8 ->
+    int32 of these, bitwise the port's on the exact input, while at full
+    range its int8 partial sums wrap; it refuses every other pair."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.kernels import ops as JOPS
+    from repro.kernels import ref as JREF
+    from repro_torch.kernels import map_kernel as MAPK
+    from repro_torch.kernels import ops as kops
+
+    rng = np.random.default_rng(REDUCE_CASTS.index((dtype, out)))
+    tout, jout = getattr(torch, out), getattr(jnp, out)
+    bodies = {"identity": lambda v: v, "square": lambda v: v * v}
+    for body, jf in bodies.items():
+        f = MAPK.BODIES[body]
+        for name, (op, jname, unit) in _REDUCE_OPS.items():
+            jop = getattr(jnp, jname)
+            for exact in (True, False):
+                x = _reduce_operand(dtype, name, rng, exact)
+                xj = jnp.asarray(x.double().numpy()).astype(getattr(jnp, dtype))
+                got = kops.mapreduce(f, op, x, unit=unit, out_dtype=tout)
+                want = JREF.reduce_ref(jf, jop, xj, unit=unit,
+                                       out_dtype=jout)
+                want = torch.from_numpy(np.array(
+                    want.astype(jnp.float32) if out == "bfloat16"
+                    else want)).to(tout)
+                what = (body, name, exact)
+                assert got.dtype == tout, what
+                if exact or out == "int32" or name != "add":
+                    assert torch.equal(got, want), (what, got, want)
+                elif out == "float32":
+                    torch.testing.assert_close(got, want, rtol=2e-4,
+                                               atol=2e-5, msg=str(what))
+                else:
+                    once = float(JREF.reduce_ref(jf, jop, xj, unit=unit,
+                                                 out_dtype=jnp.float32))
+                    want = torch.tensor(once).to(tout).double()
+                    ulp = 2.0 ** (torch.floor(torch.log2(want.abs())) - 7)
+                    assert abs(got.double() - want) <= ulp, (what, got, want)
+                if (dtype, out) != ("int8", "int32"):
+                    with pytest.raises((ValueError, TypeError)):
+                        JOPS.mapreduce(jf, jop, xj, unit=unit,
+                                       out_dtype=jout)
+                    continue
+                pallas = torch.tensor(int(JOPS.mapreduce(
+                    jf, jop, xj, unit=unit, out_dtype=jout)),
+                    dtype=torch.int32)
+                wraps = not exact and name == "add"
+                assert torch.equal(pallas, got) != wraps, (what, pallas, got)

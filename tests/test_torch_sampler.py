@@ -15,8 +15,10 @@ import torch
 
 from repro import core as rak
 from repro.kernels import nucleus_kernel as RN
+from repro.kernels import ops as rops
 from repro_torch import core as ak
 from repro_torch.kernels import nucleus_kernel as NK
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels import sort_kernel as SK
 from repro_torch.kernels.common import NEG_MASK
 from repro_torch.launch import serve
@@ -66,6 +68,29 @@ def test_batched_sorts_bitwise_vs_reference_pallas():
     rv, ri = rak.topk(x, 7, backend="pallas")
     assert_bitwise(tv, rv)
     assert_bitwise(ti, ri)
+
+
+def test_kernel_entry_points_vs_reference_pallas():
+    """``kernels.ops``' ``sort_batched``, ``argsort_batched``, ``topk`` and
+    ``nucleus_mask`` (the kernels pinned; their plain versions on the CPU)
+    against the reference's ``kernels/ops.py`` entry points in interpret
+    mode: the sorts bitwise, the mask away from the cut. The shapes are
+    the Pallas cases' above, whose compiles the reference reuses."""
+    a = _rows(np.random.default_rng(1), (3, 300), "f32")
+    x = jnp.asarray(a)
+    assert_bitwise(kops.sort_batched(t(a), descending=True),
+                   rops.sort_batched(x, descending=True))
+    assert_bitwise(kops.argsort_batched(t(a)), rops.argsort_batched(x))
+    tv, ti = kops.topk(t(a), 7)
+    rv, ri = rops.topk(x, 7)
+    assert_bitwise(tv, rv)
+    assert_bitwise(ti, ri)
+    lg = np.random.default_rng(2).standard_normal((3, 300)).astype(
+        np.float32)
+    far = ~_near_cut(lg, 0.9)
+    got = kops.nucleus_mask(t(lg), top_p=0.9).numpy()
+    want = np.asarray(rops.nucleus_mask(jnp.asarray(lg), top_p=0.9))
+    np.testing.assert_array_equal(got[far], want[far])
 
 
 def test_batched_launch_set_closed_form_does_not_grow_with_rows():

@@ -11,7 +11,9 @@ exact-arithmetic values (integers in [-3, 3], sparse for bfloat16: every
 partial sum is exact in any order), int, min/max and every sort; rtol 1e-4 / atol 1e-3 for
 float add on normal data. The sort's float tie-break case puts -0.0 and
 0.0 in one segment: the port's network must order them as the
-reference's Pallas network does.
+reference's Pallas network does. The plain segmented reduce of (add, 0)
+is the reference's ``segment_sum`` branch (the MoE combine's): held to
+it and its gradient at the combine's layout and over empty segments.
 """
 import functools
 
@@ -202,6 +204,86 @@ def test_segmented_feature_axes_take_the_portable_path(monkeypatch):
         backend="jnp")))
     assert registry.stats("segmented_reduce")["portable_calls"] == 1
     assert registry.stats("segmented_scan")["portable_calls"] == 1
+
+
+#: the MoE combine's layout at a small size: T tokens' k-wide rows of
+#: d features
+COMBINE = (64, 8, 16)
+
+
+def _segment_sum_close(got, want, dtype):
+    """ROADMAP's parity classes: float32 rtol 2e-4 / atol 2e-5, bf16
+    within 2^-4 of the largest |value|."""
+    got = got.float().numpy() if dtype == "bf16" else got.numpy()
+    want = np.asarray(want, dtype=np.float32)
+    if dtype == "bf16":
+        assert np.abs(got - want).max() <= 2.0**-4 * np.abs(want).max()
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+def _segment_sum_and_grad(vals, off, g):
+    """The port's ``segmented_reduce(add, init=0)`` and the gradient of
+    sum(out * g) (autograd), twice: the second run's bits must be the
+    first's."""
+    runs = []
+    for _ in range(2):
+        v = t(vals).requires_grad_(True)
+        y = ak.segmented_reduce(torch.add, v, t(off), init=0)
+        (gv,) = torch.autograd.grad(y, v, t(g))
+        runs.append((y.detach(), gv))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    return runs[0]
+
+
+def _reference_segment_sum_and_grad(vals, off, g):
+    """The reference's oracle (``jax.ops.segment_sum`` for add, 0) and
+    ``jax.grad`` of sum(out * g)."""
+    o = jnp.asarray(off)
+
+    def f(v):
+        return JSG.segmented_reduce_ref(jnp.add, v, o, init=0)
+    want = f(jnp.asarray(vals))
+    grad = jax.grad(lambda v: jnp.sum(f(v) * jnp.asarray(g)))(
+        jnp.asarray(vals))
+    return np.asarray(want), np.asarray(grad)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_combine_segment_sum_and_grad_vs_reference(dtype):
+    """The combine's (T*k, d) values in uniform k-wide rows through the
+    plain path, the reference's ``segment_sum`` branch: the sums within
+    the parity class, the gradient (each value's row of g) bitwise, and
+    the same bits from run to run."""
+    T, k, d = COMBINE
+    rng = np.random.default_rng(11)
+    vals = keys(rng, T * k * d, dtype).reshape(T * k, d)
+    g = keys(rng, T * d, dtype).reshape(T, d)
+    off = (np.arange(T + 1) * k).astype(np.int32)
+    y, gv = _segment_sum_and_grad(vals, off, g)
+    want, grad = _reference_segment_sum_and_grad(vals, off, g)
+    assert tuple(y.shape) == (T, d) and y.dtype == t(vals).dtype
+    _segment_sum_close(y, want, dtype)
+    assert_bitwise(gv, grad)
+
+
+@pytest.mark.parametrize("width", [None, 3])
+def test_segment_sum_with_empty_segments_and_grad_vs_reference(width):
+    """A CSR with empty segments at both ends and in the middle, 1-D and
+    with a feature axis: empty segments sum to 0, their gradient is
+    none."""
+    lengths = _lengths("empty_both_ends")
+    off = _offsets(lengths)
+    n, nseg = int(off[-1]), len(lengths)
+    rng = np.random.default_rng(12)
+    shape = (n,) if width is None else (n, width)
+    vals = keys(rng, int(np.prod(shape)), "f32").reshape(shape)
+    g = keys(rng, nseg * (width or 1), "f32").reshape((nseg,) + shape[1:])
+    y, gv = _segment_sum_and_grad(vals, off, g)
+    want, grad = _reference_segment_sum_and_grad(vals, off, g)
+    _segment_sum_close(y, want, "f32")
+    assert not y[torch.from_numpy(np.diff(off) == 0)].any()
+    assert_bitwise(gv, grad)
 
 
 @pytest.mark.parametrize("layout", ["ragged", "empty_both_ends",

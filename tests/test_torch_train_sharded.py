@@ -8,7 +8,11 @@ global batch, float32 smoke configs:
     (ssm) on the 2 x 2 ("data", "model") mesh;
   * yi on 2 x 2 (7 query heads and 1 KV head on 2 ``model`` ranks) and
     internlm2 on 1 x 4 (2 KV heads on 4 ranks), where K/V are gathered;
-  * internlm2 on 2 x 2 with ``accum_steps=2``.
+  * internlm2 on 2 x 2 with ``accum_steps=2``;
+  * granite-moe on 2 x 2 at batch 16 and capacity factor 1
+    (``moe_drop``): the experts overflow, and each data rank drops by
+    the whole batch's capacity, as the reference's one program does
+    (the drops counted on the ranks must be > 0).
 
 Compared: the loss (rtol 2e-5, the train file's), the gradient norm (rtol
 1e-5), the new moments gathered whole (m = 0.1 g and v = 0.05 g^2 after
@@ -20,10 +24,14 @@ into up to a whole step, so there the bound is 2 lr). Every leaf kept
 whole over ``model`` has bitwise equal moments on the ``model`` ranks.
 The placed state saved to per-rank shard files restores bitwise, and a
 ``train_loop`` resumed from its checkpoint equals the unbroken run
-bitwise. The reference runs in two subprocesses (its compiles are the
-slow part), the port's ranks in ``tests/torch_sharded_worker.py``; all
-start together, and the ranks begin once the reference has saved its
-parameters."""
+bitwise. Three resume races (``torch_sharded_worker.RACES``): with one
+rank's last commit held back, with one rank's files of the newest step
+removed, and with one rank's listing showing it an older newest step,
+every rank resumes at the same step and ends as the unbroken run. The reference runs in two subprocesses (its compiles are
+the slow part), the port's ranks in ``tests/torch_sharded_worker.py``
+under a short gloo timeout (``tests/torch_ranks.py``); all start
+together under one deadline, and the ranks begin once the reference has
+saved its parameters."""
 import dataclasses
 import json
 import os
@@ -38,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_ranks as R
 import torch_sharded_worker as W
 from repro.configs import load_smoke_config as ref_smoke
 from repro.models import model as RM
@@ -55,7 +64,12 @@ CASES = {
     "kv1": ("yi_34b", (2, 2), False, 1),
     "kv2_tp4": ("internlm2_1_8b", (1, 4), False, 1),
     "accum": ("internlm2_1_8b", (2, 2), False, 2),
+    "moe_drop": ("granite_moe_1b", (2, 2), False, 1),
 }
+#: global batches and capacity factors other than B and the smoke
+#: config's (the moe_drop case's experts overflow)
+BATCH = {"moe_drop": 16}
+CAPACITY = {"moe_drop": 1.0}
 LOSS_RTOL, GNORM_RTOL = 2e-5, 1e-5
 RTOL, ATOL_SHARE = 2e-4, 2e-5
 
@@ -68,7 +82,7 @@ from repro.launch.train import jitted_train_step, shardings_for
 from repro.models import model as M
 from repro.optim import adamw_init
 
-CASES, OUT, B, S, SEED, LR = json.loads({args!r})
+CASES, OUT, S, SEED, LR = json.loads({args!r})
 cfgs, inits = {{}}, {{}}
 for arch, *_ in CASES.values():   # the parameters first: the port waits
     if arch in inits:
@@ -81,9 +95,11 @@ for arch, *_ in CASES.values():   # the parameters first: the port waits
     part = os.path.join(OUT, "init_" + arch + ".part.npz")
     np.savez(part, *jax.tree.leaves(inits[arch]))
     os.replace(part, os.path.join(OUT, "init_" + arch + ".npz"))
-for name, (arch, shape, use_ep, accum) in CASES.items():
+for name, (arch, shape, use_ep, accum, B, cf) in CASES.items():
     # fresh buffers a case: the step donates its inputs
     cfg, params = cfgs[arch], jax.tree.map(jnp.asarray, inits[arch])
+    if cf is not None:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=cf)
     mesh = compat.make_mesh(tuple(shape), ("data", "model"))
     toks = np.random.default_rng(SEED).integers(
         0, cfg.vocab, size=(B, S + 1)).astype(np.int32)
@@ -103,22 +119,21 @@ for name, (arch, shape, use_ep, accum) in CASES.items():
     np.savez(os.path.join(OUT, name + ".npz"), **out)
 print("reference done")
 """
-#: seconds any process of the fixture may take
+#: seconds the fixture's processes may take together
 WAIT = 300
 
 
-def _batch(cfg):
+def _batch(cfg, batch=B):
     toks = np.random.default_rng(SEED).integers(
-        0, cfg.vocab, size=(B, S + 1)).astype(np.int32)
+        0, cfg.vocab, size=(batch, S + 1)).astype(np.int32)
     return {"tokens": torch.from_numpy(toks[:, :-1].copy()),
             "labels": torch.from_numpy(toks[:, 1:].copy())}
 
 
-def _reference_init(tmp, arch, refs):
+def _reference_init(tmp, arch, refs, deadline):
     """The reference's ``init_params`` of ``arch`` as its subprocess saved
     it (waiting for the file), as a JAX-structured tree of arrays."""
     path = os.path.join(tmp, f"init_{arch}.npz")
-    deadline = time.monotonic() + WAIT
     while not os.path.exists(path):
         for ref in refs:
             if ref.poll():
@@ -139,7 +154,9 @@ def runs(tmp_path_factory):
     outputs by case as the port's trees, the port ranks' outputs). The
     reference's two subprocesses take alternate archs and save each
     arch's parameters before their steps; the port's ranks start at once
-    and wait for ``in.pt``, made from those parameters."""
+    and wait for ``in.pt``, made from those parameters. Every process
+    runs under one deadline, ``WAIT`` seconds from the start."""
+    deadline = time.monotonic() + WAIT
     tmp = str(tmp_path_factory.mktemp("sharded"))
     env = dict(os.environ,
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
@@ -147,44 +164,43 @@ def runs(tmp_path_factory):
     archs = list(dict.fromkeys(arch for arch, *_ in CASES.values()))
     refs = []
     for half in (archs[::2], archs[1::2]):   # two compiles at a time
-        part = {n: c for n, c in CASES.items() if c[0] in half}
-        args = json.dumps([part, tmp, B, S, SEED, W.LR])
+        part = {n: (*c, BATCH.get(n, B), CAPACITY.get(n))
+                for n, c in CASES.items() if c[0] in half}
+        args = json.dumps([part, tmp, S, SEED, W.LR])
         refs.append(subprocess.Popen(
             [sys.executable, "-c",
              textwrap.dedent(REFERENCE.format(args=args))],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True))
-    ctx = torch.multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=W.main, args=(r, tmp))
-             for r in range(W.NRANKS)]
-    for p in procs:
-        p.start()
+    procs = R.spawn(W.main, W.NRANKS, tmp)
     try:
         rparams, cases = {}, {}
         for name, (arch, shape, use_ep, accum) in CASES.items():
             if arch not in rparams:
-                rparams[arch] = _reference_init(tmp, arch, refs)
+                rparams[arch] = _reference_init(tmp, arch, refs, deadline)
             cases[name] = {"arch": arch, "mesh": shape, "use_ep": use_ep,
                            "accum": accum,
+                           "capacity_factor": CAPACITY.get(name),
                            "params": params_from_jax(rparams[arch],
                                                      W.config(arch),
                                                      device="cpu"),
-                           "batch": _batch(W.config(arch))}
+                           "batch": _batch(W.config(arch),
+                                           BATCH.get(name, B))}
         torch.save({"cases": cases}, os.path.join(tmp, "in.part"))
         os.replace(os.path.join(tmp, "in.part"), os.path.join(tmp, "in.pt"))
-        for p in procs:
-            p.join(WAIT)
+        codes = R.join(procs, deadline)
+        for ref in refs:
+            _, stderr = ref.communicate(
+                timeout=max(deadline - time.monotonic(), 1))
+            assert ref.returncode == 0, stderr[-4000:]
     finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-    for ref in refs:
-        _, stderr = ref.communicate(timeout=WAIT)
-        assert ref.returncode == 0, stderr[-4000:]
-    errs = [open(os.path.join(tmp, f"err{r}.txt")).read()
-            for r in range(W.NRANKS)
-            if os.path.exists(os.path.join(tmp, f"err{r}.txt"))]
-    assert not errs and all(p.exitcode == 0 for p in procs), errs
+        R.join(procs, 0)
+        for ref in refs:
+            if ref.poll() is None:
+                ref.kill()
+                ref.communicate()
+    errs = R.errors(tmp, W.NRANKS)
+    assert not errs and codes == [0] * W.NRANKS, (codes, errs)
     out = torch.load(os.path.join(tmp, "out.pt"), weights_only=False)
     want = {}
     for name, (arch, *_rest) in CASES.items():
@@ -273,4 +289,28 @@ def test_sharded_loop_resumes_as_the_unbroken_run(runs):
     assert res["losses"] == whole["losses"]
     assert all(np.isfinite(whole["losses"]))
     for a, b in zip(tree.leaves(res["params"]), tree.leaves(whole["params"])):
+        assert torch.equal(a, b)
+
+
+def test_moe_drop_case_drops_tokens(runs):
+    """The moe_drop case's capacity drops (token, choice) pairs on the
+    ranks, the rest of the cases none."""
+    _, _, out = runs
+    for name in CASES:
+        dropped = out["cases"][name]["dropped"]
+        assert (dropped > 0) == (name == "moe_drop"), (name, dropped)
+
+
+@pytest.mark.parametrize("race", list(W.RACES))
+def test_sharded_loop_resumes_at_one_agreed_step(runs, race):
+    """Every rank resumes at the step all ranks committed (the held-back
+    commit is waited for; a step whose files are torn, or that one rank
+    does not list, is not taken) and ends as the unbroken run, bitwise."""
+    _, _, out = runs
+    got, whole = out["races"][race], out["unbroken"]
+    start = W.RACES[race]
+    assert got["starts"] == [start] * W.NRANKS
+    assert got["losses"] == whole["losses"][start:]
+    for a, b in zip(tree.leaves(got["params"]),
+                    tree.leaves(whole["params"])):
         assert torch.equal(a, b)

@@ -13,10 +13,11 @@ Rank 0 saves the results in ``out.pt``."""
 import dataclasses
 import os
 import time
-import traceback
 
 import torch
 import torch.distributed as dist
+
+import torch_ranks as R
 
 NRANKS = 4
 
@@ -67,16 +68,9 @@ def _case(case):
 
 def main(rank: int, tmp: str) -> None:
     try:
-        torch.set_num_threads(1)   # four ranks share the host's cores
-        store = dist.FileStore(os.path.join(tmp, "store"), NRANKS)
-        dist.init_process_group("gloo", store=store, rank=rank,
-                                world_size=NRANKS)
+        R.init_gloo(tmp, rank, NRANKS)
         path = os.path.join(tmp, "in.pt")
-        deadline = time.monotonic() + 300
-        while not os.path.exists(path):
-            if time.monotonic() > deadline:
-                raise TimeoutError(path)
-            time.sleep(0.05)
+        R.wait_for(path, time.monotonic() + 300)
         inp = torch.load(path, weights_only=False)
         out = {name: _case(case) for name, case in inp.items()}
         if rank == 0:
@@ -84,6 +78,5 @@ def main(rank: int, tmp: str) -> None:
         dist.barrier()
         dist.destroy_process_group()
     except BaseException:
-        with open(os.path.join(tmp, f"err{rank}.txt"), "w") as f:
-            f.write(traceback.format_exc())
+        R.record_error(tmp, rank)
         raise

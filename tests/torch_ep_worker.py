@@ -1,21 +1,28 @@
 """Rank body of ``tests/test_torch_moe_ep.py`` (no JAX import: each rank
-is a spawned process). Four ranks join one gloo group over a FileStore
-and run, on the CPU: ``moe_ffn_ep`` forward and backward on the 1 x 4 and
-2 x 2 meshes, ``compressed_psum`` one-shot and over 20 error-feedback
-rounds, one sharded train step with ``use_ep`` on the 1 x 4 mesh, and
-``train_loop`` on the 2 x 2 mesh with and without ``use_ep`` (each data
-rank its own rows of the batch; the loop's sharded state gathered whole).
+is a spawned process). Four ranks join one gloo group over a FileStore,
+under a short collective timeout (``tests/torch_ranks.py``), and run, on
+the CPU: ``moe_ffn_ep`` forward and backward on the 1 x 4 and 2 x 2
+meshes and, dropping tokens, at :data:`DROP`, ``compressed_psum``
+one-shot and over 20 error-feedback rounds, one sharded train step with
+``use_ep`` on the 1 x 4 mesh, and ``train_loop`` on the 2 x 2 mesh with
+and without ``use_ep`` (each data rank its own rows of the batch; the
+loop's sharded state gathered whole).
 Rank 0 saves what the test compares."""
 import dataclasses
 import os
-import traceback
 
 import torch
 import torch.distributed as dist
 
+import torch_ranks as R
+
 NRANKS = 4
 #: the 2 x 2 mesh's ``train_loop``: steps, global batch, sequence, lr
 LOOP = {"steps": 2, "batch": 4, "seq": 32, "lr": 1e-3}
+
+
+#: the drop case: ``moe_ffn_ep`` where each rank's experts overflow
+DROP = {"mesh": (2, 2), "capacity_factor": 1.0}
 
 
 def loop_config(cfg):
@@ -24,14 +31,18 @@ def loop_config(cfg):
     return dataclasses.replace(cfg, moe_capacity_factor=float(cfg.n_experts))
 
 
-def _ep_case(inp, cfg, mesh):
-    """y, aux, the forward's collectives and the gradients of the global
-    loss mean_d sum(y_d^2) + 0.01 aux, y_d data row d's output: each rank
-    runs ``moe_ffn_ep`` on its blocks of the stacks under the sharding
-    hooks (Megatron's convention: every rank's gradient of its blocks is
-    their whole gradient), and the blocks' gradients are gathered whole."""
+def _ep_case(inp, cfg, mesh, capacity_factor=None):
+    """y, aux, the forward's collectives, the (token, choice) pairs the
+    ranks dropped and the gradients of the global loss mean_d sum(y_d^2)
+    + 0.01 aux, y_d data row d's output: each rank runs ``moe_ffn_ep``
+    on its blocks of the stacks under the sharding hooks (Megatron's
+    convention: every rank's gradient of its blocks is their whole
+    gradient), at ``capacity_factor`` (default: no drop), and the blocks'
+    gradients are gathered whole."""
     from repro_torch.models import moe as MOE
     from repro_torch.models import sharding as SH
+
+    cf = capacity_factor or float(cfg.n_experts)
 
     grid = SH.grid_of(mesh)
     specs = SH.param_spec_tree({"moe": inp["p"]}, cfg,
@@ -42,9 +53,10 @@ def _ep_case(inp, cfg, mesh):
     live = {k: SH.local_shard(v, grid, specs[k]).clone().requires_grad_(True)
             for k, v in inp["p"].items()}
     SH.reset_collective_stats()
-    y, aux = MOE.moe_ffn_ep(live, cfg, x, mesh=mesh,
-                            capacity_factor=float(cfg.n_experts))
+    with R.counting_drops() as dropped:
+        y, aux = MOE.moe_ffn_ep(live, cfg, x, mesh=mesh, capacity_factor=cf)
     stats = SH.collective_stats()
+    dist.all_reduce(dropped)
     with SH.mesh_context(grid):
         loss = SH.dp_mean(torch.sum(y * y)) + 0.01 * aux
     names = list(live)
@@ -54,15 +66,13 @@ def _ep_case(inp, cfg, mesh):
     return {"y": ys, "aux": float(aux.detach()),
             "grads": {n: SH.gather_full(g, grid, specs[n])
                       for n, g in zip(names, grads)},
-            "collectives": {k: v["count"] for k, v in stats.items()}}
+            "collectives": {k: v["count"] for k, v in stats.items()},
+            "dropped": int(dropped)}
 
 
 def main(rank: int, tmp: str) -> None:
     try:
-        torch.set_num_threads(1)   # four ranks share the host's cores
-        store = dist.FileStore(os.path.join(tmp, "store"), NRANKS)
-        dist.init_process_group("gloo", store=store, rank=rank,
-                                world_size=NRANKS)
+        R.init_gloo(tmp, rank, NRANKS)
         from repro_torch.configs import load_smoke_config
         from repro_torch.launch.mesh import make_host_mesh
         from repro_torch.convert import shard_tree
@@ -78,6 +88,8 @@ def main(rank: int, tmp: str) -> None:
             mesh = make_host_mesh(*shape)
             assert mesh.shape == {"data": shape[0], "model": shape[1]}
             out[shape] = _ep_case(inp, cfg, mesh)
+        out["drop"] = _ep_case(inp, cfg, make_host_mesh(*DROP["mesh"]),
+                               DROP["capacity_factor"])
         # compressed psum: one shot, then error-feedback rounds
         g = inp["g"][rank]
         one, _ = compressed_psum(g)
@@ -112,6 +124,5 @@ def main(rank: int, tmp: str) -> None:
         dist.barrier()
         dist.destroy_process_group()
     except BaseException:
-        with open(os.path.join(tmp, f"err{rank}.txt"), "w") as f:
-            f.write(traceback.format_exc())
+        R.record_error(tmp, rank)
         raise
